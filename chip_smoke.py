@@ -1,0 +1,480 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``swarmacb_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass for the run to pass:
+
+  1. the card: its name and power limit (``nvidia-smi``), TF32 switched
+     off for matrix products and convolutions, and the build of every
+     CUDA kernel of the port from ``swarmacb_torch/ops/csrc`` (one nvcc
+     per source, all started together);
+  2. one phase per kernel, at the shapes of the main path (K1 and K2:
+     E = 1024 arenas of N = 20 robots; K3f: B = 1024 groups, N = 20,
+     H = 4 heads, h = 512): the kernel against its plain PyTorch version
+     on the same inputs, made from a numpy seed, with the tolerance
+     printed beside the error; the median device time of each over 25
+     runs after warm-up; and the least time the card could take (bound);
+  3. the slice: ``configs/DirGate_dandelion.yaml`` through the port's
+     loader, cut to E = 1024 arenas and a 200-decision horizon, drives
+     ``DirectionalGateEnv.reset`` and ``POCATrainer.rollout`` (env step,
+     actor, critic value, all N counterfactual baselines, bootstrap value)
+     on the card. Every kernel's launch count must show that the main path
+     went through it. A small rollout at the full width (E = 4, T = 4,
+     h = 512) is then held against the same rollout on the CPU, where every
+     op takes its plain version;
+  4. a JSON line with every kernel's numbers, then the final status line.
+
+It exits non-zero, and prints no result, where there is no CUDA device or
+where the port's package is not beside this script.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
+# float32 on the CUDA cores, and device-memory bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+E_MAIN, N_MAIN = 1024, 20           # arenas × robots on the main path
+H_MAIN, HID_MAIN = 4, 512           # critic heads × hidden width
+HORIZON = 200                       # decisions in the smoke rollout
+RUNS, WARMUP = 25, 3                # timed runs per function
+SEED = 0
+DEVICE = "cuda"
+
+failures: list[str] = []
+
+
+def check(ok: bool, what: str) -> None:
+    print(f"  [{'ok' if ok else 'FAIL'}] {what}", flush=True)
+    if not ok:
+        failures.append(what)
+
+
+# ── timing ───────────────────────────────────────────────────────────────
+
+def _sleep_cycles_per_ms(torch) -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond of device time."""
+    cycles = 10_000_000
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    torch.cuda.synchronize()
+    return cycles / a.elapsed_time(b)
+
+
+def device_ms(torch, fn, cycles_per_ms: float) -> float:
+    """Median device time of one call of ``fn``, in ms, over RUNS calls.
+
+    A sleep kernel keeps the device busy while the host enqueues the calls,
+    each between two CUDA events, so the intervals hold device time only
+    and no host gaps between launches.
+    """
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(RUNS + 1)]
+    torch.cuda._sleep(int((2.0 * RUNS * host_s * 1e3 + 5.0) * cycles_per_ms))
+    events[0].record()
+    for i in range(RUNS):
+        fn()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    return statistics.median(events[i].elapsed_time(events[i + 1])
+                             for i in range(RUNS))
+
+
+def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    """The least time the card could take: bytes over memory bandwidth or
+    operations over the float32 peak, whichever is larger."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(got, want, atol: float, rtol: float) -> tuple[float, bool]:
+    """max |got − want| and whether every element is within atol + rtol·|want|."""
+    diff = (got.double() - want.double()).abs()
+    ok = bool((diff <= atol + rtol * want.double().abs()).all())
+    return float(diff.max()), ok
+
+
+# ── phase 1: the card and the build ──────────────────────────────────────
+
+def phase_card(torch, ops):
+    print("== phase 1: the card and the kernel build", flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0].strip()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"  torch {torch.__version__} (CUDA {torch.version.cuda}) on "
+          f"{torch.cuda.get_device_name(0)}; "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+    t0 = time.perf_counter()
+    per_source = ops.build()
+    print(f"  kernel build: {time.perf_counter() - t0:.2f} s wall "
+          f"({', '.join(f'{k}.cu {v:.2f} s' for k, v in per_source.items())})",
+          flush=True)
+    from swarmacb_torch.ops import _cuda
+
+    for name in _cuda.SOURCES:
+        for line in _cuda.build_log(name).splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
+    return card
+
+
+# ── phase 2: each kernel against its plain version ───────────────────────
+
+def _arena_poses(rng, cfg, E, N):
+    """Robots spread uniformly over the arena's disc, as the env spawns them."""
+    safe_r = cfg.inradius - 2 * cfg.robot_radius
+    r = np.sqrt(rng.uniform(0, 1, (E, N))) * safe_r
+    th = rng.uniform(0, 2 * np.pi, (E, N))
+    pos = np.stack([r * np.cos(th), r * np.sin(th)], -1).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, (E, N)).astype(np.float32)
+    return pos, yaw
+
+
+def _sensor_work(pos, yaw, cfg, n_seg):
+    """Bytes and float32 operations of one pairwise_sensors call on these
+    inputs. Per ordered pair: the squared distance and both distances (13);
+    per pair inside the proximity range, the clipped reading and the 8-ray
+    cone test (44); per pair inside the RAB range, the bearing and the four
+    sums (22); per robot and wall segment, the 8-ray intersection (162);
+    per robot, the sensor directions and the outputs (65). Transcendentals
+    count as one operation."""
+    E, N = yaw.shape
+    d = np.sqrt(((pos[:, None] - pos[:, :, None]) ** 2).sum(-1))
+    off = ~np.eye(N, dtype=bool)[None]
+    n_prox = int(((d < cfg.prox_range + cfg.robot_radius) & off).sum())
+    n_rab = int(((d < cfg.rab_range) & off).sum())
+    flops = 13 * E * N * N + 44 * n_prox + 22 * n_rab + E * N * (162 * n_seg + 65)
+    n_bytes = 4 * (E * N * 3 + 24 + 4 * n_seg) + 4 * E * N * 15
+    return n_bytes, flops
+
+
+def phase_pairwise(torch, ops, cfg, walls, cycles_per_ms):
+    print("== phase 2a: K1 pairwise_sensors and K2 resolve_robot_collisions "
+          f"(E={E_MAIN}, N={N_MAIN})", flush=True)
+    from swarmacb_torch.env import physics
+    from swarmacb_torch.ops import pairwise
+
+    rng = np.random.default_rng(SEED)
+    pos_np, yaw_np = _arena_poses(rng, cfg, E_MAIN, N_MAIN)
+    pos = torch.from_numpy(pos_np).to(DEVICE)
+    yaw = torch.from_numpy(yaw_np).to(DEVICE)
+    kw = dict(prox_range=cfg.prox_range, robot_radius=cfg.robot_radius,
+              rab_range=cfg.rab_range, alpha_rab=cfg.alpha_parameter,
+              wall_segments=walls)
+    rows = []
+
+    # K1. prox and ztilde: same formulas, comparisons and max-reductions
+    # (exact up to libm ulps); the RAB sums over up to N − 1 neighbours of
+    # terms up to 1/(2r) ≈ 14 run in another order than PyTorch's sums.
+    tol = {"prox": (1e-6, 0.0), "ztilde": (1e-6, 0.0), "rab_proj": (1e-5, 1e-5),
+           "attr_x": (1e-5, 1e-5), "attr_y": (1e-5, 1e-5)}
+    got = ops.pairwise_sensors(pos, yaw, **kw)
+    want = pairwise.pairwise_sensors_plain(pos, yaw, **kw)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for (name, (atol, rtol)), g, w in zip(tol.items(), got, want):
+        err, ok = max_err(g, w, atol, rtol)
+        worst = max(worst, err)
+        check(ok and tuple(g.shape) == tuple(w.shape),
+              f"K1 {name} {tuple(g.shape)}: max|Δ| {err:.3e} "
+              f"(tolerance {atol:g} + {rtol:g}·|plain|)")
+    check(float(got[0].max()) > 0 and float(got[2].abs().max()) > 0,
+          "K1 inputs reach walls and neighbours (non-trivial readings)")
+    ms = device_ms(torch, lambda: ops.pairwise_sensors(pos, yaw, **kw), cycles_per_ms)
+    plain = device_ms(torch, lambda: pairwise.pairwise_sensors_plain(pos, yaw, **kw),
+                      cycles_per_ms)
+    b_ms, b_by = bound_ms(*_sensor_work(pos_np, yaw_np, cfg, walls.shape[0]))
+    rows.append(dict(name="pairwise_sensors", route="cuda",
+                     source="swarmacb_torch/ops/csrc/pairwise.cu",
+                     replaces="swarmacb_tpu/ops/pairwise.py:145",
+                     max_abs_err=worst, ms=ms, plain_ms=plain,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    print(f"  K1 kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
+          f"({b_by})", flush=True)
+
+    # K2. Sums of at most N − 1 pushes of ≤ r each, in another order.
+    got = ops.resolve_robot_collisions(pos, cfg.robot_radius)
+    want = physics.resolve_robot_collisions(pos, cfg.robot_radius)
+    torch.cuda.synchronize()
+    err, ok = max_err(got, want, 1e-6, 0.0)
+    check(ok, f"K2 pos {tuple(got.shape)}: max|Δ| {err:.3e} (tolerance 1e-06)")
+    moved = float((got - pos).abs().max())
+    check(moved > 1e-4, f"K2 inputs overlap (largest push {moved:.3e})")
+    ms = device_ms(torch, lambda: ops.resolve_robot_collisions(pos, cfg.robot_radius),
+                   cycles_per_ms)
+    plain = device_ms(torch, lambda: physics.resolve_robot_collisions(
+        pos, cfg.robot_radius), cycles_per_ms)
+    # each unordered pair: offset, distance, overlap, normal, half push (21)
+    pairs = E_MAIN * N_MAIN * (N_MAIN - 1) // 2
+    b_ms, b_by = bound_ms(2 * 4 * E_MAIN * N_MAIN * 2, 21 * pairs + 4 * E_MAIN * N_MAIN)
+    rows.append(dict(name="resolve_robot_collisions", route="cuda",
+                     source="swarmacb_torch/ops/csrc/pairwise.cu",
+                     replaces="swarmacb_tpu/ops/pairwise.py:246",
+                     max_abs_err=err, ms=ms, plain_ms=plain,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    print(f"  K2 kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
+          f"({b_by})", flush=True)
+    return rows
+
+
+def _tail_inputs(torch, B, N, H, h, seed):
+    """Tail inputs at the critic's scale: attention rows that sum to one per
+    head, W_out-folded values and layer-normalised residual entities."""
+    rng = np.random.default_rng(seed)
+    HM = H * N
+    attn = rng.uniform(size=(B, N, H, N, N)).astype(np.float32)
+    attn /= attn.sum(-1, keepdims=True)                        # (B,I,H,n,m)
+    lhs = attn.transpose(0, 1, 3, 2, 4).reshape(B, N * N, HM)
+    attn_mI = np.einsum("bIhnI->bhIn", attn)                   # m = I
+    arrays = dict(
+        attn_lhs=lhs, attn_mI=attn_mI,
+        wa=rng.normal(size=(B, HM, h)) * 0.3,
+        dws=rng.normal(size=(B, H, N, h)) * 0.2,
+        x_a=rng.normal(size=(B, N, h)),
+        delta=rng.normal(size=(B, N, h)) * 0.5,
+        bias=rng.normal(size=(h,)) * 0.1)
+    return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(DEVICE)
+            for a in arrays.values()]
+
+
+def phase_tail(torch, ops, cycles_per_ms):
+    B, N, H, h = E_MAIN, N_MAIN, H_MAIN, HID_MAIN
+    print(f"== phase 2b: K3f fused_tail forward (B={B}, N={N}, H={H}, h={h})",
+          flush=True)
+    from swarmacb_torch.ops import baseline_tail
+
+    args = _tail_inputs(torch, B, N, H, h, SEED + 1)
+    with torch.no_grad():
+        got = ops.fused_tail(*args, N)
+        want = baseline_tail.tail_reference(*args, N)
+    torch.cuda.synchronize()
+    # LayerNorm outputs are O(1); each fc element is an 80-term product
+    # summed in another order than cuBLAS's float32 (no TF32) product.
+    err, ok = max_err(got, want, 1e-5, 1e-5)
+    check(ok and tuple(got.shape) == (B, N, h),
+          f"K3f pooled {tuple(got.shape)}: max|Δ| {err:.3e} "
+          "(tolerance 1e-05 + 1e-05·|plain|)")
+    with torch.no_grad():
+        ms = device_ms(torch, lambda: ops.fused_tail(*args, N), cycles_per_ms)
+        plain = device_ms(torch, lambda: baseline_tail.tail_reference(*args, N),
+                          cycles_per_ms)
+    n_bytes = 4 * (sum(a.numel() for a in args) + B * N * h)
+    HM = H * N
+    # per fc element: the HM-term product (2·HM), the rank-1 term over heads
+    # (2·H), bias, x_a and the diagonal delta (3), LayerNorm (6), pool (1)
+    n_flops = B * N * N * h * (2 * HM + 2 * H + 3 + 6 + 1)
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    print(f"  K3f kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP)", flush=True)
+    return [dict(name="fused_tail", route="cuda",
+                 source="swarmacb_torch/ops/csrc/baseline_tail.cu",
+                 replaces="swarmacb_tpu/ops/baseline_tail.py:201",
+                 max_abs_err=err, ms=ms, plain_ms=plain,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=None)]
+
+
+# ── phase 3: the slice ───────────────────────────────────────────────────
+
+def _finite(torch, name, t):
+    check(bool(torch.isfinite(t).all()), f"{name} {tuple(t.shape)} is finite")
+
+
+def phase_slice(torch, ops, card):
+    from swarmacb_torch.agents import POCATrainer
+    from swarmacb_torch.config import DirectionalGateEnvCfg, load_config
+    from swarmacb_torch.env import DirectionalGateEnv
+
+    run, variant, pcfg, env_ov = load_config(ROOT / "configs" / "DirGate_dandelion.yaml")
+    print(f"== phase 3: the slice, {run} ({variant}): cut from num_envs="
+          f"{env_ov.get('num_envs')}, time_horizon={pcfg.horizon} to num_envs="
+          f"{E_MAIN}, horizon={HORIZON}; hidden {pcfg.hidden_dim}x{pcfg.num_layers}",
+          flush=True)
+    pcfg = dataclasses.replace(pcfg, horizon=HORIZON, seed=SEED)
+    env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
+    env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant, num_envs=E_MAIN,
+                                                   **env_kw))
+    trainer = POCATrainer(env, pcfg)
+    check(env.device.type == DEVICE and trainer.device.type == DEVICE,
+          f"entry points default to the card ({env.device})")
+    E, N, T, dp = env.num_envs, env.num_agents, HORIZON, pcfg.decision_period
+    gen = torch.Generator(device=DEVICE)
+
+    # warm-up (cuBLAS handles, allocator pools): not counted
+    gen.manual_seed(SEED + 100)
+    st, obs = env.reset(gen)
+    trainer.rollout(st, obs, length=2)
+    torch.cuda.synchronize()
+
+    # the main path: counts from 0 just before, read just after
+    gen.manual_seed(SEED)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    st, obs = env.reset(gen)
+    st, obs, rollout, bootstrap, aux = trainer.rollout(st, obs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    expect = {"pairwise_sensors": 1 + T * dp, "resolve_robot_collisions": T * dp,
+              "fused_tail": T}
+    for name, n in expect.items():
+        check(launches[name] == n,
+              f"{name} launched {launches[name]} times on the main path "
+              f"(expected {n})")
+    shapes = {"obs": (T, E, N, 24), "critic_states": (T, E, N, 5),
+              "actions": (T, E, N, 2), "log_probs": (T, E, N, 2),
+              "rewards": (T, E), "dones": (T, E), "team_values": (T, E),
+              "baselines": (T, E, N)}
+    for name, t in rollout.items():
+        check(tuple(t.shape) == shapes[name], f"rollout.{name} shape {tuple(t.shape)}")
+        _finite(torch, f"rollout.{name}", t)
+    _finite(torch, "bootstrap value", bootstrap)
+    _finite(torch, "final obs", obs)
+    decisions = T * E * N
+    print(f"  rollout of {T} decisions x {E} arenas x {N} robots (+ reset and "
+          f"bootstrap): {wall:.3f} s, {decisions / wall:,.0f} agent-decisions/s "
+          f"on {card}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"  mean team value {float(rollout.team_values.mean()):.4f}, "
+          f"mean baseline {float(rollout.baselines.mean()):.4f}, "
+          f"rewards {float(rollout.rewards.sum()):.0f}", flush=True)
+    return launches
+
+
+def phase_small_reference(torch):
+    """A short rollout at the full width on the card against the same
+    rollout on the CPU, whose ops all take their plain versions: same
+    weights (drawn on the CPU from the seed), same action noise, same
+    spawns, two arenas reaching the time limit inside the run."""
+    from swarmacb_torch.agents import POCAConfig, POCATrainer
+    from swarmacb_torch.config import DirectionalGateEnvCfg
+    from swarmacb_torch.env import DirectionalGateEnv
+
+    E, N, T = 4, N_MAIN, 4
+    print(f"== phase 3b: card against CPU, E={E}, T={T}, h={HID_MAIN}", flush=True)
+    rng = np.random.default_rng(SEED + 2)
+    cfg = DirectionalGateEnvCfg(num_envs=E)
+    pos, yaw = _arena_poses(rng, cfg, E, N)
+    noise = rng.normal(size=(T, E * N, 2)).astype(np.float32)
+    spawn_pos, spawn_yaw = _arena_poses(rng, cfg, T * E, N)
+    L = cfg.max_episode_length
+    step_count = np.array([L - 3, L - 2, 7, 50], np.int32)
+    out, weights = {}, {}
+    for device in ("cpu", DEVICE):
+        env = DirectionalGateEnv(cfg, device=device)
+        trainer = POCATrainer(env, POCAConfig(hidden_dim=HID_MAIN, horizon=T,
+                                              seed=SEED))
+        # the same weights on both sides, N(0, 1/fan_in) and biases
+        # N(0, 0.1²): the init's tiny T-Fixup gains leave the critic's
+        # outputs near a constant, which would hide a wrong baseline
+        with torch.no_grad():
+            for name, p in [*trainer.actor.named_parameters(prefix="actor"),
+                            *trainer.critic.named_parameters(prefix="critic")]:
+                if name not in weights:
+                    std = p.shape[1] ** -0.5 if p.dim() == 2 else 0.1
+                    weights[name] = (std * rng.normal(size=tuple(p.shape))
+                                     ).astype(np.float32)
+                p.copy_(torch.from_numpy(weights[name]))
+        st = env.make_state(pos, yaw, torch.Generator(device=device),
+                            step_count=step_count)
+        obs = env._observations(st)
+        dev = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+        res = trainer.rollout(
+            st, obs, injected_noise=dev(noise),
+            injected_spawn=(dev(spawn_pos.reshape(T, E, N, 2)),
+                            dev(spawn_yaw.reshape(T, E, N))))
+        out[device] = res
+    cpu, gpu = out["cpu"], out[DEVICE]
+    # rewards and done flags exact; floats through the 512-wide networks
+    # differ by float32 rounding in other summation orders
+    tol = {"obs": 1e-4, "critic_states": 1e-5, "actions": 1e-4, "log_probs": 1e-4,
+           "rewards": 0.0, "dones": 0.0, "team_values": 1e-4, "baselines": 1e-4}
+    for (name, c), (_, g) in zip(cpu[2].items(), gpu[2].items()):
+        err, ok = max_err(g.cpu(), c, tol[name], tol[name])
+        check(ok, f"card vs CPU rollout.{name}: max|Δ| {err:.3e} "
+                  f"(tolerance {tol[name]:g} + {tol[name]:g}·|CPU|)")
+    err, ok = max_err(gpu[3].cpu(), cpu[3], 1e-4, 1e-4)
+    check(ok, f"card vs CPU bootstrap value: max|Δ| {err:.3e}")
+    check(int(cpu[2].dones.sum()) == 2, "the folded auto-reset fired in two arenas")
+    spread = float(cpu[2].baselines.std())
+    check(spread > 1e-2, f"the baselines vary (std {spread:.3e})")
+
+
+# ── main ─────────────────────────────────────────────────────────────────
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    try:
+        import swarmacb_torch
+    except ModuleNotFoundError as exc:
+        print(f"chip_smoke: the port's package is missing: {exc}", file=sys.stderr)
+        return 1
+    if Path(swarmacb_torch.__file__).resolve().parents[1] != ROOT:
+        print("chip_smoke: swarmacb_torch is not the checkout's own package",
+              file=sys.stderr)
+        return 1
+    from swarmacb_torch import ops
+    from swarmacb_torch.config import DirectionalGateEnvCfg
+    from swarmacb_torch.env import DirectionalGateEnv
+
+    t_start = time.perf_counter()
+    card = phase_card(torch, ops)
+    cycles_per_ms = _sleep_cycles_per_ms(torch)
+    env = DirectionalGateEnv(DirectionalGateEnvCfg(num_envs=E_MAIN))
+    rows = phase_pairwise(torch, ops, env.cfg, env.wall_segments, cycles_per_ms)
+    rows += phase_tail(torch, ops, cycles_per_ms)
+    launches = phase_slice(torch, ops, card)
+    phase_small_reference(torch)
+
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    print(f"== done in {time.perf_counter() - t_start:.1f} s; "
+          f"{len(failures)} failure(s)", flush=True)
+    for f in failures:
+        print(f"  FAILED: {f}", flush=True)
+    status = "ok" if not failures else "failed"
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{**{k: r[k] for k in keys}, "status": status}
+                                  for r in rows]}), flush=True)
+    if failures:
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

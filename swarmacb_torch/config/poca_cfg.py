@@ -1,0 +1,95 @@
+"""POCA trainer hyper-parameters — loadable from ML-Agents-style YAML.
+
+A copy of ``swarmacb_tpu.config.poca_cfg``. Field names and defaults match
+the reference ``POCAConfig`` (poca_trainer.py:43-105) so the YAML loader and
+CLI map one-to-one. ``recurrent=True`` is not ported yet and raises
+``NotImplementedError`` in the trainer (ROADMAP.md §1 item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass
+class POCAConfig:
+    # Rollout
+    horizon: int = 1000               # time_horizon
+    num_epochs: int = 3               # num_epoch
+    mini_batch_size: int = 2048       # batch_size
+
+    # PPO / POCA
+    clip_eps: float = 0.2             # epsilon
+    beta: float = 0.005               # entropy coefficient
+
+    # λ-return
+    gamma: float = 0.99
+    lam: float = 0.95                 # lambd
+
+    # Optimiser
+    lr: float = 3e-4
+    adam_eps: float = 1e-8
+
+    # Schedules: "linear" or "constant"
+    lr_schedule: str = "constant"
+    eps_schedule: str = "constant"
+    beta_schedule: str = "constant"
+
+    # Run control (agent-decisions)
+    total_timesteps: int = 120_000_000
+    checkpoint_interval: int = 120_000
+    summary_freq: int = 120_000
+    keep_checkpoints: int = 5
+    checkpoint_dir: str = "checkpoints/poca"
+
+    decision_period: int = 1
+    reward_strength: float = 1.0
+
+    # Network
+    hidden_dim: int = 512
+    num_layers: int = 2
+    critic_num_heads: int = 4
+    recurrent: bool = False
+    memory_size: int = 128
+    sequence_length: int = 64
+
+    # TensorBoard
+    log_dir: str = "runs/poca"
+
+    # buffer_size hint from YAML (drives batches-per-epoch derivation,
+    # poca_trainer.py:663-674)
+    buffer_size_hint: int = 0
+
+    # The fields below are kept so configs written for the JAX package
+    # load unchanged (same names, same defaults). The port reads only what
+    # its acting path needs; the rest waits for the slices that port them.
+
+    # Memory ceiling for one gradient computation, in GROUPS (arena
+    # timesteps); consumed by the update (ROADMAP.md §1 item 6).
+    accum_chunk_groups: int = 1024
+
+    # JAX-program splitting knobs; the port runs eagerly and has no
+    # single-program wall-time ceiling to bound.
+    split_update_groups: int = 16384
+    rollout_segments: int = 1
+
+    # Kernel switches of the JAX package. The port dispatches its kernels
+    # by the device of the tensors, never by these flags: on the card the
+    # critic's counterfactual tail always runs the hand-written CUDA kernel
+    # (ops/baseline_tail.py), on the CPU its plain PyTorch version.
+    # ``fused_tail`` is therefore accepted with any value.
+    fused_tail: "bool | None" = None
+    # Not ported yet: True raises NotImplementedError
+    # (ROADMAP.md §2, K5f/K5b — fused counterfactual attention).
+    fused_attention: "bool | None" = None
+    # Not ported yet: True raises NotImplementedError
+    # (ROADMAP.md §1 item 14 and §2 K4 — fused env step).
+    fused_env_step: "bool | None" = None
+
+    # Not ported yet: True raises NotImplementedError
+    # (ROADMAP.md §1 item 10 — mixed precision).
+    mixed_precision: bool = False
+    mp_stages: str = "qkvo"
+
+    # RNG
+    seed: int = 0

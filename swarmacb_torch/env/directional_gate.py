@@ -1,0 +1,251 @@
+"""Directional Gate (DGT) mission — batched PyTorch environment.
+
+Counterpart of ``swarmacb_tpu/env/directional_gate.py`` for the continuous
+(dandelion) variant. One ``step`` call advances E arenas × N robots on the
+env's device: wheels from actions → differential-drive integration → 3
+collision passes → colour-transition team reward → time-limit done →
+folded auto-reset → fresh observations.
+
+Step-ordering contract replicated from the reference (SURVEY.md §3.2):
+  * continuous (dandelion) computes observations fresh from post-collision
+    (possibly reset) poses.
+  * reward counts colour transitions of post-collision positions against
+    ``prev_ground`` (directional_gate_env.py:698-738).
+  * episodes truncate when the step counter reaches
+    ``max_episode_length − 1`` (directional_gate_env.py:744-750, Isaac
+    increments the counter before the check).
+  * auto-reset (directional_gate_env.py:756-792): uniform-in-disc spawns of
+    radius inradius − 2r, uniform yaw in [−π, π), colour tracking re-seeded
+    from the new poses, behaviour machines zeroed, and the episode group
+    reward snapshotted into ``completed_group_reward`` before zeroing.
+
+The N² sensor pass and the robot push-out go through ``ops`` (CUDA kernels
+on the card, their plain versions on the CPU). The discrete variants need
+the behaviour modules and are not ported yet (ROADMAP.md §1 item 8).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..config.env_cfg import DirectionalGateEnvCfg
+from ..device import resolve_device
+from .. import ops
+from . import geometry, physics, sensors
+from .state import BehaviorState, EnvState, TimeStep
+
+
+class DirectionalGateEnv:
+    """Env object: static config, geometry tables on the device, and pure
+    functions of (state, actions) that return new states.
+
+    ``device`` defaults to the card; pass ``device="cpu"`` to run on the CPU.
+    """
+
+    def __init__(self, cfg: DirectionalGateEnvCfg, device=None):
+        if cfg.discrete_actions:
+            raise NotImplementedError(
+                f"variant {cfg.variant!r} needs the behaviour modules, not "
+                "ported yet (ROADMAP.md §1 item 8); only 'dandelion' runs")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        arena = geometry.wall_segments(cfg.arena_circumradius, cfg.arena_num_sides)
+        gate = geometry.gate_wall_segments(
+            cfg.corridor_width, cfg.gate_south_y, cfg.side_wall_length
+        )
+        # Combined list for sensor raycasts (directional_gate_env.py:69-77)
+        segments = np.concatenate([arena, gate], axis=0)
+        normals, points = geometry.wall_faces(
+            cfg.arena_circumradius, cfg.arena_num_sides, fixed=cfg.fixed_wall_faces
+        )
+        dev = self.device
+        self.wall_segments = torch.from_numpy(segments).to(dev)
+        self.face_normals = torch.from_numpy(normals).to(dev)
+        self.face_points = torch.from_numpy(points).to(dev)
+        # Arena centre / light direction for the critic state
+        # (directional_gate_env.py:98-101), as float32 host constants
+        self.arena_center = np.zeros(2, dtype=np.float32)
+        light = np.asarray(cfg.light_position[:2], dtype=np.float32)
+        self.light_pos = light
+        lv = light - self.arena_center
+        self.light_dir = (lv / (np.linalg.norm(lv) + 1e-8)).astype(np.float32)
+
+    # ── properties ────────────────────────────────────────────────
+    @property
+    def num_envs(self) -> int:
+        return self.cfg.num_envs
+
+    @property
+    def num_agents(self) -> int:
+        return self.cfg.num_agents
+
+    @property
+    def obs_dim(self) -> int:
+        return self.cfg.obs_dim
+
+    # ── reset ─────────────────────────────────────────────────────
+    def _sample_spawn(self, generator: torch.Generator, shape):
+        """Uniform-in-disc positions + uniform yaw.
+
+        Matches directional_gate_env.py:773-783: radius √u · (inradius − 2r),
+        angle uniform in [0, 2π), yaw uniform in [−π, π).
+        """
+        cfg = self.cfg
+        safe_r = cfg.inradius - cfg.robot_radius * 2
+        u = torch.rand((3,) + tuple(shape), generator=generator,
+                       device=self.device)
+        r = torch.sqrt(u[0]) * safe_r
+        theta = u[1] * 2 * math.pi
+        yaw = u[2] * 2 * math.pi - math.pi
+        pos = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+        return pos, yaw
+
+    def make_state(self, pos, yaw, generator: torch.Generator, step_count=None,
+                   episode_reward=None, completed_group_reward=None) -> EnvState:
+        """An EnvState from given poses (and optional counters), e.g. to
+        start the port and the JAX package from the same state."""
+        E, N = yaw.shape
+        dev = self.device
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+        yaw = torch.as_tensor(yaw, dtype=torch.float32, device=dev)
+
+        def vec(x, dtype):
+            if x is None:
+                return torch.zeros(E, dtype=dtype, device=dev)
+            return torch.as_tensor(x, dtype=dtype, device=dev)
+
+        return EnvState(
+            pos=pos,
+            yaw=yaw,
+            prev_ground=sensors.ground_color(pos, self.cfg),
+            step_count=vec(step_count, torch.int32),
+            episode_reward=vec(episode_reward, torch.float32),
+            completed_group_reward=vec(completed_group_reward, torch.float32),
+            behavior=BehaviorState.init(E, N, dev),
+            generator=generator,
+        )
+
+    def reset(self, generator: torch.Generator) -> tuple[EnvState, torch.Tensor]:
+        """Fresh state for all E arenas. Returns (state, obs).
+
+        ``generator`` must live on the env's device; the spawn draws of this
+        reset and of every later auto-reset come from it.
+        """
+        pos, yaw = self._sample_spawn(generator, (self.num_envs, self.num_agents))
+        state = self.make_state(pos, yaw, generator)
+        return state, self._observations(state)
+
+    # ── sensors / obs ─────────────────────────────────────────────
+    def _compute_sensor_block(self, pos, yaw):
+        cfg = self.cfg
+        # wall raycast fused into the same pass: prox already carries
+        # max(wall, robot) per sensor
+        prox_vals, ztilde, rab_proj, rab_x, rab_y = ops.pairwise_sensors(
+            pos, yaw, prox_range=cfg.prox_range,
+            robot_radius=cfg.robot_radius, rab_range=cfg.rab_range,
+            alpha_rab=cfg.alpha_parameter, wall_segments=self.wall_segments,
+        )
+        light_vals = sensors.compute_light(
+            pos, yaw, self.light_pos, cfg.light_threshold)[0]
+        return dict(prox_vals=prox_vals, light_vals=light_vals,
+                    ztilde=ztilde, rab_proj=rab_proj, rab_x=rab_x, rab_y=rab_y)
+
+    def _observations(self, state: EnvState) -> torch.Tensor:
+        """Per-agent observations (E, N, 24), fresh from the state's poses
+        (directional_gate_env.py:650-692, continuous path)."""
+        cache = self._compute_sensor_block(state.pos, state.yaw)
+        ground = sensors.ground_obs(state.pos, self.cfg)
+        return sensors.collect_obs_dandelion(
+            cache["prox_vals"], cache["light_vals"], ground,
+            cache["ztilde"], cache["rab_proj"],
+        )
+
+    def critic_state(self, state: EnvState) -> torch.Tensor:
+        """5-D polar critic state (E, N, 5) — directional_gate_env.py:798-809."""
+        return sensors.critic_state_5d(
+            state.pos, state.yaw, self.arena_center,
+            self.cfg.arena_circumradius, self.light_dir,
+        )
+
+    # ── step ──────────────────────────────────────────────────────
+    def step(self, state: EnvState, actions: torch.Tensor,
+             injected_spawn=None) -> tuple[EnvState, TimeStep]:
+        """Advance one control tick (10 Hz).
+
+        Args:
+            state: current EnvState (any, e.g. one built by ``make_state``).
+            actions: (E, N, 2) normalized wheel commands.
+            injected_spawn: optional (pos (E, N, 2), yaw (E, N)) that
+                replaces the auto-reset's random spawn draw, for replay
+                against the JAX package.
+
+        Returns (new_state, TimeStep).
+        """
+        cfg = self.cfg
+        # Dandelion: clamp [−1,1] then scale (directional_gate_env.py:512-525)
+        clamped = torch.clamp(actions, -1.0, 1.0)
+        left = clamped[..., 0] * cfg.max_wheel_speed
+        right = clamped[..., 1] * cfg.max_wheel_speed
+
+        # Integrate + collisions (directional_gate_env.py:527-545)
+        pos, yaw = physics.integrate_and_wrap(
+            state.pos, state.yaw, left, right, cfg.wheelbase, cfg.dt
+        )
+        pos = physics.resolve_wall_collisions(
+            pos, self.face_normals, self.face_points, cfg.robot_radius
+        )
+        pos = physics.resolve_gate_wall_collisions(
+            pos, cfg.robot_radius, cfg.corridor_width / 2.0,
+            cfg.gate_south_y, cfg.side_wall_length,
+        )
+        pos = ops.resolve_robot_collisions(pos, cfg.robot_radius)
+
+        # Reward: colour transitions (directional_gate_env.py:698-738)
+        curr_color = sensors.ground_color(pos, cfg)
+        prev = state.prev_ground
+        black_to_white = (prev < 0.25) & (curr_color > 0.75)
+        white_to_black = (prev > 0.75) & (curr_color < 0.25)
+        k_plus = black_to_white.to(torch.float32).sum(1)
+        k_minus = white_to_black.to(torch.float32).sum(1)
+        reward = k_plus - k_minus
+        episode_reward = state.episode_reward + reward
+
+        # Done: time limit only (directional_gate_env.py:744-750; Isaac
+        # increments episode_length_buf before the check)
+        step_count = state.step_count + 1
+        done = step_count >= (cfg.max_episode_length - 1)
+
+        # ── folded auto-reset (directional_gate_env.py:756-792) ────
+        if injected_spawn is not None:
+            spawn_pos, spawn_yaw = injected_spawn
+        else:
+            spawn_pos, spawn_yaw = self._sample_spawn(
+                state.generator, (cfg.num_envs, cfg.num_agents)
+            )
+        dm = done[:, None]
+        new_pos = torch.where(dm[..., None], spawn_pos, pos)
+        new_yaw = torch.where(dm, spawn_yaw, yaw)
+        new_prev_ground = torch.where(
+            dm, sensors.ground_color(new_pos, cfg), curr_color
+        )
+        completed = torch.where(done, episode_reward, state.completed_group_reward)
+        episode_reward = torch.where(done, torch.zeros_like(episode_reward),
+                                     episode_reward)
+        step_count = torch.where(done, torch.zeros_like(step_count), step_count)
+        bstate = state.behavior.reset_where(done)
+
+        new_state = EnvState(
+            pos=new_pos,
+            yaw=new_yaw,
+            prev_ground=new_prev_ground,
+            step_count=step_count,
+            episode_reward=episode_reward,
+            completed_group_reward=completed,
+            behavior=bstate,
+            generator=state.generator,
+        )
+        obs = self._observations(new_state)
+        return new_state, TimeStep(obs=obs, reward=reward, done=done)

@@ -1,0 +1,325 @@
+"""POCA networks as ``nn.Module``s — ML-Agents architecture.
+
+Counterparts of the flax modules in ``swarmacb_tpu/models/networks.py``
+(architecture, activation, init distributions), which re-implement the
+reference's torch modules (poca_networks.py):
+
+  LinearEncoder            poca_networks.py:89-119   (Linear+Swish stack)
+  EntityEmbedding          poca_networks.py:129-146  (1-layer, T-Fixup init)
+  Actor (Gaussian)         poca_networks.py:153-209
+  ResidualSelfAttention    poca_networks.py:381-454
+  POCACritic               poca_networks.py:469-635
+
+``POCACritic.all_baselines`` keeps the JAX package's assembled-scores,
+W_out-folded form (networks.py:443-517); its fc/LayerNorm/pool tail goes
+through ``ops.fused_tail`` — the CUDA kernel on the card, the plain version
+on the CPU. Submodule and parameter names follow the flax tree
+(``dense_i`` → ``layers.i``, ``kernel`` → ``weight``ᵀ), which
+``swarmacb_torch.convert`` relies on. The discrete and recurrent actors are
+not ported yet (ROADMAP.md §1 items 8-9).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import ops
+from . import init as inits
+
+_LOG_2PI = math.log(2.0 * math.pi)
+LN_EPS = 1e-5
+
+
+class LinearEncoder(nn.Module):
+    """(Linear → Swish) × num_layers. Matches poca_networks.py:89-119."""
+
+    def __init__(self, input_size: int, num_layers: int, hidden: int,
+                 kernel_init: str = "kaiming_normal", kernel_gain: float = 1.0):
+        super().__init__()
+        sizes = [input_size] + [hidden] * num_layers
+        self.layers = nn.ModuleList(
+            nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+        self.kernel_init = kernel_init
+        self.kernel_gain = kernel_gain
+
+    def init_weights(self, generator: torch.Generator):
+        init = inits.KERNEL_INITS[self.kernel_init]
+        for layer in self.layers:
+            init(layer.weight, generator, self.kernel_gain)
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = F.silu(layer(x))
+        return x
+
+
+class EntityEmbedding(nn.Module):
+    """1-layer LinearEncoder with T-Fixup Normal init
+    (poca_networks.py:129-146): gain = (0.125 / embed)^0.5."""
+
+    def __init__(self, input_size: int, embed: int):
+        super().__init__()
+        self.encoder = LinearEncoder(input_size, 1, embed, "normal",
+                                     (0.125 / embed) ** 0.5)
+
+    def init_weights(self, generator: torch.Generator):
+        self.encoder.init_weights(generator)
+
+    def forward(self, entities):
+        return self.encoder(entities)
+
+
+# ──────────────────────────────────────────────────────────────────────
+#  Actor
+# ──────────────────────────────────────────────────────────────────────
+
+class Actor(nn.Module):
+    """Gaussian actor: Swish MLP body, raw-linear mean (no tanh squash),
+    state-independent log_std. Matches poca_networks.py:153-209."""
+
+    def __init__(self, obs_dim: int, act_dim: int, hidden: int = 256,
+                 num_layers: int = 2):
+        super().__init__()
+        self.net = LinearEncoder(obs_dim, num_layers, hidden)
+        self.mu_head = nn.Linear(hidden, act_dim)
+        self.log_std = nn.Parameter(torch.zeros(1, act_dim))
+
+    def init_weights(self, generator: torch.Generator):
+        self.net.init_weights(generator)
+        inits.kaiming_normal_(self.mu_head.weight, generator, 0.2)
+        nn.init.zeros_(self.mu_head.bias)
+        nn.init.zeros_(self.log_std)
+
+    def forward(self, obs):
+        mu = self.mu_head(self.net(obs))
+        std = torch.exp(self.log_std.expand_as(mu))
+        return mu, std
+
+    @staticmethod
+    def log_prob(mu, std, actions):
+        """Per-dimension Gaussian log-prob (NOT summed) — ML-Agents computes
+        the PPO ratio per action dimension (poca_networks.py:196-209)."""
+        var = std**2
+        return -((actions - mu) ** 2) / (2 * var) - torch.log(std) - 0.5 * _LOG_2PI
+
+    @staticmethod
+    def entropy(std):
+        """Summed-over-dims Gaussian entropy (poca_networks.py:202-208)."""
+        return (0.5 + 0.5 * _LOG_2PI + torch.log(std)).sum(-1)
+
+    @staticmethod
+    def sample(mu, std, noise=None, generator: Optional[torch.Generator] = None):
+        """mu + std·ε, with ε given (``noise``) or drawn from ``generator``."""
+        if noise is None:
+            noise = torch.randn(mu.shape, generator=generator,
+                                device=mu.device, dtype=mu.dtype)
+        return mu + std * noise
+
+
+# ──────────────────────────────────────────────────────────────────────
+#  Residual self-attention + POCA critic
+# ──────────────────────────────────────────────────────────────────────
+
+def _layer_norm(x):
+    return F.layer_norm(x, (x.shape[-1],), eps=LN_EPS)
+
+
+class ResidualSelfAttention(nn.Module):
+    """Pre-norm residual MHA with masked average pooling over entities.
+
+    Matches poca_networks.py:381-454: non-affine LayerNorms (eps 1e-5),
+    Normal×T-Fixup projections, residual adds the NORMED input, pooled
+    output. Returns (B, embed)."""
+
+    NEG_INF = -1e6
+    EPSILON = 1e-7
+
+    def __init__(self, embed: int, num_heads: int = 4):
+        super().__init__()
+        self.embed = embed
+        self.num_heads = num_heads
+        self.fc_q = nn.Linear(embed, embed)
+        self.fc_k = nn.Linear(embed, embed)
+        self.fc_v = nn.Linear(embed, embed)
+        self.fc_out = nn.Linear(embed, embed)
+
+    def init_weights(self, generator: torch.Generator):
+        gain = (0.125 / self.embed) ** 0.5
+        for layer in (self.fc_q, self.fc_k, self.fc_v, self.fc_out):
+            inits.normal_gain_(layer.weight, generator, gain)
+            nn.init.zeros_(layer.bias)
+
+    def normalize(self, inp):
+        """Pre-norm — per entity, so callers may apply it before tiling
+        entity sets (the all_baselines projection dedup)."""
+        return _layer_norm(inp)
+
+    def project_qkv(self, x):
+        """Q/K/V projections of normalized entities — also per entity."""
+        return self.fc_q(x), self.fc_k(x), self.fc_v(x)
+
+    def attend(self, x, q, k, v, key_mask: Optional[torch.Tensor] = None):
+        """Attention + residual + pooled output from pre-normalized input
+        ``x`` (B, N, D) and its per-entity projections."""
+        B, N, D = x.shape
+        H = self.num_heads
+        d = D // H
+        qh = q.reshape(B, N, H, d).transpose(1, 2)
+        kh = k.reshape(B, N, H, d).transpose(1, 2)
+        vh = v.reshape(B, N, H, d).transpose(1, 2)
+
+        attn = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(d)
+        if key_mask is not None:
+            attn = attn + key_mask[:, None, None, :] * self.NEG_INF
+        attn = torch.softmax(attn, dim=-1)
+        out = torch.matmul(attn, vh)
+        out = out.transpose(1, 2).reshape(B, N, D)
+
+        output = _layer_norm(self.fc_out(out) + x)
+        if key_mask is not None:
+            valid = (1.0 - key_mask)[..., None]
+            return (output * valid).sum(1) / (valid.sum(1) + self.EPSILON)
+        return output.mean(dim=1)
+
+    def forward(self, inp, key_mask: Optional[torch.Tensor] = None):
+        x = self.normalize(inp)
+        q, k, v = self.project_qkv(x)
+        return self.attend(x, q, k, v, key_mask)
+
+
+class POCACritic(nn.Module):
+    """Attention-based centralized critic with counterfactual baselines.
+
+    Consumes the 5-D polar STATE, not agent observations
+    (poca_networks.py:469-635). ``num_agents`` is the normalising agent
+    count: 2n/max − 1 is 1.0 in every reference configuration."""
+
+    def __init__(self, state_dim: int, act_dim: int, num_agents: int,
+                 hidden: int = 256, num_heads: int = 4, num_layers: int = 2):
+        super().__init__()
+        self.num_agents = num_agents
+        self.hidden = hidden
+        self.obs_entity_enc = EntityEmbedding(state_dim, hidden)
+        self.obs_act_entity_enc = EntityEmbedding(state_dim + act_dim, hidden)
+        self.self_attn = ResidualSelfAttention(hidden, num_heads)
+        self.linear_encoder = LinearEncoder(hidden, num_layers, hidden,
+                                            "kaiming_normal",
+                                            (0.125 / hidden) ** 0.5)
+        self.value_head = nn.Linear(hidden + 1, 1)
+
+    def init_weights(self, generator: torch.Generator):
+        for m in (self.obs_entity_enc, self.obs_act_entity_enc,
+                  self.self_attn, self.linear_encoder):
+            m.init_weights(generator)
+        inits.torch_linear_default_(self.value_head.weight,
+                                    self.value_head.bias, generator)
+
+    def _norm_agent_count(self, n: int) -> float:
+        return n * 2.0 / float(self.num_agents) - 1.0
+
+    def _value(self, pooled, n_agents: int):
+        """Post-pool tail: linear encoder → (+norm agent count) → value."""
+        encoding = self.linear_encoder(pooled)
+        nc = torch.full((encoding.shape[0], 1), self._norm_agent_count(n_agents),
+                        dtype=encoding.dtype, device=encoding.device)
+        return self.value_head(torch.cat([encoding, nc], dim=-1))
+
+    def _encode_and_value(self, entities, n_agents: int):
+        """Shared tail: RSA → linear encoder → (+norm agent count) → value."""
+        return self._value(self.self_attn(entities), n_agents)
+
+    def critic_pass(self, all_states):
+        """Team value V(s): (B, N, state_dim) → (B, 1)."""
+        entities = self.obs_entity_enc(all_states)
+        return self._encode_and_value(entities, all_states.shape[1])
+
+    def baseline(self, agent_i_state, other_states, other_actions):
+        """Single counterfactual baseline b_i: agent i state-only + others
+        state+action → (B, 1). Matches poca_networks.py:558-581."""
+        ent_i = self.obs_entity_enc(agent_i_state[:, None, :])
+        state_act = torch.cat([other_states, other_actions], dim=-1)
+        ent_o = self.obs_act_entity_enc(state_act)
+        entities = torch.cat([ent_i, ent_o], dim=1)
+        return self._encode_and_value(entities, entities.shape[1])
+
+    def all_baselines(self, all_states, all_actions):
+        """All N counterfactual baselines in ONE attention pass → (B, N).
+
+        The JAX package's assembled-scores form (networks.py:404-517): the N
+        counterfactual entity sets share 2N distinct embeddings, and the
+        pre-norm + Q/K/V projections are per entity, so
+
+          1. LN + Q/K/V run on the two (B, N, h) embedding sets only,
+          2. the (B, I, H, n, m) scores come from four small products:
+             S_aa = q_a·k_aᵀ with row n=I from S_sa, column m=I from S_as,
+             and (I, I) from the q_s·k_s diagonal,
+          3. fc_out's weight is folded into the per-head values first
+             ((attn·v)·W_out = attn·(v·W_out)), with a rank-1 diagonal
+             correction from the folded (v_s − v_a), and
+          4. the residual is x_a with the diagonal swapped to x_s.
+
+        Steps 3-4 plus LayerNorm and the pool over n are ``ops.fused_tail``.
+        """
+        B, N, _ = all_states.shape
+        h = self.hidden
+        rsa = self.self_attn
+        H = rsa.num_heads
+        d = h // H
+        obs_emb = self.obs_entity_enc(all_states)                        # (B,N,h)
+        state_act = torch.cat([all_states, all_actions], dim=-1)
+        obs_act_emb = self.obs_act_entity_enc(state_act)                 # (B,N,h)
+
+        x_s = rsa.normalize(obs_emb)
+        x_a = rsa.normalize(obs_act_emb)
+        q_s, k_s, v_s = rsa.project_qkv(x_s)
+        q_a, k_a, v_a = rsa.project_qkv(x_a)
+
+        def heads(t):                                    # (B,N,h) → (B,H,N,d)
+            return t.reshape(B, N, H, d).transpose(1, 2)
+
+        qs, ks, vs = heads(q_s), heads(k_s), heads(v_s)
+        qa, ka, va = heads(q_a), heads(k_a), heads(v_a)
+
+        S_aa = torch.matmul(qa, ka.transpose(-1, -2))                   # (B,H,n,m)
+        S_sa = torch.matmul(qs, ka.transpose(-1, -2))
+        S_as = torch.matmul(qa, ks.transpose(-1, -2))
+        S_ss = (qs * ks).sum(-1)                                        # (B,H,N)
+
+        # fold W_out into the per-head values: w[b,h,m,o] = v_h[m]·W_out[h],
+        # with W_out in flax layout (in, out) = weightᵀ, split (H, d, h)
+        Wh = rsa.fc_out.weight.t().reshape(H, d, h)
+        wa = torch.einsum("bhmd,hdo->bhmo", va, Wh)
+        dws = torch.einsum("bhmd,hdo->bhmo", vs - va, Wh)               # (B,H,I,h)
+
+        ii = torch.arange(N, device=all_states.device)
+        I_idx = ii.view(1, N, 1, 1, 1)
+        n_idx = ii.view(1, 1, 1, N, 1)
+        m_idx = ii.view(1, 1, 1, 1, N)
+        base = S_aa[:, None]                                   # (B,1,H,n,m)
+        row_I = S_sa.permute(0, 2, 1, 3)[:, :, :, None, :]     # (B,I,H,1,m)
+        col_I = S_as.permute(0, 3, 1, 2)[:, :, :, :, None]     # (B,I,H,n,1)
+        diag_I = S_ss.permute(0, 2, 1)[:, :, :, None, None]    # (B,I,H,1,1)
+
+        scores = torch.where(n_idx == I_idx, row_I, base)
+        scores = torch.where(m_idx == I_idx,
+                             torch.where(n_idx == I_idx, diag_I, col_I), scores)
+        attn = torch.softmax(scores / math.sqrt(d), dim=-1)    # (B,I,H,n,m)
+
+        lhs = attn.permute(0, 1, 3, 2, 4).reshape(B, N * N, H * N)
+        # attn[b, I, h, n, m=I], head-major (B, H, I, n)
+        attn_mI = attn.diagonal(dim1=1, dim2=4).permute(0, 1, 3, 2).contiguous()
+        pooled = ops.fused_tail(lhs.contiguous(), attn_mI,
+                                wa.reshape(B, H * N, h).contiguous(),
+                                dws.contiguous(), x_a.contiguous(),
+                                (x_s - x_a).contiguous(), rsa.fc_out.bias, N)
+        return self._value(pooled.reshape(B * N, h), N).reshape(B, N)
+
+    def forward(self, all_states, all_actions):
+        """Entry touching every submodule: (team value, baselines)."""
+        return self.critic_pass(all_states), self.all_baselines(all_states, all_actions)

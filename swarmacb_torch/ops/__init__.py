@@ -1,0 +1,29 @@
+"""Hand-written CUDA kernels for Hopper (``csrc/``), their plain PyTorch
+versions, and the wrappers that pick one by the device of the input.
+
+  pairwise_sensors, resolve_robot_collisions   (pairwise.py, csrc/pairwise.cu)
+  fused_tail (forward)                         (baseline_tail.py,
+                                                csrc/baseline_tail.cu)
+
+``launches`` counts the kernel launches of each wrapper since the last
+``reset_launches()``; ``build()`` compiles every kernel up front.
+"""
+
+from ._cuda import build, launches, reset_launches
+from .baseline_tail import fused_tail, tail_reference
+from .pairwise import (
+    pairwise_sensors,
+    pairwise_sensors_plain,
+    resolve_robot_collisions,
+)
+
+__all__ = [
+    "build",
+    "fused_tail",
+    "launches",
+    "pairwise_sensors",
+    "pairwise_sensors_plain",
+    "reset_launches",
+    "resolve_robot_collisions",
+    "tail_reference",
+]

@@ -1,0 +1,163 @@
+"""Build and load the port's CUDA kernels: nvcc → shared library → ctypes.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled on first
+use into its own shared library under ``build/kernels/`` at the root of the
+checkout (listed in ``.gitignore``). The library's name carries a hash of
+the source and the flags, so an edited source is rebuilt and a stale one is
+never loaded. ``build()`` starts one nvcc for each source, all at once.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and no ``--use_fast_math`` — fast math
+turns ``sqrtf`` and division into approximations, and the sensor kernel's
+comparisons (cone test, range tests, ``u ∈ [0, 1]``) would then flip against
+the plain version at their boundaries. ``pairwise.cu`` also turns off FMA
+contraction so that each of its products and sums rounds as the plain
+PyTorch version's separate operations do.
+
+Nothing here runs when the package is imported: the CPU tests import every
+module, and the CPU has no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+_COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# source stem → extra nvcc flags
+SOURCES = {
+    "pairwise": ("-fmad=false",),
+    "baseline_tail": (),
+}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry points and their argument types (every pointer and the stream
+# as c_void_p, so ctypes never cuts a 64-bit address to an int)
+SIGNATURES = {
+    "pairwise": {
+        "pairwise_sensors_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
+                                    _I, _I, _F, _F, _F, _F, _P],
+        "robot_collisions_launch": [_P, _P, _I, _I, _F, _P],
+    },
+    "baseline_tail": {
+        "fused_tail_fwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _P],
+    },
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+# Launches of each kernel since the last reset: a wrapper adds one where it
+# launches its kernel and nowhere else (plain-version calls do not count).
+launches: dict[str, int] = {"pairwise_sensors": 0,
+                            "resolve_robot_collisions": 0,
+                            "fused_tail": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is not None:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the port's kernels")
+    return found
+
+
+def _target(name: str, nvcc: str) -> tuple[Path, list[str]]:
+    src = CSRC / f"{name}.cu"
+    flags = [*_COMMON_FLAGS, *SOURCES[name]]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    return out, [nvcc, *flags, "-o", str(out), str(src)]
+
+
+def build(names=None) -> dict[str, float]:
+    """Compile the named sources (default: all) that are not built yet.
+
+    One nvcc process per source, all started together. Returns the wall
+    seconds of the build of each source that was compiled. Raises with
+    nvcc's output if any build fails.
+    """
+    names = list(SOURCES) if names is None else list(names)
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out, cmd = _target(name, nvcc)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd[cmd.index(str(out))] = str(tmp)
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    seconds, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (rc {proc.returncode}) ---\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return seconds
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas register and shared-memory report) of a build."""
+    out, _ = _target(name, _nvcc())
+    log = out.with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        out, _ = _target(name, _nvcc())
+        if not out.exists():
+            build([name])
+        lib = ctypes.CDLL(str(out))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code (cudaGetLastError)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

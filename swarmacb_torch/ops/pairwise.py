@@ -1,0 +1,125 @@
+"""The env's N² pairwise passes: CUDA kernels and their plain versions.
+
+Counterpart of ``swarmacb_tpu/ops/pairwise.py``. Two kernels in
+``csrc/pairwise.cu``:
+
+  - ``pairwise_sensors``: the 8-ray wall raycast fused with the robot
+    proximity cone test, the range-and-bearing neighbour count, its 4
+    projections and the attraction vector — one read of the positions;
+  - ``resolve_robot_collisions``: the single Jacobi pass of elastic push-out.
+
+Each wrapper dispatches by the device of its input: a CPU tensor goes to
+the plain PyTorch version (the env's own sensor and physics functions), a
+CUDA tensor to the kernel — or the wrapper raises. There is no fallback
+from the card to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..env import physics, sensors
+from . import _cuda
+
+MAX_AGENTS = 32  # one warp per arena
+MAX_SEGMENTS = 64
+
+
+def pairwise_sensors_plain(pos, yaw, *, prox_range, robot_radius, rab_range,
+                           alpha_rab, wall_segments):
+    """Plain version: sensors.raycast_segments, detect_robots_proximity and
+    compute_rab composed — the jnp path of the JAX package."""
+    wdx, wdy = sensors.sensor_world_dirs(yaw)
+    wall = sensors.raycast_segments(pos, wdx, wdy, wall_segments, prox_range)
+    robot = sensors.detect_robots_proximity(pos, wdx, wdy, prox_range,
+                                            robot_radius)
+    prox = torch.maximum(torch.clamp(wall, min=0.0), robot)
+    ztilde, rab_proj, attr_x, attr_y = sensors.compute_rab(
+        pos, yaw, rab_range, alpha_rab)
+    return prox, ztilde, rab_proj, attr_x, attr_y
+
+
+def _check_cuda(name, *tensors):
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: tensors must lie on the CPU or a CUDA "
+                         f"device, got {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def sensor_constants(wall_segments):
+    """Packed constants of the sensor kernel, on the segments' device:
+    cos/sin of the sensor angles, cos/sin of the RAB projection angles, then
+    (ax, ay, bx − ax, by − ay) per segment — the values the plain version
+    computes, so both read the same numbers."""
+    cos_a, sin_a, rab_cos, rab_sin = sensors.angle_tables(wall_segments.device)
+    seg = wall_segments
+    packed = torch.stack([seg[:, 0], seg[:, 1], seg[:, 2] - seg[:, 0],
+                          seg[:, 3] - seg[:, 1]], dim=-1).reshape(-1)
+    return torch.cat([cos_a, sin_a, rab_cos, rab_sin, packed])
+
+
+def pairwise_sensors(pos, yaw, *, prox_range, robot_radius, rab_range,
+                     alpha_rab, wall_segments):
+    """Fused sensor pass. pos (E, N, 2), yaw (E, N), wall_segments (S, 4).
+
+    Returns prox (E, N, 8) — already max(wall, robot) per sensor —,
+    ztilde (E, N), rab_proj (E, N, 4), rab_attr_x (E, N), rab_attr_y (E, N).
+    """
+    if pos.device.type == "cpu":
+        return pairwise_sensors_plain(
+            pos, yaw, prox_range=prox_range, robot_radius=robot_radius,
+            rab_range=rab_range, alpha_rab=alpha_rab,
+            wall_segments=wall_segments)
+    _check_cuda("pairwise_sensors", pos, yaw, wall_segments)
+    E, N = yaw.shape
+    S = wall_segments.shape[0]
+    if pos.shape != (E, N, 2) or wall_segments.shape != (S, 4):
+        raise ValueError(f"pairwise_sensors: bad shapes pos {tuple(pos.shape)}"
+                         f" yaw {tuple(yaw.shape)} "
+                         f"segments {tuple(wall_segments.shape)}")
+    if N > MAX_AGENTS or S > MAX_SEGMENTS:
+        raise ValueError(f"pairwise_sensors: the kernel takes N <= {MAX_AGENTS}"
+                         f" robots and <= {MAX_SEGMENTS} segments, got N={N},"
+                         f" S={S}")
+    consts = sensor_constants(wall_segments)
+    prox = torch.empty((E, N, 8), dtype=torch.float32, device=pos.device)
+    ztilde = torch.empty((E, N), dtype=torch.float32, device=pos.device)
+    rab_proj = torch.empty((E, N, 4), dtype=torch.float32, device=pos.device)
+    attr_x = torch.empty((E, N), dtype=torch.float32, device=pos.device)
+    attr_y = torch.empty((E, N), dtype=torch.float32, device=pos.device)
+    lib = _cuda.library("pairwise")
+    err = lib.pairwise_sensors_launch(
+        pos.data_ptr(), yaw.data_ptr(), consts.data_ptr(), S,
+        prox.data_ptr(), ztilde.data_ptr(), rab_proj.data_ptr(),
+        attr_x.data_ptr(), attr_y.data_ptr(), E, N, float(prox_range),
+        float(prox_range + robot_radius), float(rab_range), float(alpha_rab),
+        _cuda.stream_ptr(pos))
+    _cuda.check(err, "pairwise_sensors")
+    _cuda.launches["pairwise_sensors"] += 1
+    return prox, ztilde, rab_proj, attr_x, attr_y
+
+
+def resolve_robot_collisions(pos, robot_radius):
+    """Single-pass elastic push-out. pos (E, N, 2) → new (E, N, 2)."""
+    if pos.device.type == "cpu":
+        return physics.resolve_robot_collisions(pos, robot_radius)
+    _check_cuda("resolve_robot_collisions", pos)
+    E, N = pos.shape[:2]
+    if pos.shape != (E, N, 2) or N > MAX_AGENTS:
+        raise ValueError(f"resolve_robot_collisions: pos must be (E, N<="
+                         f"{MAX_AGENTS}, 2), got {tuple(pos.shape)}")
+    out = torch.empty_like(pos)
+    lib = _cuda.library("pairwise")
+    err = lib.robot_collisions_launch(
+        pos.data_ptr(), out.data_ptr(), E, N, float(2.0 * robot_radius),
+        _cuda.stream_ptr(pos))
+    _cuda.check(err, "resolve_robot_collisions")
+    _cuda.launches["resolve_robot_collisions"] += 1
+    return out

@@ -1,0 +1,117 @@
+"""The port stands alone: no JAX, no JAX package, no silent CPU fallback."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from swarmacb_torch import ops
+from swarmacb_torch.config import DirectionalGateEnvCfg
+from swarmacb_torch.env import DirectionalGateEnv, make_env
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "swarmacb_tpu")
+PORT_FILES = (sorted((ROOT / "swarmacb_torch").rglob("*.py"))
+              + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_rollout.py"])
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None)
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_nothing_of_jax(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, swarmacb_torch, swarmacb_torch.env, swarmacb_torch.agents,"
+            " swarmacb_torch.ops, swarmacb_torch.convert, swarmacb_torch.models\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_default_to_the_card():
+    """Without ``device=`` the env runs on CUDA; where there is no card it
+    raises instead of running on the CPU."""
+    cfg = DirectionalGateEnvCfg(num_envs=2)
+    if torch.cuda.is_available():
+        assert DirectionalGateEnv(cfg).device.type == "cuda"
+        assert make_env("SwarmACB-DirectionalGate-v0", cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DirectionalGateEnv(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_env("SwarmACB-DirectionalGate-v0", cfg)
+    assert DirectionalGateEnv(cfg, device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """With no CUDA device visible the smoke run exits non-zero and prints
+    no result line."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          cwd=tmp_path, capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+def test_wrappers_refuse_a_non_cpu_tensor_they_cannot_launch_on():
+    """Only a CPU tensor selects the plain version: any other device goes
+    to the kernel or raises (here: the meta device)."""
+    pos = torch.zeros((2, 4, 2), device="meta")
+    yaw = torch.zeros((2, 4), device="meta")
+    seg = torch.zeros((14, 4), device="meta")
+    with pytest.raises(ValueError):
+        ops.pairwise_sensors(pos, yaw, prox_range=0.1, robot_radius=0.035,
+                             rab_range=0.2, alpha_rab=5.0, wall_segments=seg)
+    with pytest.raises(ValueError):
+        ops.resolve_robot_collisions(pos, 0.035)
+    B, N, H, h = 2, 3, 4, 8
+    meta = lambda *s: torch.zeros(s, device="meta")  # noqa: E731
+    with pytest.raises(ValueError):
+        ops.fused_tail(meta(B, N * N, H * N), meta(B, H, N, N), meta(B, H * N, h),
+                       meta(B, H, N, h), meta(B, N, h), meta(B, N, h), meta(h), N)
+
+
+@pytest.mark.parametrize("override,item", [
+    (dict(recurrent=True), "item 9"), (dict(mixed_precision=True), "item 10"),
+    (dict(fused_attention=True), "K5f"), (dict(fused_env_step=True), "K4")])
+def test_unported_options_raise(override, item):
+    from swarmacb_torch.agents import POCAConfig, POCATrainer
+
+    env = DirectionalGateEnv(DirectionalGateEnvCfg(num_envs=1), device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        POCATrainer(env, POCAConfig(hidden_dim=8, **override))
+
+
+def test_discrete_variant_raises():
+    with pytest.raises(NotImplementedError, match="item 8"):
+        DirectionalGateEnv(DirectionalGateEnvCfg(variant="daisy"), device="cpu")
+
+
+def test_config_yaml_loads_through_the_port():
+    from swarmacb_torch.config import load_config
+
+    run, variant, cfg, env_ov = load_config(ROOT / "configs" / "DirGate_dandelion.yaml")
+    assert (run, variant) == ("DirGate_dandelion", "dandelion")
+    assert cfg.hidden_dim == 512 and cfg.horizon == 1000 and not cfg.recurrent
+    assert env_ov == {"num_envs": 5, "episode_length_s": 120.0}
