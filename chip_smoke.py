@@ -10,19 +10,25 @@ Phases, each of which must pass for the run to pass:
      CUDA kernel of the port from ``swarmacb_torch/ops/csrc`` (one nvcc
      per source, all started together);
   2. one phase per kernel, at the shapes of the main path (K1 and K2:
-     E = 1024 arenas of N = 20 robots; K3f: B = 1024 groups, N = 20,
-     H = 4 heads, h = 512): the kernel against its plain PyTorch version
-     on the same inputs, made from a numpy seed, with the tolerance
+     E = 1024 arenas of N = 20 robots; K3f and K3b: B = 1024 groups,
+     N = 20, H = 4 heads, h = 512): the kernel against its plain PyTorch
+     version on the same inputs, made from a numpy seed, with the tolerance
      printed beside the error; the median device time of each over 25
-     runs after warm-up; and the least time the card could take (bound);
+     runs after warm-up; and the least time the card could take (bound).
+     K3b's seven cotangents come from ``torch.autograd.grad`` through
+     ``ops.fused_tail``, against the plain version's autograd;
   3. the slice: ``configs/DirGate_dandelion.yaml`` through the port's
      loader, cut to E = 1024 arenas and a 200-decision horizon, drives
      ``DirectionalGateEnv.reset`` and ``POCATrainer.rollout`` (env step,
      actor, critic value, all N counterfactual baselines, bootstrap value)
-     on the card. Every kernel's launch count must show that the main path
-     went through it. A small rollout at the full width (E = 4, T = 4,
-     h = 512) is then held against the same rollout on the CPU, where every
-     op takes its plain version;
+     on the card, then one whole training iteration
+     (``POCATrainer.train_iteration``: a rollout, λ-returns, and 3 epochs
+     of minibatch POCA updates with Adam, at the YAML's minibatch and
+     chunk sizes). Every kernel's launch count must show that each path
+     went through it, and the iteration's agent-decisions/s is printed.
+     A small full-width rollout and update (E = 4, T = 4, h = 512) is then
+     held against the same rollout and update on the CPU, where every op
+     takes its plain version;
   4. a JSON line with every kernel's numbers, then the final status line.
 
 It exits non-zero, and prints no result, where there is no CUDA device or
@@ -301,6 +307,71 @@ def phase_tail(torch, ops, cycles_per_ms):
                  bound_ms=b_ms, bound_by=b_by, library_ms=None)]
 
 
+def _tail_backward_work(B, N, H, h):
+    """Bytes and float32 operations of one K3b call. Bytes: the seven
+    inputs and dout read once, seven cotangents of the inputs' shapes
+    written once. Operations per fc element: the fc recompute as in the
+    forward without the pool (2·HM + 2·H + 3 + 6); the LayerNorm backward
+    (y, d_y·y and its sum, rstd·((d_y − m1) − y·m2): 7); d_attn_lhs and d_wa
+    (2·HM each); d_attn_mI and d_dws (2·H each); the sums into d_xa and
+    d_bias (2)."""
+    HM = H * N
+    n_in = B * N * N * HM + B * H * N * N + B * HM * h + B * H * N * h + 2 * B * N * h + h
+    n_bytes = 4 * (2 * n_in + B * N * h)
+    n_flops = B * N * N * h * ((2 * HM + 2 * H + 3 + 6) + 7 + 4 * HM + 4 * H + 2)
+    return n_bytes, n_flops
+
+
+def phase_tail_backward(torch, ops, cycles_per_ms):
+    B, N, H, h = E_MAIN, N_MAIN, H_MAIN, HID_MAIN
+    print(f"== phase 2c: K3b fused_tail backward (B={B}, N={N}, H={H}, h={h})",
+          flush=True)
+    from swarmacb_torch.ops import baseline_tail
+
+    args = [a.requires_grad_() for a in _tail_inputs(torch, B, N, H, h, SEED + 1)]
+    rng = np.random.default_rng(SEED + 3)
+    dout = torch.from_numpy(rng.normal(size=(B, N, h)).astype(np.float32)).to(DEVICE)
+    before = ops.launches["fused_tail_bwd"]
+    got = torch.autograd.grad(ops.fused_tail(*args, N), args, dout)
+    torch.cuda.synchronize()
+    check(ops.launches["fused_tail_bwd"] == before + 1,
+          "autograd through ops.fused_tail launched K3b once")
+    plain_out = baseline_tail.tail_reference(*args, N)
+    want = torch.autograd.grad(plain_out, args, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    # Each cotangent is a float32 sum taken in another order than the plain
+    # version's autograd (cuBLAS products without TF32, reductions over the
+    # LayerNorm rows): d_attn_lhs and d_attn_mI over h = 512 columns, d_wa
+    # over N² = 400 rows, d_dws over N, d_xa over N, d_bias over B·N² rows.
+    # The tolerance is relative to each cotangent's largest element.
+    names = ("attn_lhs", "attn_mI", "wa", "dws", "x_a", "delta", "bias")
+    rel = 1e-5
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        scale = float(w.abs().max())
+        err, ok = max_err(g, w, rel * scale, 0.0)
+        worst = max(worst, err)
+        check(ok and g.shape == w.shape,
+              f"K3b d_{name} {tuple(g.shape)}: max|Δ| {err:.3e} (tolerance "
+              f"{rel:g}·max|plain| = {rel * scale:.3e})")
+    saved = [a.detach() for a in args]
+    ms = device_ms(torch, lambda: baseline_tail.backward_kernel(saved, dout, N),
+                   cycles_per_ms)
+    plain = device_ms(torch, lambda: torch.autograd.grad(
+        plain_out, args, dout, retain_graph=True), cycles_per_ms)
+    n_bytes, n_flops = _tail_backward_work(B, N, H, h)
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    print(f"  K3b kernel {ms:.4f} ms, plain backward {plain:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+          f"{n_flops / 1e9:.2f} GFLOP); no single PyTorch call computes this "
+          "function, so there is no library time", flush=True)
+    return [dict(name="fused_tail_bwd", route="cuda",
+                 source="swarmacb_torch/ops/csrc/baseline_tail.cu",
+                 replaces="swarmacb_tpu/ops/baseline_tail.py:224",
+                 max_abs_err=worst, ms=ms, plain_ms=plain,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=None)]
+
+
 # ── phase 3: the slice ───────────────────────────────────────────────────
 
 def _finite(torch, name, t):
@@ -365,15 +436,72 @@ def phase_slice(torch, ops, card):
     print(f"  mean team value {float(rollout.team_values.mean()):.4f}, "
           f"mean baseline {float(rollout.baselines.mean()):.4f}, "
           f"rewards {float(rollout.rewards.sum()):.0f}", flush=True)
+    return trainer
+
+
+def _chunk_passes(trainer):
+    """Gradient passes (chunk forward + backward) of one update: per epoch,
+    each minibatch's ``_grad_chunks``."""
+    c = trainer.cfg
+    T_E = c.horizon * trainer.num_envs
+    mb = min(trainer.group_mb, T_E)
+    sizes = [mb] * (T_E // mb) + ([T_E % mb] if T_E % mb else [])
+    return c.num_epochs * sum(trainer._grad_chunks(n) for n in sizes)
+
+
+def phase_train(torch, ops, card, trainer):
+    """One training iteration on the main path: reset, rollout, update."""
+    env, c = trainer.env, trainer.cfg
+    E, N, T, dp = env.num_envs, env.num_agents, c.horizon, c.decision_period
+    passes = _chunk_passes(trainer)
+    print(f"== phase 3c: one training iteration, E={E}, T={T}: minibatch "
+          f"{trainer.group_mb} groups, chunks of {trainer._chunk_rows(trainer.group_mb)}"
+          f" groups, {c.num_epochs} epochs = {passes} chunk passes", flush=True)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 1)
+    params = [*trainer.actor.parameters(), *trainer.critic.parameters()]
+    before = [p.detach().clone() for p in params]
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts from 0 just before, read just after
+    ops.reset_launches()
+    st, obs = env.reset(gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, obs, metrics = trainer.train_iteration(st, obs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    expect = {"pairwise_sensors": 1 + T * dp, "resolve_robot_collisions": T * dp,
+              "fused_tail": T + passes, "fused_tail_bwd": passes}
+    for name, n in expect.items():
+        check(launches[name] == n,
+              f"{name} launched {launches[name]} times in the training iteration "
+              f"(expected {n})")
+    for k, v in metrics.items():
+        check(bool(np.isfinite(v)), f"metric {k} = {v:.6g} is finite")
+    check(all(bool(torch.isfinite(p).all()) for p in params), "every parameter is finite")
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(params, before))
+    check(moved > 0, f"the update moved the parameters (largest change {moved:.3e})")
+    _finite(torch, "final obs", obs)
+    decisions = T * E * N
+    print(f"  training iteration of {T} decisions x {E} arenas x {N} robots "
+          f"(rollout, bootstrap, update): {wall:.3f} s, "
+          f"{decisions / wall:,.0f} training agent-decisions/s on {card}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print("  " + ", ".join(f"{k} {v:.5g}" for k, v in metrics.items()), flush=True)
     return launches
 
 
 def phase_small_reference(torch):
-    """A short rollout at the full width on the card against the same
-    rollout on the CPU, whose ops all take their plain versions: same
-    weights (drawn on the CPU from the seed), same action noise, same
-    spawns, two arenas reaching the time limit inside the run."""
-    from swarmacb_torch.agents import POCAConfig, POCATrainer
+    """A short rollout and update at the full width on the card against the
+    same rollout and update on the CPU, whose ops all take their plain
+    versions: same weights (drawn on the CPU from the seed), same action
+    noise, same spawns, two arenas reaching the time limit inside the run.
+    Both updates start from the CPU's rollout and take the same epoch
+    permutations; two minibatches of 8 groups per epoch, each in chunks of
+    3, 3 and 2 groups."""
+    from swarmacb_torch.agents import POCAConfig, POCATrainer, buffer
     from swarmacb_torch.config import DirectionalGateEnvCfg
     from swarmacb_torch.env import DirectionalGateEnv
 
@@ -381,16 +509,18 @@ def phase_small_reference(torch):
     print(f"== phase 3b: card against CPU, E={E}, T={T}, h={HID_MAIN}", flush=True)
     rng = np.random.default_rng(SEED + 2)
     cfg = DirectionalGateEnvCfg(num_envs=E)
+    pcfg = POCAConfig(hidden_dim=HID_MAIN, horizon=T, seed=SEED, mini_batch_size=8,
+                      accum_chunk_groups=3)
     pos, yaw = _arena_poses(rng, cfg, E, N)
     noise = rng.normal(size=(T, E * N, 2)).astype(np.float32)
     spawn_pos, spawn_yaw = _arena_poses(rng, cfg, T * E, N)
+    perms = np.stack([rng.permutation(T * E) for _ in range(pcfg.num_epochs)])
     L = cfg.max_episode_length
     step_count = np.array([L - 3, L - 2, 7, 50], np.int32)
-    out, weights = {}, {}
+    out, trainers, weights = {}, {}, {}
     for device in ("cpu", DEVICE):
         env = DirectionalGateEnv(cfg, device=device)
-        trainer = POCATrainer(env, POCAConfig(hidden_dim=HID_MAIN, horizon=T,
-                                              seed=SEED))
+        trainer = trainers[device] = POCATrainer(env, pcfg)
         # the same weights on both sides, N(0, 1/fan_in) and biases
         # N(0, 0.1²): the init's tiny T-Fixup gains leave the critic's
         # outputs near a constant, which would hide a wrong baseline
@@ -426,6 +556,66 @@ def phase_small_reference(torch):
     spread = float(cpu[2].baselines.std())
     check(spread > 1e-2, f"the baselines vary (std {spread:.3e})")
 
+    # the update, from the CPU's rollout on both sides
+    first, after = {}, {}
+    for device, trainer in trainers.items():
+        rollout = type(cpu[2])(**{k: v.to(device) for k, v in cpu[2].items()})
+        bootstrap = cpu[3].to(device)
+        c = trainer.cfg
+        returns, adv = buffer.compute_advantages(rollout, bootstrap, c.gamma, c.lam)
+        flat = trainer._flatten_buffer(rollout, returns,
+                                       buffer.normalize_advantages(adv))
+        idx = torch.from_numpy(perms[0][:trainer.group_mb]).to(device)
+        trainer.optimizer.zero_grad(set_to_none=True)
+        total, aux = trainer._accumulate_grads({k: v[idx] for k, v in flat.items()},
+                                               c.clip_eps, c.beta)
+        first[device] = ([float(total), *aux.tolist()],
+                         {n: p.grad.cpu() for n, p in
+                          [*trainer.actor.named_parameters(prefix="actor"),
+                           *trainer.critic.named_parameters(prefix="critic")]})
+        metrics = trainer._update(rollout, bootstrap, c.lr, c.clip_eps, c.beta,
+                                  injected_perms=torch.from_numpy(perms))
+        after[device] = (metrics, {n: p.detach().cpu() for n, p in
+                                   [*trainer.actor.named_parameters(prefix="actor"),
+                                    *trainer.critic.named_parameters(prefix="critic")]})
+    check(trainers[DEVICE]._grad_chunks(trainers[DEVICE].group_mb) == 3,
+          "the first minibatch runs in three chunks, the last a tail")
+    # the first minibatch before any step: float32 sums in other orders
+    # (cuBLAS against the CPU's products, K3b against autograd)
+    (loss_c, grads_c), (loss_g, grads_g) = first["cpu"], first[DEVICE]
+    names = ("total", "policy", "value", "baseline", "entropy")
+    for name, a, b in zip(names, loss_g, loss_c):
+        ok = abs(a - b) <= 1e-5 + 1e-5 * abs(b)
+        check(ok, f"card vs CPU first-minibatch {name} loss: {a:.7g} vs {b:.7g} "
+                  "(tolerance 1e-05 + 1e-05·|CPU|)")
+    # each gradient against its largest element, floored at 1e-3: some are
+    # zero in exact arithmetic (a key bias shifts every score of a softmax
+    # row alike) and hold only rounding noise
+    rel = 1e-5
+    ratio = {n: float((grads_g[n] - g).abs().max()) / max(float(g.abs().max()), 1e-3)
+             for n, g in grads_c.items()}
+    name = max(ratio, key=ratio.get)
+    check(ratio[name] <= rel, f"card vs CPU first-minibatch gradients: largest "
+                              f"max|Δ| / max(max|CPU|, 1e-3) over the {len(ratio)} "
+                              f"parameters {ratio[name]:.3e}, at {name} "
+                              f"(tolerance {rel:g})")
+    # after 3 epochs x 2 Adam steps: a first Adam step moves a coordinate by
+    # ≈ lr·sign(g), and a gradient near 0 can take either sign on two devices
+    bound = 2.2 * pcfg.num_epochs * pcfg.lr
+    params_c, params_g = after["cpu"][1], after[DEVICE][1]
+    drift = max(float((params_g[n] - p).abs().max()) for n, p in params_c.items())
+    check(drift <= bound, f"card vs CPU parameters after the update: max|Δ| "
+                          f"{drift:.3e} (tolerance 2.2·epochs·lr = {bound:.3e})")
+    moved = max(float((p - torch.from_numpy(weights[n])).abs().max())
+                for n, p in params_c.items())
+    check(moved > pcfg.lr, f"the update moved the parameters (largest change "
+                           f"{moved:.3e}, more than one step of lr {pcfg.lr:g})")
+    for k in after["cpu"][0]:
+        a, b = float(after[DEVICE][0][k]), float(after["cpu"][0][k])
+        check(abs(a - b) <= 1e-3 + 1e-2 * abs(b),
+              f"card vs CPU update metric {k}: {a:.6g} vs {b:.6g} "
+              "(tolerance 1e-03 + 1e-02·|CPU|)")
+
 
 # ── main ─────────────────────────────────────────────────────────────────
 
@@ -454,7 +644,9 @@ def main() -> int:
     env = DirectionalGateEnv(DirectionalGateEnvCfg(num_envs=E_MAIN))
     rows = phase_pairwise(torch, ops, env.cfg, env.wall_segments, cycles_per_ms)
     rows += phase_tail(torch, ops, cycles_per_ms)
-    launches = phase_slice(torch, ops, card)
+    rows += phase_tail_backward(torch, ops, cycles_per_ms)
+    trainer = phase_slice(torch, ops, card)
+    launches = phase_train(torch, ops, card, trainer)
     phase_small_reference(torch)
 
     for row in rows:

@@ -1,0 +1,192 @@
+#!/usr/bin/env python3
+"""Where the time of the port's dandelion POCA update goes, on one NVIDIA GPU.
+
+    python3 scripts/profile_torch_update.py [--num_envs 1024] [--horizon 200]
+                                            [--minibatches 2]
+                                            [--trace build/update_trace.json]
+
+Loads ``configs/DirGate_dandelion.yaml`` through the port's loader (hidden
+512x2, N = 20 robots, the YAML's buffer and batch sizes), cuts it to
+``--num_envs`` arenas and a ``--horizon``-decision rollout as
+``chip_smoke.py`` does, collects one rollout (timed), takes one warm-up
+minibatch step, then ``--minibatches`` minibatch steps with no tracing and
+one more under ``torch.profiler``. A minibatch step is the chunked
+gradient accumulation (``POCATrainer._accumulate_grads``, one forward and
+one backward per chunk) and one Adam step. Prints
+
+  - the rollout's wall time, the wall time per minibatch step untraced and
+    traced, and from them the iteration's predicted wall time and the
+    update's share of it (``num_epochs`` x minibatches per epoch steps);
+  - the device's busy share of the traced step;
+  - device time by stage: the loss's forward (actor, critic value, all
+    counterfactual baselines, and the rest: losses and glue), and the
+    backward with the Adam step (every kernel outside the forward's spans:
+    autograd runs the backward on its own thread);
+  - the kernels that took the most device time,
+
+with the card's name and power limit, and a JSON line of the same numbers.
+It needs a CUDA device and refuses to run without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+STAGES = ("forward", "forward.actor", "forward.critic_pass",
+          "forward.all_baselines")
+
+
+def _staged(torch, name, fn):
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return run
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--num_envs", type=int, default=1024)
+    ap.add_argument("--horizon", type=int, default=200)
+    ap.add_argument("--minibatches", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--trace", default=None,
+                    help="write the profiler's chrome trace to this path")
+    args = ap.parse_args()
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_update: no CUDA device is available", file=sys.stderr)
+        return 1
+    from swarmacb_torch.agents import POCATrainer, buffer
+    from swarmacb_torch.config import DirectionalGateEnvCfg, load_config
+    from swarmacb_torch.env import DirectionalGateEnv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(card, flush=True)
+
+    _, variant, pcfg, env_ov = load_config(ROOT / "configs" / "DirGate_dandelion.yaml")
+    pcfg = dataclasses.replace(pcfg, horizon=args.horizon, seed=args.seed)
+    env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
+    env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant,
+                                                   num_envs=args.num_envs, **env_kw))
+    trainer = POCATrainer(env, pcfg)
+    c = pcfg
+
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(args.seed)
+    state, obs = env.reset(gen)
+    trainer.rollout(state, obs, length=2)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, rollout, bootstrap, _ = trainer.rollout(state, obs)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+
+    returns, adv = buffer.compute_advantages(rollout, bootstrap, c.gamma, c.lam)
+    flat = trainer._flatten_buffer(rollout, returns, buffer.normalize_advantages(adv))
+    T_E = c.horizon * env.num_envs
+    mb = min(trainer.group_mb, T_E)
+    per_epoch = -(-T_E // mb)
+    chunks = trainer._grad_chunks(mb)
+    perm = torch.randperm(T_E, generator=trainer.generator, device=env.device)
+    batches = [{k: v[perm[i * mb:(i + 1) * mb]] for k, v in flat.items()}
+               for i in range(min(per_epoch, args.minibatches + 2))]
+
+    def step(i):
+        trainer._sgd_step(batches[i % len(batches)], c.clip_eps, c.beta)
+
+    step(0)                                                     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(args.minibatches):
+        step(i + 1)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / args.minibatches
+
+    trainer._feedforward_loss = _staged(torch, "forward", trainer._feedforward_loss)
+    trainer._apply_actor = _staged(torch, "forward.actor", trainer._apply_actor)
+    critic = trainer.critic
+    critic.critic_pass = _staged(torch, "forward.critic_pass", critic.critic_pass)
+    critic.all_baselines = _staged(torch, "forward.all_baselines",
+                                   critic.all_baselines)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(args.minibatches + 1)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    if args.trace:
+        Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+
+    # One stream: a kernel belongs to the innermost stage whose span on the
+    # device's timeline holds it; kernels outside every span are the
+    # backward's (autograd's engine thread launches them) and Adam's.
+    events = prof.events()
+    spans = sorted(((ev.time_range.start, ev.time_range.end, ev.name)
+                    for ev in events if ev.device_type == DeviceType.CUDA
+                    and ev.is_user_annotation and ev.name in STAGES),
+                   key=lambda s: s[1] - s[0])
+    kernels = defaultdict(lambda: [0, 0.0])       # name → [count, device µs]
+    stages = defaultdict(float)                   # name → device µs
+    for ev in events:
+        if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
+            us = ev.time_range.elapsed_us()
+            kernels[ev.name][0] += 1
+            kernels[ev.name][1] += us
+            stage = next((name for start, end, name in spans
+                          if start <= ev.time_range.start and ev.time_range.end <= end),
+                         "backward and Adam")
+            stages[stage] += us
+    busy_us = sum(us for _, us in kernels.values())
+
+    n_steps = c.num_epochs * per_epoch
+    iteration_s = rollout_s + n_steps * step_s
+    print(f"rollout of {c.horizon} decisions x {env.num_envs} arenas: {rollout_s:.3f} s; "
+          f"minibatch step ({mb} groups, {chunks} chunks of "
+          f"{trainer._chunk_rows(mb)}): {step_s * 1e3:.1f} ms untraced, "
+          f"{traced_s * 1e3:.1f} ms traced; {n_steps} steps per update -> "
+          f"iteration {iteration_s:.2f} s, update {n_steps * step_s / iteration_s:.1%} "
+          f"of it; device busy {busy_us / (traced_s * 1e6):.1%} of the traced step; "
+          f"on {card}", flush=True)
+    print("stage (device ms per minibatch step; \"forward\" is the forward's "
+          "kernels outside its forward.* parts)")
+    for name in (*STAGES, "backward and Adam"):
+        print(f"  {name:<24} {stages[name] / 1e3:>10.3f}")
+    print(f"top kernels by device time (of {busy_us / 1e3:.3f} ms per step):")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:args.top]
+    for name, (count, us) in top:
+        print(f"  {us / 1e3:>9.3f} ms {us / busy_us:>6.1%} x{count:<5d} {name[:100]}")
+    print(json.dumps({
+        "card": card, "num_envs": env.num_envs, "horizon": c.horizon,
+        "minibatch_groups": mb, "chunks_per_minibatch": chunks,
+        "steps_per_update": n_steps, "rollout_s": rollout_s,
+        "minibatch_step_ms": step_s * 1e3, "traced_step_ms": traced_s * 1e3,
+        "iteration_s_predicted": iteration_s,
+        "update_share": n_steps * step_s / iteration_s,
+        "device_busy_share_traced": busy_us / (traced_s * 1e6),
+        "stage_device_ms": {k: v / 1e3 for k, v in stages.items()},
+        "top_kernels_ms": {k[:100]: v[1] / 1e3 for k, v in top},
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

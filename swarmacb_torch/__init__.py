@@ -11,7 +11,7 @@ Package layout (mirrors swarmacb_tpu)
   config/    env + trainer configs, ML-Agents-schema YAML loader (copies)
   env/       batched Directional Gate env: geometry, physics, sensors
   models/    actor and attention-based POCA critic (nn.Modules)
-  agents/    rollout container and the acting half of the POCA trainer
+  agents/    rollout container, λ-returns, losses and the POCA trainer
   ops/       hand-written CUDA kernels (csrc/) with their plain versions
   convert    flax params → state_dicts
 """

@@ -1,4 +1,4 @@
-"""POCA acting stack: rollout container and trainer (acting half)."""
+"""POCA stack: rollout container, λ-returns, losses and the trainer."""
 
 from ..config.poca_cfg import POCAConfig
 from .buffer import Rollout

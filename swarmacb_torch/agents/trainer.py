@@ -1,27 +1,40 @@
-"""POCA trainer, acting half — counterpart of the rollout side of
-``swarmacb_tpu/agents/trainer.py``.
+"""POCA trainer — counterpart of ``swarmacb_tpu/agents/trainer.py``
+(feedforward, single device).
 
-One decision (``_rollout_fn`` in the JAX package, trainer.py:269-366):
-sample the Gaussian actor, run the critic's team value and all N
-counterfactual baselines on the 5-D critic state, then step the env
-``decision_period`` times with the same action. Forward only, under
-``torch.no_grad()``. Algorithm parity with ML-Agents POCA:
+Acting: one decision (``_rollout_fn`` in the JAX package, trainer.py:269-366)
+samples the Gaussian actor, runs the critic's team value and all N
+counterfactual baselines on the 5-D critic state, then steps the env
+``decision_period`` times with the same action, under ``torch.no_grad()``.
+Learning: λ-returns, advantage normalisation, then ``num_epochs`` epochs of
+minibatch POCA updates with one Adam over actor and critic
+(``_update_fn`` / ``_update_feedforward``, trainer.py:677-752).
+Algorithm parity with ML-Agents POCA:
 
   - counterfactual baselines from the critic every step (poca_trainer.py:449-455)
   - continuous env-action preprocessing clamp(−3,3)/3, raw actions stored
     (poca_trainer.py:457-467)
   - decision_period sub-stepping with reward accumulation (poca_trainer.py:469-482)
   - host-side episode accounting across auto-resets (poca_trainer.py:498-515)
+  - λ-return advantage = return − baseline (poca_buffer.py:125-154)
+  - advantage normalization before epochs (poca_trainer.py:676-683)
+  - per-dim ratio PPO clip + trust-region value/baseline losses
+    (poca_trainer.py:139-173)
+  - loss = policy + 0.5·(value + 0.5·baseline) − β·entropy, single Adam over
+    actor+critic, eps 1e-8, NO grad clipping (poca_trainer.py:271-274,703-712)
+  - group-minibatch derivation from buffer_size_hint (poca_trainer.py:663-674)
+  - linear schedules with ML-Agents floors (poca_trainer.py:281-287)
 
-The JAX package scans the horizon inside one jitted program; here it is a
-Python loop of eager PyTorch calls on the env's device, whose hot spots are
-the hand-written CUDA kernels in ``swarmacb_torch.ops``. The learning half
-(λ-returns, the POCA losses, Adam, the update with the tail's backward
-kernel) is not ported yet (ROADMAP.md §1 item 6).
+The JAX package scans the horizon and the epochs inside jitted programs;
+here they are Python loops of eager PyTorch calls on the env's device, whose
+hot spots are the hand-written CUDA kernels in ``swarmacb_torch.ops`` (the
+critic tail's forward and backward among them). The JAX package's split
+update (``split_update_groups``) exists only to bound one XLA program's wall
+time; its math is the path below, so it is not ported.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -30,6 +43,8 @@ import torch
 from ..config.poca_cfg import POCAConfig
 from ..env.directional_gate import DirectionalGateEnv
 from ..models.networks import Actor, POCACritic
+from . import buffer as buf
+from . import losses
 from .buffer import Rollout
 
 
@@ -46,12 +61,13 @@ def _not_ported(cfg: POCAConfig) -> Optional[str]:
 
 
 class POCATrainer:
-    """Networks, sampling and the rollout of POCA on a batched env.
+    """End-to-end POCA training on a batched env.
 
     Runs on the env's device. Weights are drawn on the CPU from
     ``cfg.seed`` (so a CPU and a CUDA trainer of one seed hold the same
-    weights) and then moved; action noise comes from ``self.generator``,
-    a generator on the device seeded with ``cfg.seed``.
+    weights) and then moved; action noise, resets and the epochs'
+    minibatch permutations come from ``self.generator``, a generator on the
+    device seeded with ``cfg.seed``.
     """
 
     STATE_DIM = 5  # critic consumes the 5-D polar state (poca_trainer.py:224-227)
@@ -82,7 +98,31 @@ class POCATrainer:
 
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(c.seed)
+
+        # single Adam over actor+critic (poca_trainer.py:271-274); PyTorch's
+        # lr·m̂/(√v̂ + ε) is optax.adam's update
+        self.optimizer = torch.optim.Adam(
+            [*self.actor.parameters(), *self.critic.parameters()],
+            lr=c.lr, eps=c.adam_eps)
+
+        # schedules (poca_trainer.py:281-291)
+        self.lr_schedule = losses.make_schedule(c.lr_schedule, c.lr,
+                                                losses.LR_MIN, c.total_timesteps)
+        self.eps_schedule = losses.make_schedule(c.eps_schedule, c.clip_eps,
+                                                 losses.EPS_MIN, c.total_timesteps)
+        self.beta_schedule = losses.make_schedule(c.beta_schedule, c.beta,
+                                                  losses.BETA_MIN, c.total_timesteps)
+
+        # minibatch derivation (poca_trainer.py:663-674)
+        T_E = c.horizon * self.num_envs
+        if c.buffer_size_hint > 0 and c.mini_batch_size > 0:
+            bpe = max(1, c.buffer_size_hint // c.mini_batch_size)
+            self.group_mb = max(1, T_E // bpe)
+        else:
+            self.group_mb = min(c.mini_batch_size, T_E)
+
         self.global_step = 0
+        self.update_count = 0
 
         # host-side episode accounting (poca_trainer.py:322-330)
         self._episode_reward_acc = np.zeros(self.num_envs)
@@ -220,3 +260,201 @@ class POCATrainer:
                     completed[t][done_mask].tolist())
                 self._episode_reward_acc[done_mask] = 0.0
                 self._episode_step_count[done_mask] = 0.0
+
+    # ──────────────────────────────────────────────────────────────
+    #  losses
+    # ──────────────────────────────────────────────────────────────
+
+    def _feedforward_loss(self, batch, eps, beta):
+        """poca_trainer.py:534-575. Returns (total, (policy, value,
+        baseline, entropy))."""
+        obs = batch["obs"]                  # (MB, N, obs)
+        MB, N = obs.shape[:2]
+        mu, std = self._apply_actor(obs.reshape(MB * N, self.obs_dim))
+        actions = batch["actions"]
+        logp = Actor.log_prob(mu, std, actions.reshape(MB * N, self.act_dim))
+        policy_loss = losses.trust_region_policy_loss(
+            batch["advantages"].reshape(-1, 1), logp,
+            batch["old_log_probs"].reshape(MB * N, -1), eps)
+        mean_entropy = Actor.entropy(std).mean()
+
+        cs = batch["critic_states"]
+        new_tv = self.critic.critic_pass(cs)[:, 0]
+        new_bl = self.critic.all_baselines(
+            cs, self._encode_actions_for_critic(actions))
+        value_loss = losses.trust_region_value_loss(
+            new_tv, batch["old_team_values"], batch["returns"], eps)
+        ret_exp = batch["returns"][:, None].expand(new_bl.shape)
+        baseline_loss = losses.trust_region_value_loss(
+            new_bl.reshape(-1), batch["old_baselines"].reshape(-1),
+            ret_exp.reshape(-1), eps)
+        total = losses.poca_total_loss(policy_loss, value_loss, baseline_loss,
+                                       mean_entropy, beta)
+        return total, (policy_loss, value_loss, baseline_loss, mean_entropy)
+
+    # ──────────────────────────────────────────────────────────────
+    #  update
+    # ──────────────────────────────────────────────────────────────
+
+    def _chunk_rows(self, batch_rows: int) -> int:
+        """Rows per gradient-accumulation chunk of a minibatch of
+        ``batch_rows`` groups (arena timesteps), capped at
+        ``accum_chunk_groups``; ``batch_rows`` (no chunking) when the whole
+        batch fits under the cap."""
+        cap = self.cfg.accum_chunk_groups
+        if cap <= 0 or batch_rows <= cap:
+            return batch_rows
+        return cap
+
+    def _grad_chunks(self, batch_rows: int) -> int:
+        """Number of gradient-accumulation passes (incl. a possible
+        shorter tail chunk) the minibatch will be split into."""
+        rows = self._chunk_rows(batch_rows)
+        return -(-batch_rows // rows)
+
+    def _accumulate_grads(self, batch, eps, beta):
+        """Adds the minibatch loss's gradient to every parameter's ``.grad``
+        and returns (total loss, aux (4,)) of the whole minibatch.
+
+        Exact chunked accumulation: each chunk's loss is weighted by its
+        share of rows (every loss term is a per-element mean with a fixed
+        element count per row, so Σᵢ wᵢ·meanᵢ with wᵢ = rowsᵢ/B equals the
+        full-batch mean, and likewise its gradient). Each chunk's backward
+        runs before the next chunk's forward, so activation memory is
+        bounded by one chunk; the tail chunk (B mod rows) gets its own
+        weighted pass."""
+        B = batch["obs"].shape[0]
+        rows = self._chunk_rows(B)
+        n_full, rem = divmod(B, rows)
+        total_sum = torch.zeros((), device=self.device)
+        aux_sum = torch.zeros(4, device=self.device)
+        for k in range(n_full):
+            chunk = {n: v[k * rows:(k + 1) * rows] for n, v in batch.items()}
+            total, aux = self._feedforward_loss(chunk, eps, beta)
+            (total * (rows / B)).backward()
+            total_sum = total_sum + total.detach()
+            aux_sum = aux_sum + torch.stack(aux).detach()
+        total_v, aux_v = total_sum * (rows / B), aux_sum * (rows / B)
+        if rem:
+            tail = {n: v[n_full * rows:] for n, v in batch.items()}
+            total, aux = self._feedforward_loss(tail, eps, beta)
+            (total * (rem / B)).backward()
+            total_v = total_v + total.detach() * (rem / B)
+            aux_v = aux_v + torch.stack(aux).detach() * (rem / B)
+        return total_v, aux_v
+
+    def _sgd_step(self, batch, eps, beta):
+        """One Adam step on one minibatch; returns its aux (4,)."""
+        self.optimizer.zero_grad(set_to_none=True)
+        _, aux = self._accumulate_grads(batch, eps, beta)
+        self.optimizer.step()
+        return aux
+
+    @staticmethod
+    def _flatten_buffer(rollout: Rollout, returns, advantages) -> dict:
+        """(T, E, …) buffer → flat (T·E, …) minibatch source tensors."""
+        return {
+            "obs": buf.flatten_time_env(rollout.obs),
+            "critic_states": buf.flatten_time_env(rollout.critic_states),
+            "actions": buf.flatten_time_env(rollout.actions),
+            "old_log_probs": buf.flatten_time_env(rollout.log_probs),
+            "advantages": buf.flatten_time_env(advantages),
+            "returns": returns.reshape(-1),
+            "old_team_values": buf.flatten_time_env(rollout.team_values),
+            "old_baselines": buf.flatten_time_env(rollout.baselines),
+        }
+
+    def _update(self, rollout: Rollout, bootstrap, lr, eps, beta,
+                injected_perms=None):
+        """``num_epochs`` POCA epochs over the buffer → metrics (tensors).
+
+        ``injected_perms``: optional (num_epochs, T·E) index tensor that
+        replaces the epochs' minibatch permutations (otherwise drawn with
+        ``torch.randperm`` from ``self.generator``)."""
+        c = self.cfg
+        returns, advantages = buf.compute_advantages(rollout, bootstrap,
+                                                     c.gamma, c.lam)
+        advantages = buf.normalize_advantages(advantages)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+
+        T, E = rollout.rewards.shape
+        T_E = T * E
+        flat = self._flatten_buffer(rollout, returns, advantages)
+        mb = min(self.group_mb, T_E)
+        n_full, rem = divmod(T_E, mb)
+        aux_sum = torch.zeros(4, device=self.device)
+        n_batches = 0
+        for epoch in range(c.num_epochs):
+            if injected_perms is None:
+                perm = torch.randperm(T_E, generator=self.generator,
+                                      device=self.device)
+            else:
+                perm = injected_perms[epoch].to(self.device)
+            bounds = [(k * mb, (k + 1) * mb) for k in range(n_full)]
+            if rem:
+                bounds.append((n_full * mb, T_E))
+            for lo, hi in bounds:
+                idx = perm[lo:hi]
+                aux_sum = aux_sum + self._sgd_step(
+                    {n: v[idx] for n, v in flat.items()}, eps, beta)
+                n_batches += 1
+        metrics = aux_sum / n_batches
+        return {"policy_loss": metrics[0], "value_loss": metrics[1],
+                "baseline_loss": metrics[2], "entropy": metrics[3],
+                "mean_abs_advantage": advantages.abs().mean()}
+
+    # ──────────────────────────────────────────────────────────────
+    #  outer loop
+    # ──────────────────────────────────────────────────────────────
+
+    def _schedules(self):
+        # the reference evaluates schedules AFTER the rollout advanced
+        # global_step (poca_trainer.py:372-382,525)
+        s = self.global_step + self.cfg.horizon * self.num_envs * self.num_agents
+        return (float(self.lr_schedule(s)), float(self.eps_schedule(s)),
+                float(self.beta_schedule(s)))
+
+    def train_iteration(self, env_state, obs):
+        """One rollout + update; returns (env_state, obs, host_metrics)."""
+        lr, eps, beta = self._schedules()
+        env_state, obs, rollout, bootstrap, _ = self.collect(env_state, obs)
+        metrics = self._update(rollout, bootstrap, lr, eps, beta)
+        self.update_count += 1
+
+        host = {k: float(v) for k, v in metrics.items()}
+        host["lr"], host["eps"], host["beta"] = lr, eps, beta
+        rewards = rollout.rewards.cpu().numpy()
+        host["mean_rollout_reward"] = float(rewards.sum(0).mean())
+        host["mean_step_reward"] = float(rewards.mean())
+        host["mean_team_value"] = float(rollout.team_values.mean())
+        return env_state, obs, host
+
+    def train(self, progress=True):
+        """Training loop to ``total_timesteps`` (poca_trainer.py:811-975),
+        without checkpoints or summaries (ROADMAP.md §1 item 7). Returns
+        (env_state, obs) after the last iteration."""
+        c = self.cfg
+        env_state, obs = self.env.reset(self.generator)
+        start = time.time()
+        decisions = c.horizon * self.num_envs * self.num_agents
+        while self.global_step < c.total_timesteps:
+            t_iter = time.time()
+            env_state, obs, m = self.train_iteration(env_state, obs)
+            iter_dt = time.time() - t_iter
+            elapsed = time.time() - start
+            sps = self.global_step / elapsed if elapsed > 0 else 0.0
+            sps_inst = decisions / iter_dt if iter_dt > 0 else 0.0
+            if progress:
+                print(f"[POCA] step={self.global_step:,} upd={self.update_count} "
+                      f"pg={m['policy_loss']:.3f} vf={m['value_loss']:.3f} "
+                      f"bl={m['baseline_loss']:.3f} ent={m['entropy']:.3f} "
+                      f"SPS={sps:,.0f} (inst {sps_inst:,.0f})", flush=True)
+            # a NaN loss means diverged training: stop at the iteration it
+            # appears instead of burning the rest of the budget
+            bad = [k for k in ("policy_loss", "value_loss", "baseline_loss")
+                   if not np.isfinite(m[k])]
+            if bad:
+                raise FloatingPointError(
+                    f"non-finite {bad} at step {self.global_step:,} — diverged")
+        return env_state, obs

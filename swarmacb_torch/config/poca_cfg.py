@@ -60,13 +60,13 @@ class POCAConfig:
     # poca_trainer.py:663-674)
     buffer_size_hint: int = 0
 
-    # The fields below are kept so configs written for the JAX package
-    # load unchanged (same names, same defaults). The port reads only what
-    # its acting path needs; the rest waits for the slices that port them.
-
     # Memory ceiling for one gradient computation, in GROUPS (arena
-    # timesteps); consumed by the update (ROADMAP.md §1 item 6).
+    # timesteps): a larger minibatch is split into chunks of at most this
+    # many groups whose gradients accumulate (POCATrainer._accumulate_grads).
     accum_chunk_groups: int = 1024
+
+    # The fields below are kept so configs written for the JAX package
+    # load unchanged (same names, same defaults).
 
     # JAX-program splitting knobs; the port runs eagerly and has no
     # single-program wall-time ceiling to bound.

@@ -2,7 +2,7 @@
 versions, and the wrappers that pick one by the device of the input.
 
   pairwise_sensors, resolve_robot_collisions   (pairwise.py, csrc/pairwise.cu)
-  fused_tail (forward)                         (baseline_tail.py,
+  fused_tail (forward and backward)            (baseline_tail.py,
                                                 csrc/baseline_tail.cu)
 
 ``launches`` counts the kernel launches of each wrapper since the last

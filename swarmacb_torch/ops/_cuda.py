@@ -11,7 +11,11 @@ turns ``sqrtf`` and division into approximations, and the sensor kernel's
 comparisons (cone test, range tests, ``u ∈ [0, 1]``) would then flip against
 the plain version at their boundaries. ``pairwise.cu`` also turns off FMA
 contraction so that each of its products and sums rounds as the plain
-PyTorch version's separate operations do.
+PyTorch version's separate operations do. ``baseline_tail.cu`` caps its
+kernels at 168 registers a thread, so that three 128-thread blocks fit on
+an SM (65,536 registers); uncapped, the backward takes 182 and runs two
+blocks, and took 12.13 ms against 10.62 ms capped at the main path's shape
+on an H100 80GB HBM3 at 700 W (``scripts/time_tail_backward.py``).
 
 Nothing here runs when the package is imported: the CPU tests import every
 module, and the CPU has no nvcc.
@@ -36,7 +40,7 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # source stem → extra nvcc flags
 SOURCES = {
     "pairwise": ("-fmad=false",),
-    "baseline_tail": (),
+    "baseline_tail": ("-maxrregcount=168",),
 }
 
 _P = ctypes.c_void_p
@@ -54,6 +58,7 @@ SIGNATURES = {
     "baseline_tail": {
         "fused_tail_fwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _P],
+        "fused_tail_bwd_launch": [_P] * 16 + [_I, _I, _I, _I, _P],
     },
 }
 
@@ -63,7 +68,8 @@ _libs: dict[str, ctypes.CDLL] = {}
 # launches its kernel and nowhere else (plain-version calls do not count).
 launches: dict[str, int] = {"pairwise_sensors": 0,
                             "resolve_robot_collisions": 0,
-                            "fused_tail": 0}
+                            "fused_tail": 0,
+                            "fused_tail_bwd": 0}
 
 
 def reset_launches() -> None:

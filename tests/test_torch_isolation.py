@@ -16,7 +16,10 @@ from swarmacb_torch.env import DirectionalGateEnv, make_env
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "swarmacb_tpu")
 PORT_FILES = (sorted((ROOT / "swarmacb_torch").rglob("*.py"))
-              + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_rollout.py"])
+              + [ROOT / "chip_smoke.py"]
+              + [ROOT / "scripts" / f for f in ("profile_torch_rollout.py",
+                                                "profile_torch_update.py",
+                                                "time_tail_backward.py")])
 
 
 def _imported_modules(path):
@@ -90,6 +93,31 @@ def test_wrappers_refuse_a_non_cpu_tensor_they_cannot_launch_on():
     with pytest.raises(ValueError):
         ops.fused_tail(meta(B, N * N, H * N), meta(B, H, N, N), meta(B, H * N, h),
                        meta(B, H, N, h), meta(B, N, h), meta(B, N, h), meta(h), N)
+
+
+def _tail_args(B=2, N=3, H=4, h=8, device="cpu"):
+    g = torch.Generator().manual_seed(0)
+    shapes = [(B, N * N, H * N), (B, H, N, N), (B, H * N, h), (B, H, N, h),
+              (B, N, h), (B, N, h), (h,)]
+    return [torch.randn(s, generator=g).to(device).requires_grad_() for s in shapes]
+
+
+def test_cpu_fused_tail_returns_gradients():
+    """A CPU call whose inputs need a gradient runs the plain version under
+    autograd, and the gradient reaches all seven inputs."""
+    args = _tail_args()
+    out = ops.fused_tail(*args, 3)
+    grads = torch.autograd.grad((out * out).sum(), args)
+    for a, g in zip(args, grads):
+        assert g.shape == a.shape and bool(torch.isfinite(g).all())
+        assert float(g.abs().sum()) > 0
+
+
+def test_fused_tail_with_gradients_takes_the_kernel_path_off_the_cpu():
+    """Off the CPU, inputs that need a gradient go through the kernels'
+    autograd function, which refuses what it cannot launch on."""
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        ops.fused_tail(*_tail_args(device="meta"), 3)
 
 
 @pytest.mark.parametrize("override,item", [
