@@ -10,13 +10,18 @@ Phases, each of which must pass for the run to pass:
      CUDA kernel of the port from ``swarmacb_torch/ops/csrc`` (one nvcc
      per source, all started together);
   2. one phase per kernel, at the shapes of the main path (K1 and K2:
-     E = 1024 arenas of N = 20 robots; K3f and K3b: B = 1024 groups,
-     N = 20, H = 4 heads, h = 512): the kernel against its plain PyTorch
-     version on the same inputs, made from a numpy seed, with the tolerance
-     printed beside the error; the median device time of each over 25
-     runs after warm-up; and the least time the card could take (bound).
-     K3b's seven cotangents come from ``torch.autograd.grad`` through
-     ``ops.fused_tail``, against the plain version's autograd;
+     E = 1024 arenas of N = 20 robots; K3f, K3b, K5f and K5b: B = 1024
+     groups, N = 20, H = 4 heads, h = 512): the kernel against its plain
+     PyTorch version on the same inputs, made from a numpy seed, with the
+     tolerance printed beside the error; the median device time of each
+     over 25 runs after warm-up; and the least time the card could take
+     (bound). K3b's seven and K5b's nine cotangents come from
+     ``torch.autograd.grad`` through ``ops.fused_tail`` and
+     ``ops.fused_cf_attention``; K5b's are held against a float64 plain run
+     on the card, as the JAX package's kernel test holds its kernel. Phase
+     2f times ``POCACritic.all_baselines`` forward and backward on one
+     chunk of 1,024 groups on both critic paths (the tail kernels, and
+     ``fused_attention``);
   3. the slice: ``configs/DirGate_dandelion.yaml`` through the port's
      loader, cut to E = 1024 arenas and a 200-decision horizon, drives
      ``DirectionalGateEnv.reset`` and ``POCATrainer.rollout`` (env step,
@@ -24,11 +29,13 @@ Phases, each of which must pass for the run to pass:
      on the card, then one whole training iteration
      (``POCATrainer.train_iteration``: a rollout, λ-returns, and 3 epochs
      of minibatch POCA updates with Adam, at the YAML's minibatch and
-     chunk sizes). Every kernel's launch count must show that each path
-     went through it, and the iteration's agent-decisions/s is printed.
-     A small full-width rollout and update (E = 4, T = 4, h = 512) is then
-     held against the same rollout and update on the CPU, where every op
-     takes its plain version;
+     chunk sizes). Phase 3d drives the same rollout and iteration with
+     ``fused_attention=True`` (``--fused_attention on``). Every kernel's
+     launch count must show that each path went through it, and each
+     iteration's agent-decisions/s is printed. A small full-width rollout
+     and update (E = 4, T = 4, h = 512) is then held against the same
+     rollout and update on the CPU, where every op takes its plain
+     version, on both critic paths;
   4. a JSON line with every kernel's numbers, then the final status line.
 
 It exits non-zero, and prints no result, where there is no CUDA device or
@@ -372,23 +379,215 @@ def phase_tail_backward(torch, ops, cycles_per_ms):
                  bound_ms=b_ms, bound_by=b_by, library_ms=None)]
 
 
+def _cf_inputs(torch, B, N, H, h, seed, score_scale):
+    """Raw scores at ``score_scale`` (3: trained-like, 12: saturated softmax
+    rows), folded values, residual entities and bias, as the JAX package's
+    kernel test draws them."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s)  # noqa: E731
+    arrays = [f(B, H, N, N) * score_scale, f(B, H, N, N) * score_scale,
+              f(B, H, N, N) * score_scale, f(B, H, N, 1) * score_scale,
+              f(B, H, N, h), f(B, H, N, h), f(B, N, h), f(B, N, h), f(h)]
+    return [torch.from_numpy(a.astype(np.float32)).to(DEVICE) for a in arrays]
+
+
+def _cf_forward_work(B, N, H, h):
+    """Bytes and float32 operations of one K5f call as the algorithm needs
+    them (each base product once per group and head). Bytes: the nine
+    inputs read once, pooled written once. Operations per group and head:
+    the scaled scores, row maxes, exponentials (one operation each),
+    partitions and corrections (16·N² + 6·N); the base products E_aa·wa_h
+    and E_sa·wa_h (4·N²·h); per (n, I, o) the two rank-1 terms, the division
+    and the sum over heads (6·N²·h). Per fc element: bias, x_a and the
+    diagonal delta (3), LayerNorm (6) and the pool (1)."""
+    n_in = 3 * B * H * N * N + B * H * N + 2 * B * H * N * h + 2 * B * N * h + h
+    n_bytes = 4 * (n_in + B * N * h)
+    n_flops = B * H * (16 * N * N + 6 * N + 10 * N * N * h) + 10 * B * N * N * h
+    return n_bytes, n_flops
+
+
+def _cf_backward_work(B, N, H, h):
+    """Bytes and float32 operations of one K5b call, from the operations of
+    the backward body (cf_attention.py's ``_bwd_kernel``). Bytes: the nine
+    inputs and dout read once, nine cotangents written once. Operations:
+    the forward's recompute without the pool; the LayerNorm backward (7 per
+    fc element); per head and (n, I, o): dctx, the dZ, d_zc and d_E_as dot
+    products, the sums into d_num, d_wa and d_dws, and the two products
+    with the finished d_num (16), plus the row I terms: the d_E_sa products
+    and E_saᵀ·dctx (4·N²·h and 11·N·h); the scalar exp chain (11·N²); the
+    sums into d_xa and d_bias (2 per fc element)."""
+    n_in = 3 * B * H * N * N + B * H * N + 2 * B * H * N * h + 2 * B * N * h + h
+    n_bytes = 4 * (2 * n_in + B * N * h)
+    recompute = B * H * (16 * N * N + 6 * N + 10 * N * N * h) + 9 * B * N * N * h
+    n_flops = (recompute + 7 * B * N * N * h
+               + B * H * (20 * N * N * h + 11 * N * h + 11 * N * N)
+               + 2 * B * N * N * h)
+    return n_bytes, n_flops
+
+
+def phase_cf_forward(torch, ops, cycles_per_ms):
+    B, N, H, h = E_MAIN, N_MAIN, H_MAIN, HID_MAIN
+    d = h // H
+    print(f"== phase 2d: K5f fused_cf_attention forward (B={B}, N={N}, H={H}, "
+          f"h={h}, d={d})", flush=True)
+    from swarmacb_torch.ops import cf_attention
+
+    # LayerNorm outputs are O(1); the kernel's partition Z_b - E_aa + E_as
+    # rounds otherwise than a fresh softmax row sum (the JAX package holds
+    # its kernel to its plain version at the same tolerance)
+    worst = 0.0
+    for scale in (3.0, 12.0):
+        args = _cf_inputs(torch, B, N, H, h, SEED + 4, scale)
+        with torch.no_grad():
+            got = ops.fused_cf_attention(*args, d)
+            want = cf_attention.cf_reference(*args, d)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want, 2e-5, 2e-5)
+        worst = max(worst, err)
+        check(ok and tuple(got.shape) == (B, N, h),
+              f"K5f pooled {tuple(got.shape)}, scores x{scale:g}: max|Δ| {err:.3e} "
+              "(tolerance 2e-05 + 2e-05·|plain|)")
+    args = _cf_inputs(torch, B, N, H, h, SEED + 4, 3.0)
+    with torch.no_grad():
+        ms = device_ms(torch, lambda: ops.fused_cf_attention(*args, d), cycles_per_ms)
+        plain = device_ms(torch, lambda: cf_attention.cf_reference(*args, d),
+                          cycles_per_ms)
+    n_bytes, n_flops = _cf_forward_work(B, N, H, h)
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    print(f"  K5f kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP)", flush=True)
+    return [dict(name="fused_cf_attention", route="cuda",
+                 source="swarmacb_torch/ops/csrc/cf_attention.cu",
+                 replaces="swarmacb_tpu/ops/cf_attention.py:267",
+                 max_abs_err=worst, ms=ms, plain_ms=plain,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=None)]
+
+
+def phase_cf_backward(torch, ops, cycles_per_ms):
+    B, N, H, h = E_MAIN, N_MAIN, H_MAIN, HID_MAIN
+    d = h // H
+    print(f"== phase 2e: K5b fused_cf_attention backward (B={B}, N={N}, H={H}, "
+          f"h={h})", flush=True)
+    from swarmacb_torch.ops import cf_attention
+
+    args = [a.requires_grad_() for a in _cf_inputs(torch, B, N, H, h, SEED + 5, 3.0)]
+    rng = np.random.default_rng(SEED + 6)
+    dout = torch.from_numpy(rng.normal(size=(B, N, h)).astype(np.float32)).to(DEVICE)
+    before = ops.launches["fused_cf_attention_bwd"]
+    got = torch.autograd.grad(ops.fused_cf_attention(*args, d), args, dout)
+    torch.cuda.synchronize()
+    check(ops.launches["fused_cf_attention_bwd"] == before + 1,
+          "autograd through ops.fused_cf_attention launched K5b once")
+    plain_out = cf_attention.cf_reference(*args, d)
+    want = torch.autograd.grad(plain_out, args, dout, retain_graph=True)
+    args64 = [a.detach().double().requires_grad_() for a in args]
+    truth = torch.autograd.grad(cf_attention.cf_reference(*args64, d), args64,
+                                dout.double())
+    torch.cuda.synchronize()
+    # The JAX package's rule for its kernel (tests/test_cf_attention.py):
+    # each cotangent's error against a float64 plain run is at most twice
+    # the float32 plain version's (2.5 times for wa, whose recompute adds
+    # the rounding of the incremental partition), or 4 ulp of the tensor's
+    # largest element, where both sit at float32 resolution.
+    worst = 0.0
+    for name, g, w, t in zip(cf_attention.NAMES, got, want, truth):
+        err_k = float((g.double() - t).abs().max())
+        err_p = float((w.double() - t).abs().max())
+        floor = 4 * float(np.spacing(np.float32(float(t.abs().max()))))
+        band = 2.5 if name == "wa" else 2.0
+        limit = max(band * err_p, floor)
+        worst = max(worst, float((g - w).abs().max()))
+        check(err_k <= limit and g.shape == w.shape,
+              f"K5b d_{name} {tuple(g.shape)}: error against float64 {err_k:.3e}, "
+              f"plain float32's {err_p:.3e} (tolerance max({band:g}x plain, "
+              f"4 ulp {floor:.3e}) = {limit:.3e})")
+    del args64, truth
+    saved = [a.detach() for a in args]
+    ms = device_ms(torch, lambda: cf_attention.backward_kernel(saved, dout, d),
+                   cycles_per_ms)
+    plain = device_ms(torch, lambda: torch.autograd.grad(
+        plain_out, args, dout, retain_graph=True), cycles_per_ms)
+    n_bytes, n_flops = _cf_backward_work(B, N, H, h)
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    print(f"  K5b kernel {ms:.4f} ms, plain backward {plain:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+          f"{n_flops / 1e9:.2f} GFLOP); max|kernel − plain| over the nine "
+          f"cotangents {worst:.3e}; no single PyTorch call computes this "
+          "function, so there is no library time", flush=True)
+    return [dict(name="fused_cf_attention_bwd", route="cuda",
+                 source="swarmacb_torch/ops/csrc/cf_attention.cu",
+                 replaces="swarmacb_tpu/ops/cf_attention.py:290",
+                 max_abs_err=worst, ms=ms, plain_ms=plain,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=None)]
+
+
+def phase_critic_paths(torch, cycles_per_ms):
+    """Device ms of ``all_baselines`` forward and backward (the gradient of
+    every critic parameter) on one chunk of 1,024 groups, on both critic
+    paths, with the same weights: scores, softmax and the tail kernels
+    K3f/K3b, against the fused attention K5f/K5b. Timed in turns."""
+    from swarmacb_torch.models import POCACritic
+
+    B, N, H, h = E_MAIN, N_MAIN, H_MAIN, HID_MAIN
+    print(f"== phase 2f: all_baselines forward + backward, {B} groups, on both "
+          "critic paths", flush=True)
+    rng = np.random.default_rng(SEED + 7)
+    states = torch.from_numpy(rng.normal(size=(B, N, 5)).astype(np.float32)).to(DEVICE)
+    actions = torch.from_numpy(rng.normal(size=(B, N, 2)).astype(np.float32)).to(DEVICE)
+    critics = {}
+    for fused in (False, True):
+        critic = POCACritic(5, 2, N, hidden=h, num_heads=H, num_layers=2,
+                            fused_attention=fused)
+        critic.init_weights(torch.Generator().manual_seed(SEED))
+        critics[fused] = critic.to(DEVICE)
+
+    def step(critic):
+        out = critic.all_baselines(states, actions)
+        torch.autograd.grad(out.sum(), list(critic.parameters()))
+        return out
+
+    with torch.no_grad():
+        outs = {k: c.all_baselines(states, actions) for k, c in critics.items()}
+    err, ok = max_err(outs[True], outs[False], 1e-5, 1e-5)
+    check(ok, f"all_baselines of the two paths: max|Δ| {err:.3e} "
+              "(tolerance 1e-05 + 1e-05·|tail path|)")
+    times = {False: [], True: []}
+    for fused in (False, True, True, False):
+        times[fused].append(device_ms(torch, lambda: step(critics[fused]),
+                                      cycles_per_ms))
+    print(f"  device ms per chunk: tail path (K3f/K3b) "
+          f"{', '.join(f'{t:.3f}' for t in times[False])}; fused attention "
+          f"(K5f/K5b) {', '.join(f'{t:.3f}' for t in times[True])}", flush=True)
+
+
 # ── phase 3: the slice ───────────────────────────────────────────────────
 
 def _finite(torch, name, t):
     check(bool(torch.isfinite(t).all()), f"{name} {tuple(t.shape)} is finite")
 
 
-def phase_slice(torch, ops, card):
+def _critic_launches(fused_attention, forward, backward):
+    """Expected launches of the critic's kernels: ``forward`` passes of
+    all_baselines and ``backward`` passes of its gradient, on one path."""
+    on, off = (("fused_cf_attention", "fused_tail") if fused_attention
+               else ("fused_tail", "fused_cf_attention"))
+    return {on: forward, f"{on}_bwd": backward, off: 0, f"{off}_bwd": 0}
+
+
+def phase_slice(torch, ops, card, fused_attention=False):
     from swarmacb_torch.agents import POCATrainer
     from swarmacb_torch.config import DirectionalGateEnvCfg, load_config
     from swarmacb_torch.env import DirectionalGateEnv
 
     run, variant, pcfg, env_ov = load_config(ROOT / "configs" / "DirGate_dandelion.yaml")
-    print(f"== phase 3: the slice, {run} ({variant}): cut from num_envs="
+    label = "3d" if fused_attention else "3"
+    print(f"== phase {label}: the slice, {run} ({variant}"
+          f"{', fused_attention' if fused_attention else ''}): cut from num_envs="
           f"{env_ov.get('num_envs')}, time_horizon={pcfg.horizon} to num_envs="
           f"{E_MAIN}, horizon={HORIZON}; hidden {pcfg.hidden_dim}x{pcfg.num_layers}",
           flush=True)
-    pcfg = dataclasses.replace(pcfg, horizon=HORIZON, seed=SEED)
+    pcfg = dataclasses.replace(pcfg, horizon=HORIZON, seed=SEED,
+                               fused_attention=fused_attention)
     env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
     env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant, num_envs=E_MAIN,
                                                    **env_kw))
@@ -406,6 +605,7 @@ def phase_slice(torch, ops, card):
 
     # the main path: counts from 0 just before, read just after
     gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
     st, obs = env.reset(gen)
@@ -414,10 +614,10 @@ def phase_slice(torch, ops, card):
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     expect = {"pairwise_sensors": 1 + T * dp, "resolve_robot_collisions": T * dp,
-              "fused_tail": T}
+              **_critic_launches(fused_attention, T, 0)}
     for name, n in expect.items():
         check(launches[name] == n,
-              f"{name} launched {launches[name]} times on the main path "
+              f"{name} launched {launches[name]} times in the rollout "
               f"(expected {n})")
     shapes = {"obs": (T, E, N, 24), "critic_states": (T, E, N, 5),
               "actions": (T, E, N, 2), "log_probs": (T, E, N, 2),
@@ -454,7 +654,9 @@ def phase_train(torch, ops, card, trainer):
     env, c = trainer.env, trainer.cfg
     E, N, T, dp = env.num_envs, env.num_agents, c.horizon, c.decision_period
     passes = _chunk_passes(trainer)
-    print(f"== phase 3c: one training iteration, E={E}, T={T}: minibatch "
+    fused = trainer.critic.fused_attention
+    print(f"== phase {'3d' if fused else '3c'}: one training iteration"
+          f"{' with fused_attention' if fused else ''}, E={E}, T={T}: minibatch "
           f"{trainer.group_mb} groups, chunks of {trainer._chunk_rows(trainer.group_mb)}"
           f" groups, {c.num_epochs} epochs = {passes} chunk passes", flush=True)
     gen = torch.Generator(device=DEVICE)
@@ -473,7 +675,7 @@ def phase_train(torch, ops, card, trainer):
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     expect = {"pairwise_sensors": 1 + T * dp, "resolve_robot_collisions": T * dp,
-              "fused_tail": T + passes, "fused_tail_bwd": passes}
+              **_critic_launches(fused, T + passes, passes)}
     for name, n in expect.items():
         check(launches[name] == n,
               f"{name} launched {launches[name]} times in the training iteration "
@@ -493,7 +695,7 @@ def phase_train(torch, ops, card, trainer):
     return launches
 
 
-def phase_small_reference(torch):
+def phase_small_reference(torch, fused_attention=False):
     """A short rollout and update at the full width on the card against the
     same rollout and update on the CPU, whose ops all take their plain
     versions: same weights (drawn on the CPU from the seed), same action
@@ -506,11 +708,12 @@ def phase_small_reference(torch):
     from swarmacb_torch.env import DirectionalGateEnv
 
     E, N, T = 4, N_MAIN, 4
-    print(f"== phase 3b: card against CPU, E={E}, T={T}, h={HID_MAIN}", flush=True)
+    print(f"== phase 3b: card against CPU, E={E}, T={T}, h={HID_MAIN}, "
+          f"fused_attention={fused_attention}", flush=True)
     rng = np.random.default_rng(SEED + 2)
     cfg = DirectionalGateEnvCfg(num_envs=E)
     pcfg = POCAConfig(hidden_dim=HID_MAIN, horizon=T, seed=SEED, mini_batch_size=8,
-                      accum_chunk_groups=3)
+                      accum_chunk_groups=3, fused_attention=fused_attention)
     pos, yaw = _arena_poses(rng, cfg, E, N)
     noise = rng.normal(size=(T, E * N, 2)).astype(np.float32)
     spawn_pos, spawn_yaw = _arena_poses(rng, cfg, T * E, N)
@@ -581,7 +784,7 @@ def phase_small_reference(torch):
     check(trainers[DEVICE]._grad_chunks(trainers[DEVICE].group_mb) == 3,
           "the first minibatch runs in three chunks, the last a tail")
     # the first minibatch before any step: float32 sums in other orders
-    # (cuBLAS against the CPU's products, K3b against autograd)
+    # (cuBLAS against the CPU's products, K3b or K5b against autograd)
     (loss_c, grads_c), (loss_g, grads_g) = first["cpu"], first[DEVICE]
     names = ("total", "policy", "value", "baseline", "entropy")
     for name, a, b in zip(names, loss_g, loss_c):
@@ -645,12 +848,20 @@ def main() -> int:
     rows = phase_pairwise(torch, ops, env.cfg, env.wall_segments, cycles_per_ms)
     rows += phase_tail(torch, ops, cycles_per_ms)
     rows += phase_tail_backward(torch, ops, cycles_per_ms)
-    trainer = phase_slice(torch, ops, card)
-    launches = phase_train(torch, ops, card, trainer)
-    phase_small_reference(torch)
+    rows += phase_cf_forward(torch, ops, cycles_per_ms)
+    rows += phase_cf_backward(torch, ops, cycles_per_ms)
+    phase_critic_paths(torch, cycles_per_ms)
+    # each path with its counts set to 0 just before and read just after
+    launches = {}
+    for fused in (False, True):
+        trainer = phase_slice(torch, ops, card, fused_attention=fused)
+        launches[fused] = phase_train(torch, ops, card, trainer)
+        del trainer
+    for fused in (False, True):
+        phase_small_reference(torch, fused_attention=fused)
 
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = launches[row["name"].startswith("fused_cf_attention")][row["name"]]
     print(f"== done in {time.perf_counter() - t_start:.1f} s; "
           f"{len(failures)} failure(s)", flush=True)
     for f in failures:

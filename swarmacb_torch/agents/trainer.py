@@ -27,7 +27,8 @@ Algorithm parity with ML-Agents POCA:
 The JAX package scans the horizon and the epochs inside jitted programs;
 here they are Python loops of eager PyTorch calls on the env's device, whose
 hot spots are the hand-written CUDA kernels in ``swarmacb_torch.ops`` (the
-critic tail's forward and backward among them). The JAX package's split
+critic tail's forward and backward among them, or with
+``fused_attention=True`` the fused counterfactual attention's). The JAX package's split
 update (``split_update_groups``) exists only to bound one XLA program's wall
 time; its math is the path below, so it is not ported.
 """
@@ -53,8 +54,6 @@ def _not_ported(cfg: POCAConfig) -> Optional[str]:
         return "recurrent=True (LSTM actor): ROADMAP.md §1 item 9"
     if cfg.mixed_precision:
         return "mixed_precision=True: ROADMAP.md §1 item 10"
-    if cfg.fused_attention:
-        return "fused_attention=True: ROADMAP.md §2 K5f/K5b"
     if cfg.fused_env_step:
         return "fused_env_step=True: ROADMAP.md §1 item 14 and §2 K4"
     return None
@@ -93,6 +92,8 @@ class POCATrainer:
                 state_dim=self.STATE_DIM, act_dim=self.act_dim,
                 num_agents=self.num_agents, hidden=c.hidden_dim,
                 num_heads=c.critic_num_heads, num_layers=c.num_layers,
+                # None (auto) means off, as in the JAX trainer
+                fused_attention=bool(c.fused_attention),
             )
         self.init_params_for_seed(c.seed)
 

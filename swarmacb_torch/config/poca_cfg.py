@@ -79,8 +79,10 @@ class POCAConfig:
     # (ops/baseline_tail.py), on the CPU its plain PyTorch version.
     # ``fused_tail`` is therefore accepted with any value.
     fused_tail: "bool | None" = None
-    # Not ported yet: True raises NotImplementedError
-    # (ROADMAP.md §2, K5f/K5b — fused counterfactual attention).
+    # True routes the critic's all_baselines through the fused
+    # counterfactual attention (ops/cf_attention.py: kernels K5f/K5b on the
+    # card, the plain version on the CPU) instead of the assembled softmax
+    # and the tail; None (auto) means off, as in the JAX trainer.
     fused_attention: "bool | None" = None
     # Not ported yet: True raises NotImplementedError
     # (ROADMAP.md §1 item 14 and §2 K4 — fused env step).

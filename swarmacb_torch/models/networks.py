@@ -12,8 +12,10 @@ reference's torch modules (poca_networks.py):
 
 ``POCACritic.all_baselines`` keeps the JAX package's assembled-scores,
 W_out-folded form (networks.py:443-517); its fc/LayerNorm/pool tail goes
-through ``ops.fused_tail`` — the CUDA kernel on the card, the plain version
-on the CPU. Submodule and parameter names follow the flax tree
+through ``ops.fused_tail``, or with ``fused_attention=True`` everything from
+the raw scores to the pooled rows goes through ``ops.fused_cf_attention``
+(networks.py:481-489) — the CUDA kernels on the card, the plain versions on
+the CPU. Submodule and parameter names follow the flax tree
 (``dense_i`` → ``layers.i``, ``kernel`` → ``weight``ᵀ), which
 ``swarmacb_torch.convert`` relies on. The discrete and recurrent actors are
 not ported yet (ROADMAP.md §1 items 8-9).
@@ -198,13 +200,18 @@ class POCACritic(nn.Module):
 
     Consumes the 5-D polar STATE, not agent observations
     (poca_networks.py:469-635). ``num_agents`` is the normalising agent
-    count: 2n/max − 1 is 1.0 in every reference configuration."""
+    count: 2n/max − 1 is 1.0 in every reference configuration.
+    ``fused_attention`` selects the ``ops.fused_cf_attention`` branch of
+    ``all_baselines``; both branches compute the same function with the same
+    parameters."""
 
     def __init__(self, state_dim: int, act_dim: int, num_agents: int,
-                 hidden: int = 256, num_heads: int = 4, num_layers: int = 2):
+                 hidden: int = 256, num_heads: int = 4, num_layers: int = 2,
+                 fused_attention: bool = False):
         super().__init__()
         self.num_agents = num_agents
         self.hidden = hidden
+        self.fused_attention = fused_attention
         self.obs_entity_enc = EntityEmbedding(state_dim, hidden)
         self.obs_act_entity_enc = EntityEmbedding(state_dim + act_dim, hidden)
         self.self_attn = ResidualSelfAttention(hidden, num_heads)
@@ -264,7 +271,9 @@ class POCACritic(nn.Module):
              correction from the folded (v_s − v_a), and
           4. the residual is x_a with the diagonal swapped to x_s.
 
-        Steps 3-4 plus LayerNorm and the pool over n are ``ops.fused_tail``.
+        Steps 3-4 plus LayerNorm and the pool over n are ``ops.fused_tail``;
+        with ``fused_attention`` the softmax of step 2 joins them in
+        ``ops.fused_cf_attention``, which takes the four raw score products.
         """
         B, N, _ = all_states.shape
         h = self.hidden
@@ -296,6 +305,15 @@ class POCACritic(nn.Module):
         Wh = rsa.fc_out.weight.t().reshape(H, d, h)
         wa = torch.einsum("bhmd,hdo->bhmo", va, Wh)
         dws = torch.einsum("bhmd,hdo->bhmo", vs - va, Wh)               # (B,H,I,h)
+
+        if self.fused_attention:
+            # raw scores to pooled rows in one kernel: the (B, I, H, n, m)
+            # score and softmax tensors below never exist
+            pooled = ops.fused_cf_attention(
+                S_aa, S_as, S_sa, S_ss[..., None].contiguous(),
+                wa.contiguous(), dws.contiguous(), x_a.contiguous(),
+                (x_s - x_a).contiguous(), rsa.fc_out.bias, d)
+            return self._value(pooled.reshape(B * N, h), N).reshape(B, N)
 
         ii = torch.arange(N, device=all_states.device)
         I_idx = ii.view(1, N, 1, 1, 1)

@@ -4,6 +4,8 @@ versions, and the wrappers that pick one by the device of the input.
   pairwise_sensors, resolve_robot_collisions   (pairwise.py, csrc/pairwise.cu)
   fused_tail (forward and backward)            (baseline_tail.py,
                                                 csrc/baseline_tail.cu)
+  fused_cf_attention (forward and backward)    (cf_attention.py,
+                                                csrc/cf_attention.cu)
 
 ``launches`` counts the kernel launches of each wrapper since the last
 ``reset_launches()``; ``build()`` compiles every kernel up front.
@@ -11,6 +13,7 @@ versions, and the wrappers that pick one by the device of the input.
 
 from ._cuda import build, launches, reset_launches
 from .baseline_tail import fused_tail, tail_reference
+from .cf_attention import cf_reference, fused_cf_attention
 from .pairwise import (
     pairwise_sensors,
     pairwise_sensors_plain,
@@ -19,6 +22,8 @@ from .pairwise import (
 
 __all__ = [
     "build",
+    "cf_reference",
+    "fused_cf_attention",
     "fused_tail",
     "launches",
     "pairwise_sensors",

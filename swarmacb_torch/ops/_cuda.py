@@ -41,6 +41,7 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {
     "pairwise": ("-fmad=false",),
     "baseline_tail": ("-maxrregcount=168",),
+    "cf_attention": ("-maxrregcount=168",),
 }
 
 _P = ctypes.c_void_p
@@ -60,6 +61,10 @@ SIGNATURES = {
                                   _I, _I, _I, _I, _P],
         "fused_tail_bwd_launch": [_P] * 16 + [_I, _I, _I, _I, _P],
     },
+    "cf_attention": {
+        "cf_attention_fwd_launch": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+        "cf_attention_bwd_launch": [_P] * 22 + [_I, _I, _I, _I, _F, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -69,7 +74,9 @@ _libs: dict[str, ctypes.CDLL] = {}
 launches: dict[str, int] = {"pairwise_sensors": 0,
                             "resolve_robot_collisions": 0,
                             "fused_tail": 0,
-                            "fused_tail_bwd": 0}
+                            "fused_tail_bwd": 0,
+                            "fused_cf_attention": 0,
+                            "fused_cf_attention_bwd": 0}
 
 
 def reset_launches() -> None:

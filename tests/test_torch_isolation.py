@@ -19,6 +19,7 @@ PORT_FILES = (sorted((ROOT / "swarmacb_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py"]
               + [ROOT / "scripts" / f for f in ("profile_torch_rollout.py",
                                                 "profile_torch_update.py",
+                                                "time_cf_backward.py",
                                                 "time_tail_backward.py")])
 
 
@@ -93,6 +94,10 @@ def test_wrappers_refuse_a_non_cpu_tensor_they_cannot_launch_on():
     with pytest.raises(ValueError):
         ops.fused_tail(meta(B, N * N, H * N), meta(B, H, N, N), meta(B, H * N, h),
                        meta(B, H, N, h), meta(B, N, h), meta(B, N, h), meta(h), N)
+    with pytest.raises(ValueError):
+        ops.fused_cf_attention(meta(B, H, N, N), meta(B, H, N, N), meta(B, H, N, N),
+                               meta(B, H, N, 1), meta(B, H, N, h), meta(B, H, N, h),
+                               meta(B, N, h), meta(B, N, h), meta(h), 2)
 
 
 def _tail_args(B=2, N=3, H=4, h=8, device="cpu"):
@@ -122,13 +127,32 @@ def test_fused_tail_with_gradients_takes_the_kernel_path_off_the_cpu():
 
 @pytest.mark.parametrize("override,item", [
     (dict(recurrent=True), "item 9"), (dict(mixed_precision=True), "item 10"),
-    (dict(fused_attention=True), "K5f"), (dict(fused_env_step=True), "K4")])
+    (dict(fused_env_step=True), "K4")])
 def test_unported_options_raise(override, item):
     from swarmacb_torch.agents import POCAConfig, POCATrainer
 
     env = DirectionalGateEnv(DirectionalGateEnvCfg(num_envs=1), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         POCATrainer(env, POCAConfig(hidden_dim=8, **override))
+
+
+def test_fused_attention_trainer_takes_the_plain_path_on_the_cpu():
+    """``fused_attention=True`` builds a trainer whose critic takes the fused
+    branch; on the CPU that branch is the plain version (no kernel launch),
+    and a short rollout gives finite baselines."""
+    from swarmacb_torch.agents import POCAConfig, POCATrainer
+
+    env = DirectionalGateEnv(DirectionalGateEnvCfg(num_envs=1), device="cpu")
+    trainer = POCATrainer(env, POCAConfig(hidden_dim=8, horizon=2,
+                                          fused_attention=True))
+    assert trainer.critic.fused_attention
+    assert not POCATrainer(env, POCAConfig(hidden_dim=8)).critic.fused_attention
+    ops.reset_launches()
+    st, obs = env.reset(trainer.generator)
+    _, _, rollout, _, _ = trainer.rollout(st, obs)
+    assert not any(ops.launches.values())
+    assert rollout.baselines.shape == (2, 1, 20)
+    assert bool(torch.isfinite(rollout.baselines).all())
 
 
 def test_discrete_variant_raises():
