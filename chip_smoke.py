@@ -9,7 +9,7 @@ Phases, each of which must pass for the run to pass:
      off for matrix products and convolutions, and the build of every
      CUDA kernel of the port from ``swarmacb_torch/ops/csrc`` (one nvcc
      per source, all started together);
-  2. one phase per kernel, at the shapes of the main path (K1 and K2:
+  2. one phase per kernel, at the shapes of the main path (K1, K2 and K4:
      E = 1024 arenas of N = 20 robots; K3f, K3b, K5f and K5b: B = 1024
      groups, N = 20, H = 4 heads, h = 512): the kernel against its plain
      PyTorch version on the same inputs, made from a numpy seed, with the
@@ -21,7 +21,12 @@ Phases, each of which must pass for the run to pass:
      on the card, as the JAX package's kernel test holds its kernel. Phase
      2f times ``POCACritic.all_baselines`` forward and backward on one
      chunk of 1,024 groups on both critic paths (the tail kernels, and
-     ``fused_attention``);
+     ``fused_attention``). Phase 2g holds K4 (``fused_env_step``) against
+     its plain version in its four compiled forms (daisy, lily, dandelion,
+     and daisy without observation tiles): integer and boolean tiles
+     exactly, but for decision inputs within 16 ulps of their thresholds
+     (the exemptions are counted), floats to the printed tolerance; and
+     prints how far a 200-step free run of each drifts from the plain one;
   3. the slice: ``configs/DirGate_dandelion.yaml`` through the port's
      loader, cut to E = 1024 arenas and a 200-decision horizon, drives
      ``DirectionalGateEnv.reset`` and ``POCATrainer.rollout`` (env step,
@@ -30,12 +35,17 @@ Phases, each of which must pass for the run to pass:
      (``POCATrainer.train_iteration``: a rollout, λ-returns, and 3 epochs
      of minibatch POCA updates with Adam, at the YAML's minibatch and
      chunk sizes). Phase 3d drives the same rollout and iteration with
-     ``fused_attention=True`` (``--fused_attention on``). Every kernel's
-     launch count must show that each path went through it, and each
-     iteration's agent-decisions/s is printed. A small full-width rollout
-     and update (E = 4, T = 4, h = 512) is then held against the same
-     rollout and update on the CPU, where every op takes its plain
-     version, on both critic paths;
+     ``fused_attention=True`` (``--fused_attention on``). Phase 3e takes
+     ``configs/DirGate_daisy.yaml`` with the same cut: a rollout on the
+     composed env step (K1, K2, K3f), then one whole training iteration
+     with ``fused_env_step=True`` (K4 once per env step, K2 never, K1 only
+     for the reset's observations), then the env arena-steps/s of both env
+     paths. Every kernel's launch count must show that each path went
+     through it, and each iteration's agent-decisions/s is printed. A small
+     full-width rollout and update (E = 4, T = 4, h = 512) is then held
+     against the same rollout and update on the CPU, where every op takes
+     its plain version: dandelion on both critic paths, daisy on both env
+     paths;
   4. a JSON line with every kernel's numbers, then the final status line.
 
 It exits non-zero, and prints no result, where there is no CUDA device or
@@ -560,6 +570,224 @@ def phase_critic_paths(torch, cycles_per_ms):
           f"(K5f/K5b) {', '.join(f'{t:.3f}' for t in times[True])}", flush=True)
 
 
+# ── phase 2g: K4, the fused env step ─────────────────────────────────────
+
+K4_FORMS = (("daisy", True), ("lily", True), ("dandelion", True), ("daisy", False))
+K4_TIE_ULPS = 16
+K4_FREE_STEPS = 200
+# kernel against plain on the card, from one state: positions, yaw and the
+# readings run the same float32 operations (the sums over the 8 sensors in
+# one order); the sums over up to 19 neighbours (RAB vectors, push-outs)
+# run in another order, and the RAB projections scale them by up to 1/(2r)
+K4_TOL = {"px": 2e-6, "py": 2e-6, "yaw": 2e-6, "prox": 2e-6, "light": 2e-6,
+          "ztilde": 2e-6, "rab_proj": 2e-5}
+
+
+def _k4_state(torch, variant, E, N, seed):
+    """A lanes state on the card for one K4 form, its actions, draws and
+    spawns: robots spread over the arena's disc, random machine states,
+    episode counters spread so that 1/16 of the arenas reset."""
+    from swarmacb_torch.config import DirectionalGateEnvCfg
+    from swarmacb_torch.env import DirectionalGateEnv, lanes
+    from swarmacb_torch.ops import fused_step
+
+    cfg = DirectionalGateEnvCfg(variant=variant, num_envs=E)
+    env = DirectionalGateEnv(cfg, device=DEVICE)
+    rng = np.random.default_rng(seed)
+    pos, yaw = _arena_poses(rng, cfg, E, N)
+    L = cfg.max_episode_length
+    sc = rng.integers(0, L - 2, E).astype(np.int32)
+    sc[::16] = L - 2
+    st = env.make_state(pos, yaw, torch.Generator(device=DEVICE), step_count=sc,
+                        episode_reward=rng.integers(-3, 4, E).astype(np.float32))
+    st.prev_ground = torch.from_numpy(rng.choice(
+        np.array([0.0, 0.5, 1.0], np.float32), (E, N))).to(DEVICE)
+    dev = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    if cfg.discrete_actions:
+        b = st.behavior
+        for name in ("explore_state", "explore_steps", "photo_steps", "antiphoto_steps"):
+            setattr(b, name, dev(rng.integers(0, 3, (E, N)).astype(np.int32)))
+        for name in ("photo_avoiding", "antiphoto_avoiding"):
+            setattr(b, name, dev(rng.random((E, N)) < 0.3))
+        for name in ("explore_dir", "photo_dir", "antiphoto_dir"):
+            setattr(b, name, dev(np.where(rng.random((E, N)) < 0.5, -1.0, 1.0)
+                                 .astype(np.float32)))
+    tiles = lanes.state_to_lanes(env, st)
+    Ep = tiles["px"].shape[1]
+    if cfg.discrete_actions:
+        acts = lanes.to_lanes(dev(rng.integers(0, 6, (E, N)).astype(np.int32)), E)
+        draws = tuple(dev(rng.integers(1, 5, (N, Ep)).astype(np.int32)) for _ in range(3))
+    else:
+        wheels = rng.uniform(-1.0, 1.0, (2, N, Ep)).astype(np.float32) * cfg.max_wheel_speed
+        acts, draws = (dev(wheels[0]), dev(wheels[1])), ()
+    spos, syaw = _arena_poses(rng, cfg, Ep, N)
+    spawn = tuple(dev(np.ascontiguousarray(a.T)) for a in (spos[..., 0], spos[..., 1], syaw))
+    return env, fused_step.constants(cfg), tiles, acts, draws, spawn
+
+
+def _k4_ties(torch, k, tiles, acts, draws, spawn, cfg, want_obs):
+    """Robot (N, Ep) and arena (1, Ep) masks of decision inputs within
+    K4_TIE_ULPS ulps of their thresholds: the obstacle band and turn tests
+    on the 8-term proximity sums (against Σ|term|), and the ground colour
+    of the pre-reset positions near a zone edge (against 1 m)."""
+    from swarmacb_torch.ops import fused_step
+
+    N = tiles["px"].shape[0]
+    win = K4_TIE_ULPS * float(np.finfo(np.float32).eps)
+    sb = fused_step.sensor_block(tiles["px"], tiles["py"], torch.cos(tiles["yaw"]),
+                                 torch.sin(tiles["yaw"]), k, N)
+    v = torch.stack(sb["prox_vals"]).double()                      # (8, N, Ep)
+    cos_a = torch.tensor(k.cos_a, dtype=torch.float64, device=v.device)[:, None, None]
+    sin_a = torch.tensor(k.sin_a, dtype=torch.float64, device=v.device)[:, None, None]
+    tx, ty = v * cos_a, v * sin_a
+    sx, sy = tx.sum(0), ty.sum(0)
+    scx, scy = tx.abs().sum(0), ty.abs().sum(0)
+    value = torch.clamp(torch.hypot(sx, sy), max=1.0)
+    robot = (((sx + sy.abs() * 2.0 ** -24).abs() <= win * scx) | (sy.abs() <= win * scy)
+             | ((value - k.prox_threshold).abs() <= win * (scx + scy)))
+    pre = fused_step.fused_env_step_plain(dict(tiles, sc=torch.zeros_like(tiles["sc"])),
+                                          acts, draws, spawn, cfg, want_obs=False)[0]
+    x, y = pre["px"].double().abs(), pre["py"].double()
+    near = torch.zeros_like(x, dtype=torch.bool)
+    for b in (k.gate_zone_hw, k.corr_hw):
+        near |= (x - b).abs() <= win
+    for b in (k.gate_south, k.corr_south, k.ni):
+        near |= (y - b).abs() <= win
+    return robot, near.any(0, keepdim=True)
+
+
+def _k4_work(E, N, n_seg, n_face, sensor_passes, want_obs, obs24, discrete):
+    """Bytes and float32 operations of one K4 call, as the algorithm needs
+    them. Bytes: each input tile read once and each output tile written
+    once. Operations (transcendentals, square roots and divisions count
+    one each) per sensor pass: per ordered pair of robots, the offsets,
+    distances, the clipped reading and the 8-ray cone test (49), the RAB
+    bearing by rsqrt and its four sums (37); per robot and wall segment,
+    the 8-ray intersection (178); per robot, the ray directions (48), the
+    light sensor (66) and the aggregates (78). Per robot once: the
+    behaviour modules (120, discrete), integration and wrap (12), the face
+    push-out (9 per face), the gate clamp (16), the ground colours and
+    reward (14); per unordered pair, the push-out (16)."""
+    sensor = N * N * (49 + 37) + N * (178 * n_seg + 48 + 66 + 78)
+    robot = (120 if discrete else 0) + 12 + 9 * n_face + 16 + 14
+    flops = E * (sensor_passes * sensor + N * robot + 16 * N * (N - 1) // 2)
+    rows_in = 4 + (9 + 4 if discrete else 2) + 3                  # N-row tiles
+    rows_out = 4 + (9 if discrete else 0)
+    if want_obs:
+        rows_out += 21 if obs24 else 1
+    n_bytes = 4 * E * (N * (rows_in + rows_out) + 3 + 5)
+    return n_bytes, flops
+
+
+def _k4_free_run(torch, fn, env, k, tiles, rng_seed, steps):
+    """``steps`` steps of ``fn`` (the kernel's wrapper or the plain
+    version) from ``tiles``, with draws from a generator of ``rng_seed``
+    and the same module ids or wheels each step."""
+    from swarmacb_torch.env.behaviors import draw_durations
+
+    cfg = env.cfg
+    N, Ep = tiles["px"].shape
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(rng_seed)
+    cur = dict(tiles)
+    for _ in range(steps):
+        if cfg.discrete_actions:
+            acts = torch.randint(0, 6, (N, Ep), generator=gen, device=DEVICE,
+                                 dtype=torch.int32)
+            draws = tuple(draw_durations(gen, (N, Ep), DEVICE) for _ in range(3))
+        else:
+            acts = tuple((torch.rand((N, Ep), generator=gen, device=DEVICE) * 2 - 1)
+                         * cfg.max_wheel_speed for _ in range(2))
+            draws = ()
+        spos, syaw = env._sample_spawn(gen, (N, Ep))
+        spawn = (spos[..., 0].contiguous(), spos[..., 1].contiguous(), syaw)
+        new = fn(cur, acts, draws, spawn, cfg, want_obs=False)[0]
+        cur = dict(cur, **new)
+    return cur
+
+
+def phase_fused_step(torch, ops, cycles_per_ms):
+    """K4 against its plain version in each of its four compiled forms."""
+    from swarmacb_torch.ops import fused_step
+
+    E, N = E_MAIN, N_MAIN
+    forms = {}
+    for variant, want_obs in K4_FORMS:
+        print(f"== phase 2g: K4 fused_env_step, {variant}"
+              f"{'' if want_obs else ', want_obs=False'} (E={E}, N={N})", flush=True)
+        env, k, tiles, acts, draws, spawn = _k4_state(torch, variant, E, N, SEED + 11)
+        cfg = env.cfg
+        args = (tiles, acts, draws, spawn, cfg)
+        got = ops.fused_env_step(*args, want_obs=want_obs)
+        want = fused_step.fused_env_step_plain(*args, want_obs=want_obs)
+        torch.cuda.synchronize()
+        robot_tie, arena_tie = _k4_ties(torch, k, *args, want_obs)
+        exempt, stray, off = 0, [], torch.zeros_like(robot_tie)
+        ints = [(n, robot_tie) for n in fused_step.MACHINE_TILES if n in got[0]]
+        ints += [(n, arena_tie) for n in ("sc", "er", "cg", "prev")]
+        for name, tie in ints + [("reward", arena_tie), ("done", arena_tie)]:
+            g = got[0][name] if name in got[0] else got[1 if name == "reward" else 2]
+            w = want[0][name] if name in want[0] else want[1 if name == "reward" else 2]
+            bad = g != w
+            exempt += int((bad & tie.expand_as(bad)).sum())
+            if bool((bad & ~tie.expand_as(bad)).any()):
+                stray.append(name)
+            off |= bad.any(0, keepdim=True) if bad.shape[0] == 1 else bad
+        check(not stray, f"K4 {variant}: integer and boolean tiles equal to the plain "
+                         f"version's ({exempt} tie exemptions within {K4_TIE_ULPS} ulps; "
+                         f"mismatches away from a tie: {stray or 'none'})")
+        keep = ~off.any(0)
+        worst = 0.0
+        floats = [(n, got[0][n], want[0][n]) for n in ("px", "py", "yaw")]
+        names = (("prox", "light", "ztilde", "rab_proj") if len(got[3]) == 4
+                 else ("ztilde",))
+        floats += list(zip(names, got[3], want[3]))
+        for name, g, w in floats:
+            rtol = 2e-5 if name == "rab_proj" else 0.0
+            err, ok = max_err(g[:, keep], w[:, keep], K4_TOL[name], rtol)
+            worst = max(worst, err)
+            check(ok and g.shape == w.shape,
+                  f"K4 {variant} {name} {tuple(g.shape)}: max|Δ| {err:.3e} "
+                  f"(tolerance {K4_TOL[name]:g} + {rtol:g}·|plain|)")
+        dones = int(got[2].sum())
+        moved = int((got[0]["es"] != tiles["es"]).sum()) if "es" in tiles else -1
+        check(dones > 0, f"K4 {variant}: {dones} arenas reset, {float(got[1].abs().sum()):.0f}"
+                         f" reward counts, {moved} exploration latches moved")
+        ms = device_ms(torch, lambda: ops.fused_env_step(*args, want_obs=want_obs),
+                       cycles_per_ms)
+        plain = device_ms(torch, lambda: fused_step.fused_env_step_plain(
+            *args, want_obs=want_obs), cycles_per_ms)
+        n_bytes, n_flops = _k4_work(
+            E, N, len(k.segments), len(k.faces),
+            1 if (cfg.discrete_actions or want_obs) else 0, want_obs,
+            variant in ("dandelion", "daisy"), cfg.discrete_actions)
+        b_ms, b_by = bound_ms(n_bytes, n_flops)
+        print(f"  K4 {variant}{'' if want_obs else ' (no obs)'} kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
+              f"{n_flops / 1e9:.4f} GFLOP); no single PyTorch call computes this "
+              "function, so there is no library time", flush=True)
+        # information, not a gate: where two float orders take a chaotic
+        # trajectory apart
+        a = _k4_free_run(torch, ops.fused_env_step, env, k, tiles, SEED + 12, K4_FREE_STEPS)
+        b = _k4_free_run(torch, fused_step.fused_env_step_plain, env, k, tiles,
+                         SEED + 12, K4_FREE_STEPS)
+        gap = max(float((a[n] - b[n]).abs().max()) for n in ("px", "py"))
+        n_int = sum(int((a[n] != b[n]).sum()) for n in a
+                    if torch.is_tensor(a[n]) and a[n].dtype == torch.int32)
+        print(f"  K4 {variant} free run of {K4_FREE_STEPS} steps, kernel against plain: "
+              f"largest position gap {gap:.3e} m, {n_int} integer tile entries differ",
+              flush=True)
+        forms[(variant, want_obs)] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
+                                          bound_ms=b_ms, bound_by=b_by)
+    # the JSON row: the form the main path (the fused daisy rollout) runs,
+    # with observations; the error is the largest over the four forms
+    return [dict(name="fused_env_step", route="cuda",
+                 source="swarmacb_torch/ops/csrc/fused_step.cu",
+                 replaces="swarmacb_tpu/ops/fused_step.py:530", library_ms=None,
+                 **{**forms[("daisy", True)],
+                    "max_abs_err": max(f["max_abs_err"] for f in forms.values())})]
+
+
 # ── phase 3: the slice ───────────────────────────────────────────────────
 
 def _finite(torch, name, t):
@@ -614,7 +842,7 @@ def phase_slice(torch, ops, card, fused_attention=False):
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     expect = {"pairwise_sensors": 1 + T * dp, "resolve_robot_collisions": T * dp,
-              **_critic_launches(fused_attention, T, 0)}
+              "fused_env_step": 0, **_critic_launches(fused_attention, T, 0)}
     for name, n in expect.items():
         check(launches[name] == n,
               f"{name} launched {launches[name]} times in the rollout "
@@ -675,7 +903,7 @@ def phase_train(torch, ops, card, trainer):
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     expect = {"pairwise_sensors": 1 + T * dp, "resolve_robot_collisions": T * dp,
-              **_critic_launches(fused, T + passes, passes)}
+              "fused_env_step": 0, **_critic_launches(fused, T + passes, passes)}
     for name, n in expect.items():
         check(launches[name] == n,
               f"{name} launched {launches[name]} times in the training iteration "
@@ -695,29 +923,166 @@ def phase_train(torch, ops, card, trainer):
     return launches
 
 
-def phase_small_reference(torch, fused_attention=False):
+ENV_STEPS = 50                      # timed env steps per path in phase 3e
+
+
+def _env_rate(torch, env, gen, fused, want_obs=True):
+    """Env arena-steps/s of ENV_STEPS steps with fixed random module ids,
+    host clock ending in a synchronise: the composed ``env.step`` or the
+    fused ``step_lanes``."""
+    from swarmacb_torch.env import lanes
+
+    st, _ = env.reset(gen)
+    ids = torch.randint(0, 6, (env.num_envs, env.num_agents), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    if fused:
+        cur, acts = lanes.state_to_lanes(env, st), lanes.actions_to_lanes(env, ids)
+        step = lambda: lanes.step_lanes(env, cur, acts, want_obs=want_obs)[0]  # noqa: E731
+    else:
+        step = lambda: env.step(cur, ids)[0]  # noqa: E731
+        cur = st
+    for _ in range(3):
+        cur = step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ENV_STEPS):
+        cur = step()
+    torch.cuda.synchronize()
+    return env.num_envs * ENV_STEPS / (time.perf_counter() - t0)
+
+
+def phase_daisy(torch, ops, card):
+    """The discrete slice: daisy's composed rollout, then one whole
+    training iteration with ``fused_env_step`` (every env step one K4
+    launch), then the env rates of both paths."""
+    from swarmacb_torch.agents import POCATrainer
+    from swarmacb_torch.config import DirectionalGateEnvCfg, load_config
+    from swarmacb_torch.env import DirectionalGateEnv
+
+    run, variant, pcfg, env_ov = load_config(ROOT / "configs" / "DirGate_daisy.yaml")
+    print(f"== phase 3e: the discrete slice, {run} ({variant}): cut from num_envs="
+          f"{env_ov.get('num_envs')}, time_horizon={pcfg.horizon} to num_envs="
+          f"{E_MAIN}, horizon={HORIZON}; hidden {pcfg.hidden_dim}x{pcfg.num_layers}",
+          flush=True)
+    pcfg = dataclasses.replace(pcfg, horizon=HORIZON, seed=SEED)
+    env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
+    env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant, num_envs=E_MAIN,
+                                                   **env_kw))
+    E, N, T, dp = env.num_envs, env.num_agents, HORIZON, pcfg.decision_period
+    gen = torch.Generator(device=DEVICE)
+
+    # the composed path: each env step runs K1 (pre-step sensors, reused
+    # for the observations) and K2
+    trainer = POCATrainer(env, pcfg)
+    gen.manual_seed(SEED + 100)
+    st, obs = env.reset(gen)
+    trainer.rollout(st, obs, length=2)
+    torch.cuda.synchronize()
+    gen.manual_seed(SEED)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    st, obs = env.reset(gen)
+    st, obs, rollout, bootstrap, _ = trainer.rollout(st, obs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    expect = {"pairwise_sensors": 1 + T * dp, "resolve_robot_collisions": T * dp,
+              "fused_env_step": 0, **_critic_launches(False, T, 0)}
+    for name, n in expect.items():
+        check(launches[name] == n, f"daisy composed rollout: {name} launched "
+                                   f"{launches[name]} times (expected {n})")
+    check(tuple(rollout.actions.shape) == (T, E, N, 1)
+          and len(torch.unique(rollout.actions)) == 6,
+          f"daisy rollout.actions {tuple(rollout.actions.shape)} takes all 6 modules")
+    for name, t in rollout.items():
+        _finite(torch, f"daisy rollout.{name}", t)
+    _finite(torch, "daisy bootstrap value", bootstrap)
+    print(f"  daisy composed rollout of {T} decisions x {E} arenas x {N} robots: "
+          f"{wall:.3f} s, {T * E * N / wall:,.0f} agent-decisions/s on {card}", flush=True)
+    del trainer, rollout
+
+    # the fused path: one training iteration, every env step one K4 launch
+    trainer = POCATrainer(env, dataclasses.replace(pcfg, fused_env_step=True))
+    gen.manual_seed(SEED + 100)
+    st, obs = env.reset(gen)
+    trainer.rollout(st, obs, length=2)
+    torch.cuda.synchronize()
+    passes = _chunk_passes(trainer)
+    params = [*trainer.actor.parameters(), *trainer.critic.parameters()]
+    before = [p.detach().clone() for p in params]
+    print(f"== phase 3e: one training iteration of {run} with fused_env_step, E={E}, "
+          f"T={T}: {passes} chunk passes", flush=True)
+    gen.manual_seed(SEED + 1)
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts from 0 just before, read just after
+    ops.reset_launches()
+    st, obs = env.reset(gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, obs, metrics = trainer.train_iteration(st, obs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    expect = {"fused_env_step": T * dp, "resolve_robot_collisions": 0,
+              "pairwise_sensors": 1,                  # the reset's observations
+              **_critic_launches(False, T + passes, passes)}
+    for name, n in expect.items():
+        check(launches[name] == n, f"{name} launched {launches[name]} times in the "
+                                   f"fused daisy training iteration (expected {n})")
+    for k, v in metrics.items():
+        check(bool(np.isfinite(v)), f"metric {k} = {v:.6g} is finite")
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(params, before))
+    check(moved > 0, f"the update moved the parameters (largest change {moved:.3e})")
+    _finite(torch, "final obs", obs)
+    print(f"  fused daisy training iteration of {T} decisions x {E} arenas x {N} robots "
+          f"(rollout, bootstrap, update): {wall:.3f} s, {T * E * N / wall:,.0f} "
+          f"training agent-decisions/s on {card}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print("  " + ", ".join(f"{k} {v:.5g}" for k, v in metrics.items()), flush=True)
+    del trainer
+
+    gen.manual_seed(SEED + 3)
+    rates = {"composed": _env_rate(torch, env, gen, False),
+             "fused": _env_rate(torch, env, gen, True),
+             "fused, want_obs=False": _env_rate(torch, env, gen, True, want_obs=False)}
+    print(f"  daisy env arena-steps/s over {ENV_STEPS} steps at E={E} on {card}: "
+          + "; ".join(f"{k} {v:,.0f}" for k, v in rates.items()), flush=True)
+    return launches
+
+
+def phase_small_reference(torch, fused_attention=False, variant="dandelion",
+                          fused_env_step=False):
     """A short rollout and update at the full width on the card against the
     same rollout and update on the CPU, whose ops all take their plain
     versions: same weights (drawn on the CPU from the seed), same action
-    noise, same spawns, two arenas reaching the time limit inside the run.
-    Both updates start from the CPU's rollout and take the same epoch
-    permutations; two minibatches of 8 groups per epoch, each in chunks of
-    3, 3 and 2 groups."""
+    noise (Gumbel draws for a discrete variant), same turn durations and
+    spawns, two arenas reaching the time limit inside the run. Both updates
+    start from the CPU's rollout and take the same epoch permutations; two
+    minibatches of 8 groups per epoch, each in chunks of 3, 3 and 2
+    groups."""
     from swarmacb_torch.agents import POCAConfig, POCATrainer, buffer
     from swarmacb_torch.config import DirectionalGateEnvCfg
     from swarmacb_torch.env import DirectionalGateEnv
 
     E, N, T = 4, N_MAIN, 4
-    print(f"== phase 3b: card against CPU, E={E}, T={T}, h={HID_MAIN}, "
-          f"fused_attention={fused_attention}", flush=True)
+    print(f"== phase 3b: card against CPU, {variant}, E={E}, T={T}, h={HID_MAIN}, "
+          f"fused_attention={fused_attention}, fused_env_step={fused_env_step}",
+          flush=True)
     rng = np.random.default_rng(SEED + 2)
-    cfg = DirectionalGateEnvCfg(num_envs=E)
+    cfg = DirectionalGateEnvCfg(variant=variant, num_envs=E)
     pcfg = POCAConfig(hidden_dim=HID_MAIN, horizon=T, seed=SEED, mini_batch_size=8,
-                      accum_chunk_groups=3, fused_attention=fused_attention)
+                      accum_chunk_groups=3, fused_attention=fused_attention,
+                      fused_env_step=fused_env_step)
     pos, yaw = _arena_poses(rng, cfg, E, N)
-    noise = rng.normal(size=(T, E * N, 2)).astype(np.float32)
+    if cfg.discrete_actions:
+        noise = rng.gumbel(size=(T, E * N, cfg.num_actions)).astype(np.float32)
+    else:
+        noise = rng.normal(size=(T, E * N, 2)).astype(np.float32)
     spawn_pos, spawn_yaw = _arena_poses(rng, cfg, T * E, N)
     perms = np.stack([rng.permutation(T * E) for _ in range(pcfg.num_epochs)])
+    durations = ({k: rng.integers(1, 5, (T, E, N)).astype(np.int32)
+                  for k in ("explore", "photo", "antiphoto")}
+                 if cfg.discrete_actions else None)
     L = cfg.max_episode_length
     step_count = np.array([L - 3, L - 2, 7, 50], np.int32)
     out, trainers, weights = {}, {}, {}
@@ -741,13 +1106,16 @@ def phase_small_reference(torch, fused_attention=False):
         dev = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
         res = trainer.rollout(
             st, obs, injected_noise=dev(noise),
+            injected_durations=(None if durations is None else
+                                {k: dev(v) for k, v in durations.items()}),
             injected_spawn=(dev(spawn_pos.reshape(T, E, N, 2)),
                             dev(spawn_yaw.reshape(T, E, N))))
         out[device] = res
     cpu, gpu = out["cpu"], out[DEVICE]
-    # rewards and done flags exact; floats through the 512-wide networks
-    # differ by float32 rounding in other summation orders
-    tol = {"obs": 1e-4, "critic_states": 1e-5, "actions": 1e-4, "log_probs": 1e-4,
+    # rewards, done flags and module ids exact; floats through the 512-wide
+    # networks differ by float32 rounding in other summation orders
+    tol = {"obs": 1e-4, "critic_states": 1e-5,
+           "actions": 0.0 if cfg.discrete_actions else 1e-4, "log_probs": 1e-4,
            "rewards": 0.0, "dones": 0.0, "team_values": 1e-4, "baselines": 1e-4}
     for (name, c), (_, g) in zip(cpu[2].items(), gpu[2].items()):
         err, ok = max_err(g.cpu(), c, tol[name], tol[name])
@@ -851,17 +1219,26 @@ def main() -> int:
     rows += phase_cf_forward(torch, ops, cycles_per_ms)
     rows += phase_cf_backward(torch, ops, cycles_per_ms)
     phase_critic_paths(torch, cycles_per_ms)
+    rows += phase_fused_step(torch, ops, cycles_per_ms)
     # each path with its counts set to 0 just before and read just after
     launches = {}
     for fused in (False, True):
         trainer = phase_slice(torch, ops, card, fused_attention=fused)
-        launches[fused] = phase_train(torch, ops, card, trainer)
+        launches["fused_attention" if fused else "tail"] = phase_train(
+            torch, ops, card, trainer)
         del trainer
+    launches["daisy_fused_env_step"] = phase_daisy(torch, ops, card)
     for fused in (False, True):
         phase_small_reference(torch, fused_attention=fused)
+    for fused_env_step in (False, True):
+        phase_small_reference(torch, variant="daisy", fused_env_step=fused_env_step)
 
+    # each kernel's launches in the main-path run that exercises it
+    path_of = {"fused_cf_attention": "fused_attention",
+               "fused_cf_attention_bwd": "fused_attention",
+               "fused_env_step": "daisy_fused_env_step"}
     for row in rows:
-        row["launches"] = launches[row["name"].startswith("fused_cf_attention")][row["name"]]
+        row["launches"] = launches[path_of.get(row["name"], "tail")][row["name"]]
     print(f"== done in {time.perf_counter() - t_start:.1f} s; "
           f"{len(failures)} failure(s)", flush=True)
     for f in failures:

@@ -2,9 +2,13 @@
 (feedforward, single device).
 
 Acting: one decision (``_rollout_fn`` in the JAX package, trainer.py:269-366)
-samples the Gaussian actor, runs the critic's team value and all N
-counterfactual baselines on the 5-D critic state, then steps the env
-``decision_period`` times with the same action, under ``torch.no_grad()``.
+samples the actor (Gaussian wheels for dandelion, a categorical over the 6
+behaviour modules for the discrete variants), runs the critic's team value
+and all N counterfactual baselines on the 5-D critic state, then steps the
+env ``decision_period`` times with the same action, under
+``torch.no_grad()``. With ``fused_env_step`` the env state stays in the
+arena-on-lanes layout for the whole rollout and each env step is one call
+of ``ops.fused_env_step`` (``_rollout_fn_lanes``, trainer.py:368-473).
 Learning: λ-returns, advantage normalisation, then ``num_epochs`` epochs of
 minibatch POCA updates with one Adam over actor and critic
 (``_update_fn`` / ``_update_feedforward``, trainer.py:677-752).
@@ -43,7 +47,8 @@ import torch
 
 from ..config.poca_cfg import POCAConfig
 from ..env.directional_gate import DirectionalGateEnv
-from ..models.networks import Actor, POCACritic
+from ..env import lanes as laneslib
+from ..models.networks import Actor, DiscreteActor, POCACritic
 from . import buffer as buf
 from . import losses
 from .buffer import Rollout
@@ -54,8 +59,6 @@ def _not_ported(cfg: POCAConfig) -> Optional[str]:
         return "recurrent=True (LSTM actor): ROADMAP.md §1 item 9"
     if cfg.mixed_precision:
         return "mixed_precision=True: ROADMAP.md §1 item 10"
-    if cfg.fused_env_step:
-        return "fused_env_step=True: ROADMAP.md §1 item 14 and §2 K4"
     return None
 
 
@@ -82,14 +85,27 @@ class POCATrainer:
         self.num_envs = env.num_envs
         self.num_agents = env.num_agents
         self.obs_dim = env.obs_dim
-        self.act_dim = env.cfg.act_dim
+        self.discrete = env.cfg.discrete_actions
+        self.num_actions = env.cfg.num_actions
+        if self.discrete:
+            self.act_dim = 1                      # storage dim
+            self.act_dim_critic = self.num_actions
+        else:
+            self.act_dim = env.cfg.act_dim
+            self.act_dim_critic = self.act_dim
+        self.use_lanes = bool(c.fused_env_step)
 
         # ── networks (built without drawing from the global RNG) ───
         with torch.device("meta"):
-            self.actor = Actor(self.obs_dim, self.act_dim, hidden=c.hidden_dim,
-                               num_layers=c.num_layers)
+            if self.discrete:
+                self.actor = DiscreteActor(self.obs_dim, self.num_actions,
+                                           hidden=c.hidden_dim,
+                                           num_layers=c.num_layers)
+            else:
+                self.actor = Actor(self.obs_dim, self.act_dim,
+                                   hidden=c.hidden_dim, num_layers=c.num_layers)
             self.critic = POCACritic(
-                state_dim=self.STATE_DIM, act_dim=self.act_dim,
+                state_dim=self.STATE_DIM, act_dim=self.act_dim_critic,
                 num_agents=self.num_agents, hidden=c.hidden_dim,
                 num_heads=c.critic_num_heads, num_layers=c.num_layers,
                 # None (auto) means off, as in the JAX trainer
@@ -147,14 +163,39 @@ class POCATrainer:
             net.to(self.device)
 
     def _encode_actions_for_critic(self, actions):
-        """Continuous actions enter the critic's entity embedding as they
-        are (poca_trainer.py:353-366; one-hot encoding is for the discrete
-        variants)."""
+        """One-hot discrete actions for the critic's entity embedding;
+        continuous actions enter as they are (poca_trainer.py:353-366)."""
+        if self.discrete:
+            idx = actions[..., 0].to(torch.int64)
+            return torch.nn.functional.one_hot(idx, self.num_actions).to(
+                torch.float32)
         return actions
 
     def _apply_actor(self, flat_obs):
-        """Feedforward Gaussian actor: (mu, std)."""
+        """Feedforward actor: (mu, std), or the logits when discrete."""
         return self.actor(flat_obs)
+
+    def _act(self, obs, noise):
+        """Sample one decision. Returns (actions (E, N, act_dim) as stored,
+        per-dim log-probs (E, N, act_dim), env actions): module ids (E, N)
+        int32 for the discrete variants, clamp(−3, 3)/3 wheels (E, N, 2)
+        for dandelion (ML-Agents env preprocessing; the rollout keeps RAW
+        actions, poca_trainer.py:457-467)."""
+        E, N = self.num_envs, self.num_agents
+        dist = self._apply_actor(obs.reshape(E * N, self.obs_dim))
+        if self.discrete:
+            act_flat = DiscreteActor.sample(dist, noise=noise,
+                                            generator=self.generator)
+            logp_flat = DiscreteActor.log_prob(dist, act_flat)
+            actions = act_flat.reshape(E, N, 1).to(torch.float32)
+            return (actions, logp_flat.reshape(E, N, 1),
+                    act_flat.reshape(E, N).to(torch.int32))
+        mu, std = dist
+        act_flat = Actor.sample(mu, std, noise=noise, generator=self.generator)
+        logp_flat = Actor.log_prob(mu, std, act_flat)
+        actions = act_flat.reshape(E, N, self.act_dim)
+        return (actions, logp_flat.reshape(E, N, self.act_dim),
+                torch.clamp(actions, -3.0, 3.0) / 3.0)
 
     # ──────────────────────────────────────────────────────────────
     #  rollout
@@ -162,37 +203,38 @@ class POCATrainer:
 
     @torch.no_grad()
     def rollout(self, env_state, obs, length: Optional[int] = None,
-                injected_noise=None, injected_spawn=None, want_bootstrap=True):
+                injected_noise=None, injected_durations=None,
+                injected_spawn=None, want_bootstrap=True):
         """Collect ``length`` (default horizon) decisions.
 
         Args:
             env_state, obs: the env's current state and observations.
             injected_noise: optional (T, E·N, act_dim) standard-normal draws
+                (dandelion) or (T, E·N, num_actions) Gumbel draws (discrete)
                 replacing the actor's sampling noise.
-            injected_spawn: optional (pos (S, E, N, 2), yaw (S, E, N)) with
-                S = T·decision_period, one auto-reset spawn per env step
-                (``DirectionalGateEnv.step``'s ``injected_spawn``).
+            injected_durations: optional {explore, photo, antiphoto} of
+                (S, E, N) int32 turn durations, S = T·decision_period, one
+                per env step (discrete variants).
+            injected_spawn: optional (pos (S, E, N, 2), yaw (S, E, N)), one
+                auto-reset spawn per env step.
 
         Returns (env_state, obs, rollout, bootstrap_value or None, aux) with
         aux = (step rewards, dones, completed_group_reward), each (T, E).
         """
         env = self.env
-        E, N = self.num_envs, self.num_agents
+        E = self.num_envs
         dp = self.cfg.decision_period
         T = self.cfg.horizon if length is None else length
+        lanes = laneslib.state_to_lanes(env, env_state) if self.use_lanes else None
         steps, aux = [], []
         for t in range(T):
-            mu, std = self._apply_actor(obs.reshape(E * N, self.obs_dim))
             noise = None if injected_noise is None else injected_noise[t]
-            act_flat = Actor.sample(mu, std, noise=noise, generator=self.generator)
-            logp_flat = Actor.log_prob(mu, std, act_flat)
-            actions = act_flat.reshape(E, N, self.act_dim)
-            log_probs = logp_flat.reshape(E, N, self.act_dim)
-            # ML-Agents env preprocessing clamp(−3,3)/3; the rollout keeps
-            # RAW actions (poca_trainer.py:457-467)
-            env_actions = torch.clamp(actions, -3.0, 3.0) / 3.0
-
-            critic_state = env.critic_state(env_state)                 # (E,N,5)
+            actions, log_probs, env_actions = self._act(obs, noise)
+            if lanes is not None:
+                lane_actions = laneslib.actions_to_lanes(env, env_actions)
+                critic_state = laneslib.critic_state_from_lanes(env, lanes)
+            else:
+                critic_state = env.critic_state(env_state)             # (E,N,5)
             team_val = self.critic.critic_pass(critic_state)[:, 0]     # (E,)
             baselines = self.critic.all_baselines(
                 critic_state, self._encode_actions_for_critic(actions))  # (E,N)
@@ -203,24 +245,43 @@ class POCATrainer:
             last_done = torch.zeros(E, device=self.device)
             next_obs = obs
             for sub in range(dp):
-                spawn = None
-                if injected_spawn is not None:
-                    k = t * dp + sub
-                    spawn = (injected_spawn[0][k], injected_spawn[1][k])
-                env_state, ts = env.step(env_state, env_actions,
-                                         injected_spawn=spawn)
-                acc_reward = acc_reward + ts.reward
-                last_done = torch.maximum(last_done, ts.done.to(torch.float32))
-                next_obs = ts.obs
+                k = t * dp + sub
+                dur = (None if injected_durations is None
+                       else {n: v[k] for n, v in injected_durations.items()})
+                spawn = (None if injected_spawn is None
+                         else (injected_spawn[0][k], injected_spawn[1][k]))
+                if lanes is not None:
+                    # observations only on the last sub-step (trainer.py:434-442)
+                    want = sub == dp - 1
+                    lanes, reward, done, obs_tiles = laneslib.step_lanes(
+                        env, lanes, lane_actions, want_obs=want,
+                        injected_durations=dur,
+                        injected_spawn=spawn)
+                    if want:
+                        next_obs = laneslib.obs_from_tiles(env, obs_tiles,
+                                                           lanes["prev"])
+                    completed = lanes["cg"]
+                else:
+                    env_state, ts = env.step(env_state, env_actions,
+                                             injected_durations=dur,
+                                             injected_spawn=spawn)
+                    reward, done, next_obs = ts.reward, ts.done, ts.obs
+                    completed = env_state.completed_group_reward
+                acc_reward = acc_reward + reward
+                last_done = torch.maximum(last_done, done.to(torch.float32))
 
+            if lanes is not None:
+                completed = laneslib.from_lanes(completed, E, squeeze=True)
             steps.append(dict(
                 obs=obs, critic_states=critic_state, actions=actions,
                 log_probs=log_probs,
                 rewards=acc_reward * self.cfg.reward_strength,
                 dones=last_done, team_values=team_val, baselines=baselines))
-            aux.append((acc_reward, last_done, env_state.completed_group_reward))
+            aux.append((acc_reward, last_done, completed))
             obs = next_obs
 
+        if lanes is not None:
+            env_state = laneslib.lanes_to_state(env, lanes)
         rollout = Rollout.stack(steps)
         aux = tuple(torch.stack(x) for x in zip(*aux))
         bootstrap = self._bootstrap_fn(env_state) if want_bootstrap else None
@@ -271,13 +332,20 @@ class POCATrainer:
         baseline, entropy))."""
         obs = batch["obs"]                  # (MB, N, obs)
         MB, N = obs.shape[:2]
-        mu, std = self._apply_actor(obs.reshape(MB * N, self.obs_dim))
+        dist = self._apply_actor(obs.reshape(MB * N, self.obs_dim))
         actions = batch["actions"]
-        logp = Actor.log_prob(mu, std, actions.reshape(MB * N, self.act_dim))
+        if self.discrete:
+            act_flat = actions.reshape(MB * N, 1)[:, 0]
+            logp = DiscreteActor.log_prob(dist, act_flat)[:, None]     # (MB·N,1)
+            ent = DiscreteActor.entropy(dist)
+        else:
+            mu, std = dist
+            logp = Actor.log_prob(mu, std, actions.reshape(MB * N, self.act_dim))
+            ent = Actor.entropy(std)
         policy_loss = losses.trust_region_policy_loss(
             batch["advantages"].reshape(-1, 1), logp,
             batch["old_log_probs"].reshape(MB * N, -1), eps)
-        mean_entropy = Actor.entropy(std).mean()
+        mean_entropy = ent.mean()
 
         cs = batch["critic_states"]
         new_tv = self.critic.critic_pass(cs)[:, 0]

@@ -84,8 +84,10 @@ class POCAConfig:
     # card, the plain version on the CPU) instead of the assembled softmax
     # and the tail; None (auto) means off, as in the JAX trainer.
     fused_attention: "bool | None" = None
-    # Not ported yet: True raises NotImplementedError
-    # (ROADMAP.md §1 item 14 and §2 K4 — fused env step).
+    # True keeps the env state in the arena-on-lanes layout for the whole
+    # rollout and runs each env step as one call of ops.fused_env_step
+    # (kernel K4 on the card, its plain version on the CPU); None (auto)
+    # means off, as in the JAX trainer.
     fused_env_step: "bool | None" = None
 
     # Not ported yet: True raises NotImplementedError

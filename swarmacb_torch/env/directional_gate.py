@@ -1,12 +1,18 @@
 """Directional Gate (DGT) mission — batched PyTorch environment.
 
-Counterpart of ``swarmacb_tpu/env/directional_gate.py`` for the continuous
-(dandelion) variant. One ``step`` call advances E arenas × N robots on the
-env's device: wheels from actions → differential-drive integration → 3
-collision passes → colour-transition team reward → time-limit done →
-folded auto-reset → fresh observations.
+Counterpart of ``swarmacb_tpu/env/directional_gate.py``, for every variant.
+One ``step`` call advances E arenas × N robots on the env's device: sensors
+→ behaviour wheels (discrete variants) or wheels from actions (dandelion) →
+differential-drive integration → 3 collision passes → colour-transition
+team reward → time-limit done → folded auto-reset → observations.
 
 Step-ordering contract replicated from the reference (SURVEY.md §3.2):
+  * discrete variants compute sensors from PRE-integration poses, use them
+    for behaviour dispatch, and REUSE them for this step's observations
+    (directional_gate_env.py:495-504,657-662) — so discrete observations
+    are one integration step staler than dandelion's, and post-reset
+    observations keep the stale pre-reset sensor block (only the ground
+    channel is fresh, directional_gate_env.py:677).
   * continuous (dandelion) computes observations fresh from post-collision
     (possibly reset) poses.
   * reward counts colour transitions of post-collision positions against
@@ -20,8 +26,8 @@ Step-ordering contract replicated from the reference (SURVEY.md §3.2):
     reward snapshotted into ``completed_group_reward`` before zeroing.
 
 The N² sensor pass and the robot push-out go through ``ops`` (CUDA kernels
-on the card, their plain versions on the CPU). The discrete variants need
-the behaviour modules and are not ported yet (ROADMAP.md §1 item 8).
+on the card, their plain versions on the CPU). ``env/lanes.py`` drives the
+same tick through one fused kernel (``ops.fused_env_step``) instead.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import torch
 from ..config.env_cfg import DirectionalGateEnvCfg
 from ..device import resolve_device
 from .. import ops
-from . import geometry, physics, sensors
+from . import behaviors, geometry, physics, sensors
 from .state import BehaviorState, EnvState, TimeStep
 
 
@@ -46,10 +52,6 @@ class DirectionalGateEnv:
     """
 
     def __init__(self, cfg: DirectionalGateEnvCfg, device=None):
-        if cfg.discrete_actions:
-            raise NotImplementedError(
-                f"variant {cfg.variant!r} needs the behaviour modules, not "
-                "ported yet (ROADMAP.md §1 item 8); only 'dandelion' runs")
         self.cfg = cfg
         self.device = resolve_device(device)
         arena = geometry.wall_segments(cfg.arena_circumradius, cfg.arena_num_sides)
@@ -140,6 +142,9 @@ class DirectionalGateEnv:
 
     # ── sensors / obs ─────────────────────────────────────────────
     def _compute_sensor_block(self, pos, yaw):
+        """Every sensor of the given poses: the fused pairwise pass (the
+        JAX package's ``use_pallas`` branch), its (value, angle) aggregate,
+        and the light sensor."""
         cfg = self.cfg
         # wall raycast fused into the same pass: prox already carries
         # max(wall, robot) per sensor
@@ -148,20 +153,30 @@ class DirectionalGateEnv:
             robot_radius=cfg.robot_radius, rab_range=cfg.rab_range,
             alpha_rab=cfg.alpha_parameter, wall_segments=self.wall_segments,
         )
-        light_vals = sensors.compute_light(
-            pos, yaw, self.light_pos, cfg.light_threshold)[0]
-        return dict(prox_vals=prox_vals, light_vals=light_vals,
-                    ztilde=ztilde, rab_proj=rab_proj, rab_x=rab_x, rab_y=rab_y)
-
-    def _observations(self, state: EnvState) -> torch.Tensor:
-        """Per-agent observations (E, N, 24), fresh from the state's poses
-        (directional_gate_env.py:650-692, continuous path)."""
-        cache = self._compute_sensor_block(state.pos, state.yaw)
-        ground = sensors.ground_obs(state.pos, self.cfg)
-        return sensors.collect_obs_dandelion(
-            cache["prox_vals"], cache["light_vals"], ground,
-            cache["ztilde"], cache["rab_proj"],
+        prox_value, prox_angle = sensors.aggregate_prox(prox_vals)
+        light_vals, light_value, light_angle = sensors.compute_light(
+            pos, yaw, self.light_pos, cfg.light_threshold)
+        return dict(
+            prox_vals=prox_vals, prox_value=prox_value, prox_angle=prox_angle,
+            light_vals=light_vals, light_value=light_value, light_angle=light_angle,
+            ztilde=ztilde, rab_proj=rab_proj, rab_x=rab_x, rab_y=rab_y,
         )
+
+    def _observations(self, state: EnvState, sensor_cache=None) -> torch.Tensor:
+        """Per-agent observations (E, N, obs_dim).
+
+        Matches directional_gate_env.py:650-692: cached sensors are reused
+        when provided (discrete variants); ground is always fresh.
+        """
+        cfg = self.cfg
+        cache = sensor_cache or self._compute_sensor_block(state.pos, state.yaw)
+        ground = sensors.ground_obs(state.pos, cfg)
+        if cfg.variant in ("dandelion", "daisy"):
+            return sensors.collect_obs_dandelion(
+                cache["prox_vals"], cache["light_vals"], ground,
+                cache["ztilde"], cache["rab_proj"],
+            )
+        return sensors.collect_obs_lily(ground, cache["ztilde"])
 
     def critic_state(self, state: EnvState) -> torch.Tensor:
         """5-D polar critic state (E, N, 5) — directional_gate_env.py:798-809."""
@@ -172,23 +187,42 @@ class DirectionalGateEnv:
 
     # ── step ──────────────────────────────────────────────────────
     def step(self, state: EnvState, actions: torch.Tensor,
-             injected_spawn=None) -> tuple[EnvState, TimeStep]:
+             injected_durations=None, injected_spawn=None
+             ) -> tuple[EnvState, TimeStep]:
         """Advance one control tick (10 Hz).
 
         Args:
             state: current EnvState (any, e.g. one built by ``make_state``).
-            actions: (E, N, 2) normalized wheel commands.
+            actions: (E, N, 2) normalized wheel commands for dandelion, or
+                (E, N) / (E, N, 1) int module indices for discrete variants.
+            injected_durations: optional {explore, photo, antiphoto} (E, N)
+                int32 turn durations that replace the behaviour draws.
             injected_spawn: optional (pos (E, N, 2), yaw (E, N)) that
-                replaces the auto-reset's random spawn draw, for replay
-                against the JAX package.
+                replaces the auto-reset's random spawn draw.
+            Both are for replay against the JAX package.
 
         Returns (new_state, TimeStep).
         """
         cfg = self.cfg
-        # Dandelion: clamp [−1,1] then scale (directional_gate_env.py:512-525)
-        clamped = torch.clamp(actions, -1.0, 1.0)
-        left = clamped[..., 0] * cfg.max_wheel_speed
-        right = clamped[..., 1] * cfg.max_wheel_speed
+        bstate = state.behavior
+        sensor_cache = None
+
+        if cfg.discrete_actions:
+            module_ids = actions.reshape(state.yaw.shape).to(torch.int32)
+            sensor_cache = self._compute_sensor_block(state.pos, state.yaw)
+            left, right, bstate = behaviors.dispatch(
+                module_ids, bstate,
+                sensor_cache["prox_value"], sensor_cache["prox_angle"],
+                sensor_cache["light_value"], sensor_cache["light_angle"],
+                sensor_cache["rab_x"], sensor_cache["rab_y"],
+                state.generator, cfg.max_wheel_speed, cfg.alpha_parameter,
+                cfg.prox_threshold, injected_durations,
+            )
+        else:
+            # Dandelion: clamp [−1,1] then scale (directional_gate_env.py:512-525)
+            clamped = torch.clamp(actions, -1.0, 1.0)
+            left = clamped[..., 0] * cfg.max_wheel_speed
+            right = clamped[..., 1] * cfg.max_wheel_speed
 
         # Integrate + collisions (directional_gate_env.py:527-545)
         pos, yaw = physics.integrate_and_wrap(
@@ -235,7 +269,7 @@ class DirectionalGateEnv:
         episode_reward = torch.where(done, torch.zeros_like(episode_reward),
                                      episode_reward)
         step_count = torch.where(done, torch.zeros_like(step_count), step_count)
-        bstate = state.behavior.reset_where(done)
+        bstate = bstate.reset_where(done)
 
         new_state = EnvState(
             pos=new_pos,
@@ -247,5 +281,7 @@ class DirectionalGateEnv:
             behavior=bstate,
             generator=state.generator,
         )
-        obs = self._observations(new_state)
+        # Observations: discrete variants reuse the pre-step sensor cache
+        # (stale across resets, matching the reference); ground is fresh.
+        obs = self._observations(new_state, sensor_cache=sensor_cache)
         return new_state, TimeStep(obs=obs, reward=reward, done=done)

@@ -1,10 +1,10 @@
 """Environment state for the Directional Gate mission: dataclasses of tensors.
 
 Counterpart of ``swarmacb_tpu/env/state.py`` plus the ``BehaviorState``
-container of ``swarmacb_tpu/env/behaviors.py:36-71``. The dandelion step
-carries the behaviour machines and zeroes them on the folded auto-reset
-(``directional_gate.py:270``); their dispatch arrives with the discrete
-variants (ROADMAP.md §1 item 8).
+container of ``swarmacb_tpu/env/behaviors.py:36-71``. Every step carries
+the behaviour machines and zeroes them on the folded auto-reset; the
+discrete variants advance them in ``env/behaviors.py:dispatch`` (or in the
+fused step, ``ops/fused_step.py``).
 """
 
 from __future__ import annotations

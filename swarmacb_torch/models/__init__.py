@@ -1,7 +1,9 @@
-"""PyTorch networks: the Gaussian POCA actor and the attention critic."""
+"""PyTorch networks: the Gaussian and categorical POCA actors and the
+attention critic."""
 
 from .networks import (
     Actor,
+    DiscreteActor,
     EntityEmbedding,
     LinearEncoder,
     POCACritic,
@@ -10,6 +12,7 @@ from .networks import (
 
 __all__ = [
     "Actor",
+    "DiscreteActor",
     "EntityEmbedding",
     "LinearEncoder",
     "POCACritic",

@@ -7,6 +7,7 @@ reference's torch modules (poca_networks.py):
   LinearEncoder            poca_networks.py:89-119   (Linear+Swish stack)
   EntityEmbedding          poca_networks.py:129-146  (1-layer, T-Fixup init)
   Actor (Gaussian)         poca_networks.py:153-209
+  DiscreteActor            poca_networks.py:216-269
   ResidualSelfAttention    poca_networks.py:381-454
   POCACritic               poca_networks.py:469-635
 
@@ -17,8 +18,8 @@ the raw scores to the pooled rows goes through ``ops.fused_cf_attention``
 (networks.py:481-489) — the CUDA kernels on the card, the plain versions on
 the CPU. Submodule and parameter names follow the flax tree
 (``dense_i`` → ``layers.i``, ``kernel`` → ``weight``ᵀ), which
-``swarmacb_torch.convert`` relies on. The discrete and recurrent actors are
-not ported yet (ROADMAP.md §1 items 8-9).
+``swarmacb_torch.convert`` relies on. The recurrent actor (cyclamen) is not
+ported yet (ROADMAP.md §1 item 9).
 """
 
 from __future__ import annotations
@@ -122,6 +123,49 @@ class Actor(nn.Module):
             noise = torch.randn(mu.shape, generator=generator,
                                 device=mu.device, dtype=mu.dtype)
         return mu + std * noise
+
+
+class DiscreteActor(nn.Module):
+    """Single-branch categorical actor over the behaviour modules. Matches
+    poca_networks.py:216-269."""
+
+    def __init__(self, obs_dim: int, num_actions: int, hidden: int = 256,
+                 num_layers: int = 2):
+        super().__init__()
+        self.net = LinearEncoder(obs_dim, num_layers, hidden)
+        self.logits_head = nn.Linear(hidden, num_actions)
+
+    def init_weights(self, generator: torch.Generator):
+        self.net.init_weights(generator)
+        inits.kaiming_normal_(self.logits_head.weight, generator, 0.2)
+        nn.init.zeros_(self.logits_head.bias)
+
+    def forward(self, obs):
+        return self.logits_head(self.net(obs))
+
+    @staticmethod
+    def log_prob(logits, actions):
+        """(…,) log-prob of integer actions under the categorical."""
+        logp = F.log_softmax(logits, dim=-1)
+        idx = actions.to(torch.int64)[..., None]
+        return torch.gather(logp, -1, idx)[..., 0]
+
+    @staticmethod
+    def entropy(logits):
+        logp = F.log_softmax(logits, dim=-1)
+        return -(torch.exp(logp) * logp).sum(-1)
+
+    @staticmethod
+    def sample(logits, noise=None, generator: Optional[torch.Generator] = None):
+        """Gumbel-argmax, the form ``jax.random.categorical`` samples in:
+        argmax(logits + g) with g given (``noise``) or standard Gumbel
+        draws −log(−log u), u uniform in [tiny, 1), from ``generator``."""
+        if noise is None:
+            tiny = torch.finfo(logits.dtype).tiny
+            u = torch.rand(logits.shape, generator=generator,
+                           device=logits.device, dtype=logits.dtype)
+            noise = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+        return torch.argmax(logits + noise, dim=-1)
 
 
 # ──────────────────────────────────────────────────────────────────────

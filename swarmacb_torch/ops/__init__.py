@@ -6,6 +6,8 @@ versions, and the wrappers that pick one by the device of the input.
                                                 csrc/baseline_tail.cu)
   fused_cf_attention (forward and backward)    (cf_attention.py,
                                                 csrc/cf_attention.cu)
+  fused_env_step (one whole env control tick)  (fused_step.py,
+                                                csrc/fused_step.cu)
 
 ``launches`` counts the kernel launches of each wrapper since the last
 ``reset_launches()``; ``build()`` compiles every kernel up front.
@@ -14,6 +16,7 @@ versions, and the wrappers that pick one by the device of the input.
 from ._cuda import build, launches, reset_launches
 from .baseline_tail import fused_tail, tail_reference
 from .cf_attention import cf_reference, fused_cf_attention
+from .fused_step import fused_env_step, fused_env_step_plain
 from .pairwise import (
     pairwise_sensors,
     pairwise_sensors_plain,
@@ -24,6 +27,8 @@ __all__ = [
     "build",
     "cf_reference",
     "fused_cf_attention",
+    "fused_env_step",
+    "fused_env_step_plain",
     "fused_tail",
     "launches",
     "pairwise_sensors",

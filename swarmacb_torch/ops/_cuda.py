@@ -9,9 +9,11 @@ never loaded. ``build()`` starts one nvcc for each source, all at once.
 Flags: ``sm_90a`` (Hopper), ``-O3``, and no ``--use_fast_math`` — fast math
 turns ``sqrtf`` and division into approximations, and the sensor kernel's
 comparisons (cone test, range tests, ``u ∈ [0, 1]``) would then flip against
-the plain version at their boundaries. ``pairwise.cu`` also turns off FMA
-contraction so that each of its products and sums rounds as the plain
-PyTorch version's separate operations do. ``baseline_tail.cu`` caps its
+the plain version at their boundaries. ``pairwise.cu`` and
+``fused_step.cu`` also turn off FMA contraction so that each of their
+products and sums rounds as the plain PyTorch version's separate operations
+do; K4's machine latches and reward counts hang on threshold tests of such
+sums. ``baseline_tail.cu`` caps its
 kernels at 168 registers a thread, so that three 128-thread blocks fit on
 an SM (65,536 registers); uncapped, the backward takes 182 and runs two
 blocks, and took 12.13 ms against 10.62 ms capped at the main path's shape
@@ -42,6 +44,7 @@ SOURCES = {
     "pairwise": ("-fmad=false",),
     "baseline_tail": ("-maxrregcount=168",),
     "cf_attention": ("-maxrregcount=168",),
+    "fused_step": ("-fmad=false",),
 }
 
 _P = ctypes.c_void_p
@@ -65,6 +68,9 @@ SIGNATURES = {
         "cf_attention_fwd_launch": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
         "cf_attention_bwd_launch": [_P] * 22 + [_I, _I, _I, _I, _F, _P],
     },
+    "fused_step": {
+        "fused_step_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -76,7 +82,8 @@ launches: dict[str, int] = {"pairwise_sensors": 0,
                             "fused_tail": 0,
                             "fused_tail_bwd": 0,
                             "fused_cf_attention": 0,
-                            "fused_cf_attention_bwd": 0}
+                            "fused_cf_attention_bwd": 0,
+                            "fused_env_step": 0}
 
 
 def reset_launches() -> None:

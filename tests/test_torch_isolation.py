@@ -19,6 +19,7 @@ PORT_FILES = (sorted((ROOT / "swarmacb_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py"]
               + [ROOT / "scripts" / f for f in ("profile_torch_rollout.py",
                                                 "profile_torch_update.py",
+                                                "probe_torch_rsqrt.py",
                                                 "time_cf_backward.py",
                                                 "time_tail_backward.py")])
 
@@ -126,8 +127,7 @@ def test_fused_tail_with_gradients_takes_the_kernel_path_off_the_cpu():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(recurrent=True), "item 9"), (dict(mixed_precision=True), "item 10"),
-    (dict(fused_env_step=True), "K4")])
+    (dict(recurrent=True), "item 9"), (dict(mixed_precision=True), "item 10")])
 def test_unported_options_raise(override, item):
     from swarmacb_torch.agents import POCAConfig, POCATrainer
 
@@ -155,9 +155,55 @@ def test_fused_attention_trainer_takes_the_plain_path_on_the_cpu():
     assert bool(torch.isfinite(rollout.baselines).all())
 
 
-def test_discrete_variant_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        DirectionalGateEnv(DirectionalGateEnvCfg(variant="daisy"), device="cpu")
+@pytest.mark.parametrize("variant", ["daisy", "lily", "tulip"])
+def test_discrete_variants_build_on_the_cpu(variant):
+    """The discrete variants build, with a categorical actor over the six
+    behaviour modules, and a fused-env-step trainer takes the plain K4 on
+    the CPU (no kernel launch)."""
+    from swarmacb_torch.agents import POCAConfig, POCATrainer
+
+    env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant, num_envs=1),
+                             device="cpu")
+    trainer = POCATrainer(env, POCAConfig(hidden_dim=8, horizon=2,
+                                          fused_env_step=True))
+    assert trainer.discrete and trainer.actor.logits_head.out_features == 6
+    ops.reset_launches()
+    st, obs = env.reset(trainer.generator)
+    _, obs, rollout, _, _ = trainer.rollout(st, obs)
+    assert not any(ops.launches.values())
+    assert rollout.actions.shape == (2, 1, 20, 1)
+    assert obs.shape == (1, 20, env.obs_dim)
+
+
+def test_fused_env_step_refuses_a_tile_it_cannot_launch_on():
+    lanes = {n: torch.zeros((20, 128), device="meta") for n in ("px", "py", "yaw", "prev")}
+    lanes |= {"sc": torch.zeros((1, 128), dtype=torch.int32, device="meta"),
+              "er": torch.zeros((1, 128), device="meta"),
+              "cg": torch.zeros((1, 128), device="meta")}
+    tile = torch.zeros((20, 128), device="meta")
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        ops.fused_env_step(lanes, (tile, tile), (), (tile, tile, tile),
+                           DirectionalGateEnvCfg(num_envs=1))
+
+
+def test_every_kernel_source_is_registered_and_plain_c():
+    """Each ``csrc/*.cu`` builds on its own (an entry of ``_cuda.SOURCES``
+    and ``SIGNATURES``), includes no PyTorch header, and none takes fast
+    math; the sensor and step kernels build with FMA contraction off."""
+    from swarmacb_torch.ops import _cuda
+
+    sources = sorted(p.stem for p in _cuda.CSRC.glob("*.cu"))
+    assert sources == sorted(_cuda.SOURCES) == sorted(_cuda.SIGNATURES)
+    for name in sources:
+        includes = [line for line in (_cuda.CSRC / f"{name}.cu").read_text(
+            encoding="utf-8").splitlines() if line.startswith("#include")]
+        assert includes and not any("torch" in i or "ATen" in i or "c10" in i
+                                    for i in includes), name
+        flags = (*_cuda._COMMON_FLAGS, *_cuda.SOURCES[name])
+        assert not any("fast_math" in f or "fast-math" in f for f in flags), name
+    for name in ("pairwise", "fused_step"):
+        assert "-fmad=false" in _cuda.SOURCES[name]
+    assert set(_cuda.launches) >= {"fused_env_step", "pairwise_sensors"}
 
 
 def test_config_yaml_loads_through_the_port():
