@@ -18,7 +18,12 @@ Phases, each of which must pass for the run to pass:
      (bound). K3b's seven and K5b's nine cotangents come from
      ``torch.autograd.grad`` through ``ops.fused_tail`` and
      ``ops.fused_cf_attention``; K5b's are held against a float64 plain run
-     on the card, as the JAX package's kernel test holds its kernel. Phase
+     on the card, as the JAX package's kernel test holds its kernel. K3b
+     runs as three kernels (rows, then the batched products for d_wa and
+     d_attn_lhs) joined by a d_fc scratch: phase 2c holds that scratch
+     against the staged plain version (``tail_backward_reference``),
+     checks that two calls give the same bits, and times each stage alone
+     beside its bound and, for the two products, ``torch.bmm``. Phase
      2f times ``POCACritic.all_baselines`` forward and backward on one
      chunk of 1,024 groups on both critic paths (the tail kernels, and
      ``fused_attention``). Phase 2g holds K4 (``fused_env_step``) against
@@ -339,7 +344,62 @@ def _tail_backward_work(B, N, H, h):
     return n_bytes, n_flops
 
 
-def phase_tail_backward(torch, ops, cycles_per_ms):
+# K3b's three kernels, in launch order, and the stage that writes each cotangent
+TAIL_STAGES = ("rows", "d_wa", "d_attn_lhs")
+TAIL_STAGE_OF = {"attn_lhs": 3, "attn_mI": 1, "wa": 2, "dws": 1, "x_a": 2, "delta": 1,
+                 "bias": 2}
+
+
+def _tail_backward_stage_work(B, N, H, h):
+    """Bytes and float32 operations of each K3b stage, with the d_fc scratch
+    (B, N², h) as an output of stage 1 and an input of stages 2 and 3.
+    rows: reads the seven inputs and dout, writes d_fc, d_attn_mI, d_dws and
+    d_delta; per fc element the recompute (2·HM + 2·H + 9), the LayerNorm
+    backward (7), d_attn_mI and d_dws (2·H each). d_wa: reads attn_lhs and
+    d_fc, writes d_wa, d_xa and the (B, h) d_bias partial; per d_fc element
+    2·HM and the sum into d_xa, per d_xa element the sum into d_bias.
+    d_attn_lhs: reads d_fc and wa, writes d_attn_lhs; 2·HM per d_fc
+    element."""
+    HM, NN = H * N, N * N
+    fc = B * NN * h
+    rows_in = B * NN * HM + B * H * NN + B * HM * h + B * H * N * h + 3 * B * N * h + h
+    rows_out = fc + B * H * NN + B * H * N * h + B * N * h
+    return {"rows": (4 * (rows_in + rows_out), fc * (2 * HM + 2 * H + 9 + 7 + 4 * H)),
+            "d_wa": (4 * (B * NN * HM + fc + B * HM * h + B * N * h + B * h),
+                     fc * (2 * HM + 1) + B * N * h),
+            "d_attn_lhs": (4 * (fc + B * HM * h + B * NN * HM), fc * 2 * HM)}
+
+
+def time_tail_backward_stages(torch, args, dout, N, cycles_per_ms):
+    """Each K3b stage launched alone, at the shape of ``args``: its median
+    device ms, its bound, and for the two products the time of
+    ``torch.bmm`` on the same operands (cuBLAS, float32 with TF32 off; the
+    port never calls it). One whole backward fills the d_fc scratch first."""
+    from swarmacb_torch.ops import baseline_tail
+
+    B, _, HM = args[0].shape
+    h = args[2].shape[-1]
+    H = HM // N
+    d_fc, _, stages = baseline_tail._stage_calls(args, dout, N, B, H, h)
+    for launch in stages:
+        launch()
+    torch.cuda.synchronize()
+    lhs_t, wa_t = args[0].transpose(1, 2), args[2].transpose(1, 2)
+    library = {"d_wa": lambda: torch.bmm(lhs_t, d_fc),
+               "d_attn_lhs": lambda: torch.bmm(d_fc, wa_t)}
+    work = _tail_backward_stage_work(B, N, H, h)
+    out = {}
+    for name, launch in zip(TAIL_STAGES, stages):
+        b_ms, b_by = bound_ms(*work[name])
+        lib = library.get(name)
+        out[name] = dict(ms=device_ms(torch, launch, cycles_per_ms),
+                         library_ms=device_ms(torch, lib, cycles_per_ms) if lib else None,
+                         bound_ms=b_ms, bound_by=b_by, bytes=work[name][0],
+                         flops=work[name][1])
+    return out
+
+
+def phase_tail_backward(torch, ops, card, cycles_per_ms):
     B, N, H, h = E_MAIN, N_MAIN, H_MAIN, HID_MAIN
     print(f"== phase 2c: K3b fused_tail backward (B={B}, N={N}, H={H}, h={h})",
           flush=True)
@@ -355,23 +415,39 @@ def phase_tail_backward(torch, ops, cycles_per_ms):
           "autograd through ops.fused_tail launched K3b once")
     plain_out = baseline_tail.tail_reference(*args, N)
     want = torch.autograd.grad(plain_out, args, dout, retain_graph=True)
+    saved = [a.detach() for a in args]
+    # stage 1's d_fc against the staged plain version: the same float32
+    # LayerNorm backward on an fc recomputed in another order than cuBLAS's
+    with torch.no_grad():
+        want_fc = baseline_tail.tail_backward_reference(saved, dout, N)[0]
+    got_fc, got_again, calls = baseline_tail._stage_calls(saved, dout, N, B, H, h)
+    for launch in calls:
+        launch()
     torch.cuda.synchronize()
+    rel = 1e-5
+    scale = float(want_fc.abs().max())
+    err, ok = max_err(got_fc, want_fc, rel * scale, 0.0)
+    check(ok and got_fc.shape == want_fc.shape,
+          f"K3b stage 1 d_fc {tuple(got_fc.shape)}: max|Δ| {err:.3e} against the "
+          f"staged plain version (tolerance {rel:g}·max|plain| = {rel * scale:.3e})")
+    del want_fc, got_fc
     # Each cotangent is a float32 sum taken in another order than the plain
     # version's autograd (cuBLAS products without TF32, reductions over the
     # LayerNorm rows): d_attn_lhs and d_attn_mI over h = 512 columns, d_wa
     # over N² = 400 rows, d_dws over N, d_xa over N, d_bias over B·N² rows.
     # The tolerance is relative to each cotangent's largest element.
     names = ("attn_lhs", "attn_mI", "wa", "dws", "x_a", "delta", "bias")
-    rel = 1e-5
     worst = 0.0
     for name, g, w in zip(names, got, want):
         scale = float(w.abs().max())
         err, ok = max_err(g, w, rel * scale, 0.0)
         worst = max(worst, err)
         check(ok and g.shape == w.shape,
-              f"K3b d_{name} {tuple(g.shape)}: max|Δ| {err:.3e} (tolerance "
-              f"{rel:g}·max|plain| = {rel * scale:.3e})")
-    saved = [a.detach() for a in args]
+              f"K3b d_{name} {tuple(g.shape)} (stage {TAIL_STAGE_OF[name]}): max|Δ| "
+              f"{err:.3e} (tolerance {rel:g}·max|plain| = {rel * scale:.3e})")
+    same = all(torch.equal(a, b) for a, b in zip(got, got_again))
+    check(same, "K3b: two calls give bit-identical cotangents")
+    del got_again
     ms = device_ms(torch, lambda: baseline_tail.backward_kernel(saved, dout, N),
                    cycles_per_ms)
     plain = device_ms(torch, lambda: torch.autograd.grad(
@@ -380,8 +456,17 @@ def phase_tail_backward(torch, ops, cycles_per_ms):
     b_ms, b_by = bound_ms(n_bytes, n_flops)
     print(f"  K3b kernel {ms:.4f} ms, plain backward {plain:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-          f"{n_flops / 1e9:.2f} GFLOP); no single PyTorch call computes this "
-          "function, so there is no library time", flush=True)
+          f"{n_flops / 1e9:.2f} GFLOP) on {card}; no single PyTorch call computes "
+          "this function, so there is no library time", flush=True)
+    stages = time_tail_backward_stages(torch, saved, dout, N, cycles_per_ms)
+    for i, (name, st) in enumerate(stages.items(), 1):
+        lib = ("" if st["library_ms"] is None
+               else f", torch.bmm {st['library_ms']:.4f} ms")
+        print(f"  K3b stage {i} ({name}) alone: {st['ms']:.4f} ms{lib}, bound "
+              f"{st['bound_ms']:.4f} ms ({st['bound_by']}: {st['bytes'] / 1e6:.1f} MB, "
+              f"{st['flops'] / 1e9:.2f} GFLOP) on {card}", flush=True)
+    print("  K3b stages: " + json.dumps({"card": card, "shape": [B, N, H, h],
+                                          "stages": stages}), flush=True)
     return [dict(name="fused_tail_bwd", route="cuda",
                  source="swarmacb_torch/ops/csrc/baseline_tail.cu",
                  replaces="swarmacb_tpu/ops/baseline_tail.py:224",
@@ -1215,7 +1300,7 @@ def main() -> int:
     env = DirectionalGateEnv(DirectionalGateEnvCfg(num_envs=E_MAIN))
     rows = phase_pairwise(torch, ops, env.cfg, env.wall_segments, cycles_per_ms)
     rows += phase_tail(torch, ops, cycles_per_ms)
-    rows += phase_tail_backward(torch, ops, cycles_per_ms)
+    rows += phase_tail_backward(torch, ops, card, cycles_per_ms)
     rows += phase_cf_forward(torch, ops, cycles_per_ms)
     rows += phase_cf_backward(torch, ops, cycles_per_ms)
     phase_critic_paths(torch, cycles_per_ms)

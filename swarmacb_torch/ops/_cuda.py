@@ -14,10 +14,11 @@ the plain version at their boundaries. ``pairwise.cu`` and
 products and sums rounds as the plain PyTorch version's separate operations
 do; K4's machine latches and reward counts hang on threshold tests of such
 sums. ``baseline_tail.cu`` caps its
-kernels at 168 registers a thread, so that three 128-thread blocks fit on
-an SM (65,536 registers); uncapped, the backward takes 182 and runs two
-blocks, and took 12.13 ms against 10.62 ms capped at the main path's shape
-on an H100 80GB HBM3 at 700 W (``scripts/time_tail_backward.py``).
+kernels at 168 registers a thread, so that three 128-thread blocks of the
+forward fit on an SM (65,536 registers); each kernel of the backward sets
+its own budget with ``__launch_bounds__`` (the rows kernel the same three
+blocks of 128 threads, the two batched products two blocks each), and
+``scripts/time_tail_backward.py`` prints what ptxas gave each of them.
 
 Nothing here runs when the package is imported: the CPU tests import every
 module, and the CPU has no nvcc.
@@ -62,7 +63,9 @@ SIGNATURES = {
     "baseline_tail": {
         "fused_tail_fwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _P],
-        "fused_tail_bwd_launch": [_P] * 16 + [_I, _I, _I, _I, _P],
+        "tail_bwd_rows_launch": [_P] * 12 + [_I, _I, _I, _I, _P],
+        "tail_bwd_wa_launch": [_P] * 6 + [_I, _I, _I, _I, _P],
+        "tail_bwd_attn_launch": [_P] * 3 + [_I, _I, _I, _I, _P],
     },
     "cf_attention": {
         "cf_attention_fwd_launch": [_P] * 10 + [_I, _I, _I, _I, _F, _P],

@@ -22,9 +22,13 @@ Output: pooled (B, N, h).
 
 ``fused_tail`` dispatches by device: the plain version for CPU tensors, whose
 gradient is plain autograd, and for CUDA tensors a ``torch.autograd.Function``
-whose forward is the K3f kernel and whose backward is the K3b kernel
-(``csrc/baseline_tail.cu``). The backward recomputes fc from the seven saved
-inputs and returns the cotangents of all of them.
+whose forward is the K3f kernel and whose backward is K3b
+(``csrc/baseline_tail.cu``). K3b recomputes fc from the seven saved inputs
+and returns the cotangents of all of them, in three kernels joined by
+d_fc = ∂loss/∂fc in device memory: the rows of each (b, I) (d_fc, d_attn_mI,
+d_dws, d_delta), the batched product attn_lhsᵀ·d_fc (d_wa, with d_xa and
+d_bias), and the batched product d_fc·waᵀ (d_attn_lhs).
+``tail_backward_reference`` computes the same stages in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -37,9 +41,8 @@ from . import _cuda
 LN_EPS = 1e-5
 
 
-def tail_reference(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N):
-    """Plain version — the same function as the non-kernel branch of
-    ``POCACritic.all_baselines`` in the JAX package (networks.py:526-540)."""
+def _fc(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N):
+    """fc (B, N², h), row I·N + n: the tail's pre-LayerNorm rows."""
     B = attn_lhs.shape[0]
     h = wa.shape[-1]
     fc = torch.matmul(attn_lhs, wa).reshape(B, N, N, h)
@@ -47,12 +50,58 @@ def tail_reference(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N):
     fc = fc + bias + x_a[:, None, :, :]
     eye = torch.eye(N, dtype=torch.bool, device=fc.device)[None, :, :, None]
     fc = fc + torch.where(eye, delta[:, :, None, :], torch.zeros_like(fc))
-    fc = fc.reshape(B * N * N, h)
+    return fc.reshape(B, N * N, h)
+
+
+def _layernorm(fc):
+    """y and rstd of the non-affine LayerNorm of each row of fc."""
     mu = fc.mean(-1, keepdim=True)
     xc = fc - mu
     var = (xc * xc).mean(-1, keepdim=True)
-    y = xc * torch.rsqrt(var + LN_EPS)
-    return y.reshape(B, N, N, h).mean(dim=2)
+    rstd = torch.rsqrt(var + LN_EPS)
+    return xc * rstd, rstd
+
+
+def pool_layernorm(fc, N):
+    """pooled (B, N, h) from fc (B, N², h): LayerNorm, then the mean over n."""
+    B, _, h = fc.shape
+    return _layernorm(fc)[0].reshape(B, N, N, h).mean(dim=2)
+
+
+def tail_reference(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N):
+    """Plain version — the same function as the non-kernel branch of
+    ``POCACritic.all_baselines`` in the JAX package (networks.py:526-540)."""
+    return pool_layernorm(_fc(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N), N)
+
+
+def tail_backward_reference(args, dout, N):
+    """Plain version of K3b, stage by stage: (d_fc, cotangents).
+
+    d_fc (B, N², h) is ∂⟨dout, pooled⟩/∂fc, the quantity the three kernels
+    pass on; the seven cotangents of ``args`` follow from it in the
+    kernels' stage order (rows; attn_lhsᵀ·d_fc; d_fc·waᵀ) and come back in
+    the inputs' order. Used by the tests and ``chip_smoke.py`` to hold each
+    stage of the kernel on its own.
+    """
+    attn_lhs, attn_mI, wa, dws, x_a, delta, bias = args
+    B, _, h = dout.shape
+    y, rstd = _layernorm(_fc(*args, N))
+    d_y = (dout / N)[:, :, None, :].expand(B, N, N, h).reshape(B, N * N, h)
+    m1 = d_y.mean(-1, keepdim=True)
+    m2 = (d_y * y).mean(-1, keepdim=True)
+    d_fc = rstd * (d_y - m1 - y * m2)
+    d4 = d_fc.reshape(B, N, N, h)                                   # [b, I, n, o]
+    # 1. rows
+    d_delta = torch.diagonal(d4, dim1=1, dim2=2).permute(0, 2, 1)
+    d_dws = torch.einsum("bhIn,bIno->bhIo", attn_mI, d4)
+    d_attn_mI = torch.einsum("bIno,bhIo->bhIn", d4, dws)
+    # 2. attn_lhsᵀ·d_fc, and the sums over I and over groups
+    d_wa = torch.matmul(attn_lhs.transpose(1, 2), d_fc)
+    d_xa = d4.sum(dim=1)
+    d_bias = d_xa.sum(dim=(0, 1))
+    # 3. d_fc·waᵀ
+    d_attn_lhs = torch.matmul(d_fc, wa.transpose(1, 2))
+    return d_fc, [d_attn_lhs, d_attn_mI, d_wa, d_dws, d_xa, d_delta, d_bias]
 
 
 def _check(args, N):
@@ -103,21 +152,70 @@ def _forward_kernel(args, N):
     return out
 
 
+def _stage_calls(args, dout, N, B, H, h):
+    """The outputs of K3b and its three launches, for inputs that
+    ``backward_kernel`` takes (it checks them; ``chip_smoke.py`` calls this
+    to hold and time each stage on its own).
+
+    Returns (d_fc, grads, stages): d_fc is the (B, N², h) scratch, grads
+    the seven cotangents in the inputs' order, and ``stages`` three
+    callables, each of which launches one stage on the current stream and
+    raises if the launch failed. They must run in order: stage 1 writes
+    d_fc, which stages 2 and 3 read.
+    """
+    dev = dout.device
+    grads = [torch.empty_like(t) for t in args]
+    d_attn_lhs, d_attn_mI, d_wa, d_dws, d_xa, d_delta, d_bias = grads
+    d_fc = torch.empty((B, N * N, h), dtype=torch.float32, device=dev)
+    bias_part = torch.empty((B, h), dtype=torch.float32, device=dev)
+    lib = _cuda.library("baseline_tail")
+    attn_lhs, wa = args[0], args[2]
+    shape = (B, N, H, h)
+
+    def rows():
+        _cuda.check(lib.tail_bwd_rows_launch(
+            *_ptrs(args), dout.data_ptr(),
+            *_ptrs((d_fc, d_attn_mI, d_dws, d_delta)), *shape,
+            _cuda.stream_ptr(dout)), "fused_tail backward, stage 1 (rows)")
+
+    def wa_product():
+        _cuda.check(lib.tail_bwd_wa_launch(
+            *_ptrs((attn_lhs, d_fc, d_wa, d_xa, d_bias, bias_part)), *shape,
+            _cuda.stream_ptr(dout)), "fused_tail backward, stage 2 (d_wa)")
+
+    def attn_product():
+        _cuda.check(lib.tail_bwd_attn_launch(
+            *_ptrs((d_fc, wa, d_attn_lhs)), *shape,
+            _cuda.stream_ptr(dout)), "fused_tail backward, stage 3 (d_attn_lhs)")
+
+    return d_fc, grads, (rows, wa_product, attn_product)
+
+
 def backward_kernel(args, dout, N):
     """K3b: the cotangents of the seven inputs ``args`` for ``dout``
-    (B, N, h), in the inputs' order and shapes."""
+    (B, N, h), in the inputs' order and shapes.
+
+    The three kernels are joined by a (B, N², h) float32 d_fc scratch, a
+    fresh ``torch.empty``: 838.9 MB at the main path's B = 1024, N = 20,
+    h = 512 (4·B·N²·h bytes), beside a (B, h) d_bias partial. The kernels
+    take h ≤ 512, N ≤ 32 and H·N divisible by 4; other shapes, and tensors
+    that are not CUDA, raise before any launch.
+    """
+    if args[0].device.type != "cuda":
+        raise ValueError("fused_tail backward: the kernels take CUDA tensors; "
+                         "on the CPU the gradient is autograd of tail_reference")
     B, H, h = _check(args, N)
     dout = dout.contiguous()
     if tuple(dout.shape) != (B, N, h):
         raise ValueError(f"fused_tail: dout must be {(B, N, h)}, "
                          f"got {tuple(dout.shape)}")
     _check_layout("dout", dout, args[0].device)
-    grads = [torch.empty_like(t) for t in args]
-    bias_part = torch.empty((B, h), dtype=torch.float32, device=dout.device)
-    err = _cuda.library("baseline_tail").fused_tail_bwd_launch(
-        *_ptrs(args), dout.data_ptr(), *_ptrs(grads), bias_part.data_ptr(),
-        B, N, H, h, _cuda.stream_ptr(dout))
-    _cuda.check(err, "fused_tail backward")
+    if h > 512 or N > 32 or (H * N) % 4:
+        raise ValueError(f"fused_tail backward: the kernels take h <= 512, "
+                         f"N <= 32 and H*N % 4 == 0, got h={h}, N={N}, H={H}")
+    _, grads, stages = _stage_calls(args, dout, N, B, H, h)
+    for launch in stages:
+        launch()
     _cuda.launches["fused_tail_bwd"] += 1
     return grads
 
