@@ -15,7 +15,12 @@ Phases, each of which must pass for the run to pass:
      PyTorch version on the same inputs, made from a numpy seed, with the
      tolerance printed beside the error; the median device time of each
      over 25 runs after warm-up; and the least time the card could take
-     (bound). K3b's seven and K5b's nine cotangents come from
+     (bound). K3f (``tail_forward.cu``, its product in 3xTF32 on the
+     tensor cores) is also held at h = 128 and at a small ragged shape,
+     two calls of it must give the same bits, and its time is printed
+     beside the bound of its route and that of a float32 CUDA-core route,
+     with ptxas's registers and spills. K3b's seven and K5b's nine
+     cotangents come from
      ``torch.autograd.grad`` through ``ops.fused_tail`` and
      ``ops.fused_cf_attention``; K5b's are held against a float64 plain run
      on the card, as the JAX package's kernel test holds its kernel. K3b
@@ -72,8 +77,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-# float32 on the CUDA cores, and device-memory bandwidth.
+# float32 on the CUDA cores, TF32 on the tensor cores, and device-memory
+# bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12            # dense, on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 E_MAIN, N_MAIN = 1024, 20           # arenas × robots on the main path
@@ -293,40 +300,92 @@ def _tail_inputs(torch, B, N, H, h, seed):
             for a in arrays.values()]
 
 
-def phase_tail(torch, ops, cycles_per_ms):
-    B, N, H, h = E_MAIN, N_MAIN, H_MAIN, HID_MAIN
-    print(f"== phase 2b: K3f fused_tail forward (B={B}, N={N}, H={H}, h={h})",
-          flush=True)
-    from swarmacb_torch.ops import baseline_tail
-
-    args = _tail_inputs(torch, B, N, H, h, SEED + 1)
-    with torch.no_grad():
-        got = ops.fused_tail(*args, N)
-        want = baseline_tail.tail_reference(*args, N)
-    torch.cuda.synchronize()
-    # LayerNorm outputs are O(1); each fc element is an 80-term product
-    # summed in another order than cuBLAS's float32 (no TF32) product.
-    err, ok = max_err(got, want, 1e-5, 1e-5)
-    check(ok and tuple(got.shape) == (B, N, h),
-          f"K3f pooled {tuple(got.shape)}: max|Δ| {err:.3e} "
-          "(tolerance 1e-05 + 1e-05·|plain|)")
-    with torch.no_grad():
-        ms = device_ms(torch, lambda: ops.fused_tail(*args, N), cycles_per_ms)
-        plain = device_ms(torch, lambda: baseline_tail.tail_reference(*args, N),
-                          cycles_per_ms)
-    n_bytes = 4 * (sum(a.numel() for a in args) + B * N * h)
+def _tail_forward_work(B, N, H, h):
+    """Bytes and operations of one K3f call. Bytes: the seven inputs read
+    once and pooled written once. Operations per fc element: the HM-term
+    product (2·HM), taken three times on the tensor cores in TF32 (3×TF32),
+    and on the CUDA cores in float32 the rank-1 term over heads (2·H), bias,
+    x_a and the diagonal delta (3), LayerNorm (6) and the pool (1).
+    Returns (bytes, product operations, other operations)."""
     HM = H * N
-    # per fc element: the HM-term product (2·HM), the rank-1 term over heads
-    # (2·H), bias, x_a and the diagonal delta (3), LayerNorm (6), pool (1)
-    n_flops = B * N * N * h * (2 * HM + 2 * H + 3 + 6 + 1)
-    b_ms, b_by = bound_ms(n_bytes, n_flops)
-    print(f"  K3f kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP)", flush=True)
-    return [dict(name="fused_tail", route="cuda",
-                 source="swarmacb_torch/ops/csrc/baseline_tail.cu",
-                 replaces="swarmacb_tpu/ops/baseline_tail.py:201",
-                 max_abs_err=err, ms=ms, plain_ms=plain,
-                 bound_ms=b_ms, bound_by=b_by, library_ms=None)]
+    n_in = B * N * N * HM + B * H * N * N + B * HM * h + B * H * N * h + 2 * B * N * h + h
+    fc = B * N * N * h
+    return 4 * (n_in + B * N * h), fc * 2 * HM, fc * (2 * H + 3 + 6 + 1)
+
+
+def tail_forward_bounds(B, N, H, h) -> dict:
+    """K3f's least time on the card by its route, the larger of the bytes
+    over the memory rate, the three TF32 products over the TF32 tensor-core
+    rate, and the rest over the float32 rate; and, beside it, the bound of
+    a float32 CUDA-core route (every operation at 67 TFLOP/s)."""
+    n_bytes, n_product, n_rest = _tail_forward_work(B, N, H, h)
+    times = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
+             "operations": max(3 * n_product / PEAK_TF32_FLOPS,
+                               n_rest / PEAK_F32_FLOPS) * 1e3}
+    by = max(times, key=times.get)
+    f32_ms, f32_by = bound_ms(n_bytes, n_product + n_rest)
+    return dict(bound_ms=times[by], bound_by=by, f32_bound_ms=f32_ms, f32_bound_by=f32_by,
+                bytes=n_bytes, product_flops=n_product, rest_flops=n_rest)
+
+
+# K3f's shapes in phase 2b: (B, N, H, h) of the main path, tulip's and
+# cyclamen's width, and a small ragged one (5 rows a counterfactual, 20 a
+# block, h not a multiple of the 512 the main path fills)
+TAIL_FORWARD_SHAPES = ((E_MAIN, N_MAIN, H_MAIN, HID_MAIN), (E_MAIN, N_MAIN, H_MAIN, 128),
+                       (6, 5, H_MAIN, 32))
+
+
+def phase_tail(torch, ops, cycles_per_ms):
+    """K3f against ``tail_reference`` at TAIL_FORWARD_SHAPES, two calls
+    bit-identical, and at the main shape its time beside both bounds."""
+    print("== phase 2b: K3f fused_tail forward (tail_forward.cu, 3xTF32 on the "
+          "tensor cores)", flush=True)
+    from swarmacb_torch.ops import _cuda, baseline_tail
+
+    for line in _cuda.build_log("tail_forward").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  K3f ptxas: {line.split('info    :')[-1].strip()}", flush=True)
+    row = None
+    for B, N, H, h in TAIL_FORWARD_SHAPES:
+        args = _tail_inputs(torch, B, N, H, h, SEED + 1)
+        with torch.no_grad():
+            got = ops.fused_tail(*args, N)
+            again = ops.fused_tail(*args, N)
+            want = baseline_tail.tail_reference(*args, N)
+            want3 = baseline_tail.tail_reference_3xtf32(*args, N)
+        torch.cuda.synchronize()
+        # LayerNorm outputs are O(1); each fc element is an 80-term product
+        # in 3xTF32 (float32-level error), summed in another order than
+        # cuBLAS's float32 (no TF32) product.
+        err, ok = max_err(got, want, 1e-5, 1e-5)
+        err3 = float((got.double() - want3.double()).abs().max())
+        check(ok and tuple(got.shape) == (B, N, h),
+              f"K3f pooled {tuple(got.shape)} (B={B}, N={N}, H={H}, h={h}): max|Δ| "
+              f"{err:.3e} (tolerance 1e-05 + 1e-05·|plain|); against the plain "
+              f"3xTF32 arithmetic {err3:.3e}")
+        check(torch.equal(got, again), f"K3f (h={h}, N={N}): two calls give the same bits")
+        if row is not None:
+            continue
+        with torch.no_grad():
+            ms = device_ms(torch, lambda: ops.fused_tail(*args, N), cycles_per_ms)
+            plain = device_ms(torch, lambda: baseline_tail.tail_reference(*args, N),
+                              cycles_per_ms)
+        bd = tail_forward_bounds(B, N, H, h)
+        print(f"  K3f kernel {ms:.4f} ms, plain {plain:.4f} ms; bound by its route "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: {bd['bytes'] / 1e6:.1f} MB, "
+              f"3 x {bd['product_flops'] / 1e9:.2f} GFLOP in TF32, "
+              f"{bd['rest_flops'] / 1e9:.2f} GFLOP in float32), "
+              f"{100 * bd['bound_ms'] / ms:.1f} % of it; the float32 CUDA-core bound "
+              f"{bd['f32_bound_ms']:.4f} ms ({bd['f32_bound_by']}), "
+              f"{100 * bd['f32_bound_ms'] / ms:.1f} %", flush=True)
+        row = dict(name="fused_tail", route="cuda",
+                   source="swarmacb_torch/ops/csrc/tail_forward.cu",
+                   replaces="swarmacb_tpu/ops/baseline_tail.py:201",
+                   max_abs_err=err, ms=ms, plain_ms=plain,
+                   bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+                   f32_bound_ms=bd["f32_bound_ms"], library_ms=None)
+        del args, got, again, want, want3
+    return [row]
 
 
 def _tail_backward_work(B, N, H, h):
@@ -1331,7 +1390,8 @@ def main() -> int:
     status = "ok" if not failures else "failed"
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{**{k: r[k] for k in keys}, "status": status}
+    print(json.dumps({"kernels": [{**{k: r[k] for k in keys}, "status": status,
+                                   **{k: r[k] for k in ("f32_bound_ms",) if k in r}}
                                   for r in rows]}), flush=True)
     if failures:
         return 1

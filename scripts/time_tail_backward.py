@@ -31,7 +31,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from swarmacb_torch.ops import _cuda, baseline_tail  # noqa: E402
 
-KERNELS = ("fused_tail_fwd_kernel", "tail_bwd_rows_kernel", "tail_bwd_wa_kernel",
+KERNELS = ("tail_bwd_rows_kernel", "tail_bwd_wa_kernel",
            "sum_over_groups_kernel", "tail_bwd_attn_kernel")
 
 

@@ -3,6 +3,7 @@ versions, and the wrappers that pick one by the device of the input.
 
   pairwise_sensors, resolve_robot_collisions   (pairwise.py, csrc/pairwise.cu)
   fused_tail (forward and backward)            (baseline_tail.py,
+                                                csrc/tail_forward.cu,
                                                 csrc/baseline_tail.cu)
   fused_cf_attention (forward and backward)    (cf_attention.py,
                                                 csrc/cf_attention.cu)

@@ -13,12 +13,13 @@ the plain version at their boundaries. ``pairwise.cu`` and
 ``fused_step.cu`` also turn off FMA contraction so that each of their
 products and sums rounds as the plain PyTorch version's separate operations
 do; K4's machine latches and reward counts hang on threshold tests of such
-sums. ``baseline_tail.cu`` caps its
-kernels at 168 registers a thread, so that three 128-thread blocks of the
-forward fit on an SM (65,536 registers); each kernel of the backward sets
-its own budget with ``__launch_bounds__`` (the rows kernel the same three
-blocks of 128 threads, the two batched products two blocks each), and
+sums. ``baseline_tail.cu`` (K3b) caps its
+kernels at 168 registers a thread; each of them also sets its own budget
+with ``__launch_bounds__`` (the rows kernel three blocks of 128 threads an
+SM, the two batched products two blocks each), and
 ``scripts/time_tail_backward.py`` prints what ptxas gave each of them.
+``tail_forward.cu`` (K3f) takes no cap: its kernel's ``__launch_bounds__``
+asks for one block of 512 threads an SM (128 registers a thread).
 
 Nothing here runs when the package is imported: the CPU tests import every
 module, and the CPU has no nvcc.
@@ -44,6 +45,7 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {
     "pairwise": ("-fmad=false",),
     "baseline_tail": ("-maxrregcount=168",),
+    "tail_forward": (),
     "cf_attention": ("-maxrregcount=168",),
     "fused_step": ("-fmad=false",),
 }
@@ -61,11 +63,12 @@ SIGNATURES = {
         "robot_collisions_launch": [_P, _P, _I, _I, _F, _P],
     },
     "baseline_tail": {
-        "fused_tail_fwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _P],
         "tail_bwd_rows_launch": [_P] * 12 + [_I, _I, _I, _I, _P],
         "tail_bwd_wa_launch": [_P] * 6 + [_I, _I, _I, _I, _P],
         "tail_bwd_attn_launch": [_P] * 3 + [_I, _I, _I, _I, _P],
+    },
+    "tail_forward": {
+        "tail_forward_launch": [_P] * 8 + [_I, _I, _I, _I, _P],
     },
     "cf_attention": {
         "cf_attention_fwd_launch": [_P] * 10 + [_I, _I, _I, _I, _F, _P],

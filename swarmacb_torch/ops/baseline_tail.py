@@ -1,6 +1,6 @@
 """The counterfactual-attention tail of ``POCACritic.all_baselines``: the
-CUDA forward and backward kernels (``csrc/baseline_tail.cu``) and their
-plain version.
+CUDA forward kernel (K3f, ``csrc/tail_forward.cu``), the backward kernels
+(K3b, ``csrc/baseline_tail.cu``) and their plain versions.
 
 Counterpart of ``swarmacb_tpu/ops/baseline_tail.py``. Per group b and
 counterfactual agent I:
@@ -22,15 +22,22 @@ Output: pooled (B, N, h).
 
 ``fused_tail`` dispatches by device: the plain version for CPU tensors, whose
 gradient is plain autograd, and for CUDA tensors a ``torch.autograd.Function``
-whose forward is the K3f kernel and whose backward is K3b
-(``csrc/baseline_tail.cu``). K3b recomputes fc from the seven saved inputs
-and returns the cotangents of all of them, in three kernels joined by
-d_fc = ∂loss/∂fc in device memory: the rows of each (b, I) (d_fc, d_attn_mI,
+whose forward is K3f and whose backward is K3b. K3f takes the matmul and the rank-1
+term on the tensor cores (wgmma) in 3×TF32: each operand is split into a
+TF32 high part and a TF32 remainder (``split_tf32``) and the product is
+lo·hi + hi·lo + hi·hi, which keeps float32-level error;
+``tail_reference_3xtf32`` is the plain version of that arithmetic. The rest
+of K3f (residual, LayerNorm, pool), and all of K3b, is float32 on the CUDA
+cores. K3b recomputes fc from the seven saved inputs and returns
+the cotangents of all of them, in three kernels joined by d_fc =
+∂loss/∂fc in device memory: the rows of each (b, I) (d_fc, d_attn_mI,
 d_dws, d_delta), the batched product attn_lhsᵀ·d_fc (d_wa, with d_xa and
 d_bias), and the batched product d_fc·waᵀ (d_attn_lhs).
 ``tail_backward_reference`` computes the same stages in plain PyTorch.
-"""
 
+Both kernels take h ≤ 512 with h % 4 == 0, N ≤ 32 and H·N % 4 == 0; the
+forward took h ≤ 4096 before it ran on the tensor cores.
+"""
 from __future__ import annotations
 
 import torch
@@ -41,12 +48,18 @@ from . import _cuda
 LN_EPS = 1e-5
 
 
-def _fc(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N):
-    """fc (B, N², h), row I·N + n: the tail's pre-LayerNorm rows."""
+def _fc(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N, product=None):
+    """fc (B, N², h), row I·N + n: the tail's pre-LayerNorm rows; with a
+    ``product``, attn_lhs·wa and the rank-1 term (a product over heads)
+    are taken by it."""
     B = attn_lhs.shape[0]
     h = wa.shape[-1]
-    fc = torch.matmul(attn_lhs, wa).reshape(B, N, N, h)
-    fc = fc + torch.einsum("bhIn,bhIo->bIno", attn_mI, dws)
+    if product is None:
+        fc = torch.matmul(attn_lhs, wa).reshape(B, N, N, h)
+        fc = fc + torch.einsum("bhIn,bhIo->bIno", attn_mI, dws)
+    else:
+        fc = product(attn_lhs, wa).reshape(B, N, N, h)
+        fc = fc + product(attn_mI.permute(0, 2, 3, 1), dws.permute(0, 2, 1, 3))
     fc = fc + bias + x_a[:, None, :, :]
     eye = torch.eye(N, dtype=torch.bool, device=fc.device)[None, :, :, None]
     fc = fc + torch.where(eye, delta[:, :, None, :], torch.zeros_like(fc))
@@ -72,6 +85,40 @@ def tail_reference(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N):
     """Plain version — the same function as the non-kernel branch of
     ``POCACritic.all_baselines`` in the JAX package (networks.py:526-540)."""
     return pool_layernorm(_fc(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N), N)
+
+
+def split_tf32(x):
+    """(hi, lo) of a float32 tensor: hi is x rounded to TF32 (10 mantissa
+    bits, to nearest, ties away from zero) and lo is x − hi rounded the same
+    way, as the kernel's ``cvt.rna.tf32.f32`` does, emulated on the float32
+    bits. Non-finite values pass through as hi with lo 0. For normal x whose
+    remainder is normal too, |x − hi − lo| ≤ 2⁻²²·|x|."""
+    def rna(v):
+        bits = v.view(torch.int32)
+        mag = bits & 0x7FFFFFFF
+        sign = bits & torch.iinfo(torch.int32).min
+        r = ((mag + 0x1000) & ~0x1FFF) | sign
+        return torch.where(mag < 0x7F800000, r.view(torch.float32), v)
+
+    hi = rna(x.contiguous())
+    return hi, torch.nan_to_num(rna(x - hi), nan=0.0)
+
+
+def matmul_3xtf32(a, b):
+    """a·b as K3f takes it on the tensor cores: lo·hi + hi·lo + hi·hi of
+    the TF32 splits, each product of TF32 values exact in float32."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + torch.matmul(a_hi, b_hi)
+
+
+def tail_reference_3xtf32(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N):
+    """Plain version of K3f's arithmetic: ``tail_reference`` with the
+    matmul and the rank-1 term in 3×TF32 (``matmul_3xtf32``), as the kernel
+    takes both on the tensor cores. Used by the tests and ``chip_smoke.py``;
+    the main path does not call it."""
+    fc = _fc(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N, product=matmul_3xtf32)
+    return pool_layernorm(fc, N)
 
 
 def tail_backward_reference(args, dout, N):
@@ -120,12 +167,12 @@ def _check(args, N):
             raise ValueError(f"fused_tail: {name} must be {shape}, "
                              f"got {tuple(t.shape)}")
         _check_layout(name, t, dev)
+    if h % 4 or h > 512 or N > 32 or (H * N) % 4:
+        raise ValueError(f"fused_tail: the kernels take h % 4 == 0, h <= 512, "
+                         f"N <= 32 and H*N % 4 == 0, got h={h}, N={N}, H={H}")
     if dev.type != "cuda":
         raise ValueError(f"fused_tail: tensors must lie on the CPU or a CUDA "
                          f"device, got {dev}")
-    if h % 4 or h > 4096:
-        raise ValueError(f"fused_tail: the kernel takes h % 4 == 0 and "
-                         f"h <= 4096, got h={h}")
     return B, H, h
 
 
@@ -145,7 +192,7 @@ def _forward_kernel(args, N):
     """K3f: pooled (B, N, h)."""
     B, H, h = _check(args, N)
     out = torch.empty((B, N, h), dtype=torch.float32, device=args[0].device)
-    err = _cuda.library("baseline_tail").fused_tail_fwd_launch(
+    err = _cuda.library("tail_forward").tail_forward_launch(
         *_ptrs(args), out.data_ptr(), B, N, H, h, _cuda.stream_ptr(args[0]))
     _cuda.check(err, "fused_tail")
     _cuda.launches["fused_tail"] += 1
@@ -197,9 +244,8 @@ def backward_kernel(args, dout, N):
 
     The three kernels are joined by a (B, N², h) float32 d_fc scratch, a
     fresh ``torch.empty``: 838.9 MB at the main path's B = 1024, N = 20,
-    h = 512 (4·B·N²·h bytes), beside a (B, h) d_bias partial. The kernels
-    take h ≤ 512, N ≤ 32 and H·N divisible by 4; other shapes, and tensors
-    that are not CUDA, raise before any launch.
+    h = 512 (4·B·N²·h bytes), beside a (B, h) d_bias partial. Tensors that
+    are not CUDA, and shapes ``_check`` refuses, raise before any launch.
     """
     if args[0].device.type != "cuda":
         raise ValueError("fused_tail backward: the kernels take CUDA tensors; "
@@ -210,9 +256,6 @@ def backward_kernel(args, dout, N):
         raise ValueError(f"fused_tail: dout must be {(B, N, h)}, "
                          f"got {tuple(dout.shape)}")
     _check_layout("dout", dout, args[0].device)
-    if h > 512 or N > 32 or (H * N) % 4:
-        raise ValueError(f"fused_tail backward: the kernels take h <= 512, "
-                         f"N <= 32 and H*N % 4 == 0, got h={h}, N={N}, H={H}")
     _, grads, stages = _stage_calls(args, dout, N, B, H, h)
     for launch in stages:
         launch()

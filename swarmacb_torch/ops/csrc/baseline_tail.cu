@@ -1,11 +1,11 @@
-// Forward (K3f) and backward (K3b) of the counterfactual-baseline tail of
-// POCACritic.all_baselines, for Hopper (sm_90a).
+// Backward (K3b) of the counterfactual-baseline tail of
+// POCACritic.all_baselines, for Hopper (sm_90a). The forward (K3f) is
+// tail_forward.cu.
 //
-// Replaces (TPU kernels): swarmacb_tpu/ops/baseline_tail.py: fused_tail, its
-// forward _fused_tail_fwd (Pallas body _fwd_kernel) and its backward
-// _fused_tail_bwd (Pallas body _bwd_kernel).
+// Replaces (TPU kernel): swarmacb_tpu/ops/baseline_tail.py: _fused_tail_bwd,
+// the backward of fused_tail (Pallas body _bwd_kernel).
 //
-// Computes, per group b and counterfactual agent I (inputs: attn_lhs
+// The tail, per group b and counterfactual agent I (inputs: attn_lhs
 // (B, N*N, H*N) with row I*N+n and column h*N+m, attn_mI (B, H, N, N) as
 // [h, I, n], wa (B, H*N, h), dws (B, H, N, h), x_a and delta (B, N, h),
 // bias (h,)):
@@ -14,30 +14,11 @@
 //             + bias[o] + x_a[b, n, o] + (n == I) * delta[b, I, o]
 //   y[n, :]   = LayerNorm(fc[n, :])   (non-affine, eps 1e-5, two-pass stats)
 //   out[b, I] = mean_n y[n, :]
+// The backward recomputes fc in float32 on the CUDA cores (fc_rows and
+// center_rows, one thread per 4 columns, kRows rows a pass over wa); K3f
+// takes the product in 3xTF32 on the tensor cores, so the two y agree to
+// float32 rounding, not bit for bit.
 //
-// ── Forward ────────────────────────────────────────────────────────────────
-// What bounds it on the H100: arithmetic. At the main path's B = 1024
-// groups, N = 20, H = 4, h = 512 it does ~37 GFLOP of f32 work (the
-// attention x folded-values product is 34 of them) against ~600 MB of
-// inputs and outputs: ~0.55 ms at the 67 TFLOP/s f32 CUDA-core rate, which
-// is above the ~0.18 ms the bytes take at 3.35 TB/s. Tensor cores would
-// lift the arithmetic bound, but TF32 keeps ~3 decimal digits and would
-// change the numbers the critic learns from; that is a later step.
-//
-// Design: one block per (b, I), b-major, so the N blocks of a group run
-// close together and L2 (50 MB) serves their re-reads of wa[b] (160 KB) —
-// fc is never written to device memory, the point of the TPU kernel too.
-// Each block stages its N attention rows (N*H*N floats) in shared memory;
-// each thread owns 4 adjacent output columns (one float4 per row of wa) and
-// accumulates kRows rows of fc in registers per pass over wa, so wa[b] is
-// read ceil(N / kRows) times per block. Blocks that share an SM belong to
-// different groups, so those rows come from L2: the loop over them is
-// unrolled by 8 to keep eight loads in flight. Built with -maxrregcount=168,
-// three blocks share an SM. LayerNorm statistics of the rows are block
-// reductions (warp shuffles, then one shared-memory step), and the pooled
-// row accumulates in registers until the single store.
-//
-// ── Backward ───────────────────────────────────────────────────────────────
 // Given dout (B, N, h), with d_y = dout[b, I] / N on every row n and
 //   d_fc[I*N+n, :] = rstd * (d_y - mean(d_y) - y * mean(d_y * y)),
 // it emits the cotangents of all seven inputs:
@@ -60,8 +41,8 @@
 // blocks are all independent, joined by d_fc (B, N*N, h) in device memory
 // (0.84 GB at the main path's shape, written once and read twice: well
 // under a millisecond of bandwidth, against ~1.6 ms of arithmetic):
-//   1. rows (tail_bwd_rows_kernel), one block per (b, I) as the forward:
-//      fc recomputed by the forward's fc_rows and center_rows, then d_fc,
+//   1. rows (tail_bwd_rows_kernel), one block per (b, I): fc recomputed
+//      by fc_rows and center_rows, then d_fc,
 //      stored with coalesced float4 stores. Every sum of this stage lies
 //      inside the block: the LayerNorm statistics are block reductions,
 //      d_dws[b, :, I] sums the block's own rows in shared memory, d_delta is
@@ -69,7 +50,7 @@
 //      each warp (the first shuffle splits the values between the two
 //      half-warps, halving the shuffles) and then over the warps, with one
 //      barrier per pass of kRows rows for all heads. Bounded by the
-//      recompute's operations, as the forward is (0.63 ms).
+//      recompute's operations (0.63 ms).
 //   2. d_wa (tail_bwd_wa_kernel), one block per (b, 80 rows of m, 128
 //      columns of o): the batched product attn_lhs[b]^T d_fc[b], K = N*N,
 //      taken one counterfactual I (N rows) per K-slice, so that d_xa[n, tile]
@@ -294,65 +275,13 @@ __device__ void center_rows(float (&fc)[kRows][kCols], float (&rstd)[kRows],
     rstd[r] = 1.0f / sqrtf(stat[r] / static_cast<float>(h) + kLnEps);
 }
 
-__global__ void fused_tail_fwd_kernel(
-    const float* __restrict__ attn_lhs, const float* __restrict__ attn_mI,
-    const float* __restrict__ wa, const float* __restrict__ dws,
-    const float* __restrict__ x_a, const float* __restrict__ delta,
-    const float* __restrict__ bias, float* __restrict__ out, int N, int H,
-    int h) {
-  extern __shared__ float smem[];
-  const int HM = H * N;
-  float* s_attn = smem;                                // stage_attention
-  float* s_red = smem + attention_floats(N, HM);       // (blockDim / 32) * kRows
-
-  const int b = blockIdx.x / N;
-  const int I = blockIdx.x % N;
-  const int o0 = threadIdx.x * kCols;
-  const bool owns = o0 < h;
-
-  stage_attention(s_attn, attn_lhs + (static_cast<size_t>(b) * N + I) * N * HM,
-                  N, HM);
-  __syncthreads();
-
-  const float* wa_b = wa + static_cast<size_t>(b) * HM * h;
-  float4 bi = make_float4(0.f, 0.f, 0.f, 0.f), dl = bi;
-  if (owns) {
-    bi = load4(bias + o0);
-    dl = load4(delta + (static_cast<size_t>(b) * N + I) * h + o0);
-  }
-  float pooled[kCols] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int n0 = 0; n0 < N; n0 += kRows) {
-    float fc[kRows][kCols] = {};
-    if (owns)
-      fc_rows(fc, s_attn, wa_b, attn_mI, dws, x_a, bi, dl, b, I, n0, N, H, h,
-              o0);
-    float rstd[kRows];
-    center_rows(fc, rstd, owns, h, s_red);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (n0 + r < N) {
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) pooled[c] += fc[r][c] * rstd[r];
-      }
-    }
-  }
-
-  if (owns) {
-    const float rows = static_cast<float>(N);
-    const float res[kCols] = {pooled[0] / rows, pooled[1] / rows,
-                              pooled[2] / rows, pooled[3] / rows};
-    store4(out + (static_cast<size_t>(b) * N + I) * h + o0, res);
-  }
-}
-
 // ── Backward, stage 1: the rows of one (b, I) ──────────────────────────────
 
 constexpr int kRowThreads = 128;  // threads of a rows block at most (h <= 512)
 
 // d_fc of the N rows of counterfactual I of group b (to the scratch), and
 // what needs no other block: d_delta[b, I], d_dws[b, :, I] and
-// d_attn_mI[b, :, I, :]. One thread per 4 columns, as the forward.
+// d_attn_mI[b, :, I, :]. One thread per 4 columns.
 __global__ void __launch_bounds__(kRowThreads, 3) tail_bwd_rows_kernel(
     const float* __restrict__ attn_lhs, const float* __restrict__ attn_mI,
     const float* __restrict__ wa, const float* __restrict__ dws,
@@ -717,27 +646,6 @@ bool backward_shape_ok(int B, int N, int H, int h) {
 }  // namespace
 
 extern "C" {
-
-// Returns cudaGetLastError() after the launch (0 = success). Needs h % 4 == 0
-// and 16-byte aligned pointers (checked by the Python wrapper).
-int fused_tail_fwd_launch(const float* attn_lhs, const float* attn_mI,
-                          const float* wa, const float* dws, const float* x_a,
-                          const float* delta, const float* bias, float* out,
-                          int B, int N, int H, int h, void* stream) {
-  const int threads = threads_for(h);
-  if (h % kCols != 0 || threads > 1024 || B <= 0 || N <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      (static_cast<size_t>(attention_floats(N, H * N)) + (threads / 32) * kRows) *
-      sizeof(float);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(fused_tail_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_tail_fwd_kernel<<<B * N, threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      attn_lhs, attn_mI, wa, dws, x_a, delta, bias, out, N, H, h);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The backward, in three launches on one stream (the Python wrapper makes
 // them in this order). Each returns cudaGetLastError() after its launch

@@ -21,6 +21,7 @@ PORT_FILES = (sorted((ROOT / "swarmacb_torch").rglob("*.py"))
                                                 "profile_torch_update.py",
                                                 "probe_torch_rsqrt.py",
                                                 "time_cf_backward.py",
+                                                "probe_tf32_rates.py",
                                                 "time_tail_backward.py")])
 
 
@@ -189,7 +190,9 @@ def test_fused_env_step_refuses_a_tile_it_cannot_launch_on():
 def test_every_kernel_source_is_registered_and_plain_c():
     """Each ``csrc/*.cu`` builds on its own (an entry of ``_cuda.SOURCES``
     and ``SIGNATURES``), includes no PyTorch header, and none takes fast
-    math; the sensor and step kernels build with FMA contraction off."""
+    math; the sensor and step kernels build with FMA contraction off. The
+    tail's forward (``tail_forward.cu``) and backward (``baseline_tail.cu``)
+    are two sources: only the backward caps its registers."""
     from swarmacb_torch.ops import _cuda
 
     sources = sorted(p.stem for p in _cuda.CSRC.glob("*.cu"))
@@ -203,6 +206,9 @@ def test_every_kernel_source_is_registered_and_plain_c():
         assert not any("fast_math" in f or "fast-math" in f for f in flags), name
     for name in ("pairwise", "fused_step"):
         assert "-fmad=false" in _cuda.SOURCES[name]
+    assert _cuda.SOURCES["baseline_tail"] == ("-maxrregcount=168",)
+    assert _cuda.SOURCES["tail_forward"] == ()
+    assert "tail_forward_launch" in _cuda.SIGNATURES["tail_forward"]
     assert set(_cuda.launches) >= {"fused_env_step", "pairwise_sensors"}
 
 

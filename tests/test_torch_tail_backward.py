@@ -106,12 +106,12 @@ def test_backward_kernel_refuses_cpu_tensors():
 def test_stage_entry_points_are_registered():
     """Stage 1 takes the seven inputs, dout and its four outputs; stage 2
     attn_lhs, d_fc, d_wa, d_xa, d_bias and the partial; stage 3 d_fc, wa and
-    d_attn_lhs; each then (B, N, H, h) and the stream."""
+    d_attn_lhs; each then (B, N, H, h) and the stream. The forward (K3f)
+    has a source of its own, ``tail_forward.cu``."""
     entries = _cuda.SIGNATURES["baseline_tail"]
     ptr, num = _cuda._P, _cuda._I
     tail = [num] * 4 + [ptr]
     assert entries == {
-        "fused_tail_fwd_launch": [ptr] * 8 + tail,
         "tail_bwd_rows_launch": [ptr] * 12 + tail,
         "tail_bwd_wa_launch": [ptr] * 6 + tail,
         "tail_bwd_attn_launch": [ptr] * 3 + tail,
