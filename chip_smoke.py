@@ -28,8 +28,15 @@ Phases, each of which must pass for the run to pass:
      d_attn_lhs) joined by a d_fc scratch: phase 2c holds that scratch
      against the staged plain version (``tail_backward_reference``),
      checks that two calls give the same bits, and times each stage alone
-     beside its bound and, for the two products, ``torch.bmm``. Phase
-     2f times ``POCACritic.all_baselines`` forward and backward on one
+     beside its bound and, for the two products, ``torch.bmm``. K5b
+     runs as four kernels (the base products, the rows, the sums over
+     counterfactuals, the small products) joined by scratch: phase 2e also
+     holds each stage's outputs and scratch against the staged plain version
+     (``cf_backward_reference``), checks that two calls give the same bits,
+     prints ptxas's registers and spills, and times each stage alone beside
+     its bound and, for the base and products stages, ``torch.bmm``; K5b's
+     time stands beside two bounds, the algorithm's and the staged route's
+     (its scratch counted). Phase 2f times ``POCACritic.all_baselines`` forward and backward on one
      chunk of 1,024 groups on both critic paths (the tail kernels, and
      ``fused_attention``). Phase 2g holds K4 (``fused_env_step``) against
      its plain version in its four compiled forms (daisy, lily, dandelion,
@@ -66,6 +73,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -579,6 +587,99 @@ def _cf_backward_work(B, N, H, h):
     return n_bytes, n_flops
 
 
+# K5b's four kernels, in launch order, and the stage that writes each cotangent
+CF_STAGES = ("base", "rows", "sums", "products")
+CF_STAGE_OF = {"S_aa": 3, "S_as": 1, "S_sa": 3, "S_ss": 1, "wa": 3, "dws": 1, "x_a": 2,
+               "delta": 1, "bias": 2}
+
+
+def _cf_backward_stage_work(B, N, H, h):
+    """Bytes and float32 operations of each K5b stage, with its scratch
+    (terms 5·B·H·N², base products 2·B·H·N·h, d_fc B·N²·h, score scratch
+    2·B·H·N², d_num B·H·N·h, the (B, h) d_bias partial) counted as an output
+    of the stage that writes it and an input of each stage that reads it.
+    base: the score tensors and wa in, terms and base out; per (b, head) the
+    softmax terms (16·N² + 6·N) and the two base products (4·N²·h). rows:
+    three terms, base, wa, dws, x_a, delta, bias and dout in; d_fc, dS_as,
+    dS_ss, d_wa, d_dws, d_delta and the score scratch out; per fc element the
+    rebuild (5 a head, 3 for the residual), the LayerNorm backward (11), the
+    dot products (6 a head) and the sums over n (4 a head). sums: Z and d_fc
+    in, d_num, d_xa and the partial out (and the partial in, d_bias out);
+    per d_fc element 1 + 2·H. products: E_aa, E_sa, Z, wa, d_num, d_delta,
+    the score scratch and the first term of d_wa in; dS_aa, dS_sa and d_wa
+    out; per (b, head) four (N × h)·(h × N)-sized products (8·N²·h)."""
+    NN, HNN, HNh, Nh = N * N, B * H * N * N, B * H * N * h, B * N * h
+    fc = B * NN * h
+    f = 4  # bytes per float32
+    return {
+        "base": (f * (3 * HNN + B * H * N + HNh + 5 * HNN + 2 * HNh),
+                 B * H * (16 * NN + 6 * N + 4 * NN * h)),
+        "rows": (f * (3 * HNN + 2 * HNh + 2 * HNh + 3 * Nh + h
+                      + fc + HNN + B * H * N + 2 * HNh + Nh + 2 * HNN),
+                 fc * (5 * H + 3 + 11 + 6 * H + 4 * H)),
+        "sums": (f * (HNN + fc + HNh + Nh + 2 * B * h + h), fc * (1 + 2 * H)),
+        "products": (f * (3 * HNN + HNh + HNh + Nh + 2 * HNN + HNh + 2 * HNN + HNh),
+                     B * H * 8 * NN * h),
+    }
+
+
+def time_cf_backward_stages(torch, args, dout, d, cycles_per_ms):
+    """Each K5b stage launched alone, at the shape of ``args``: its median
+    device ms and its bound, and for stages 0 and 3 the time of one
+    ``torch.bmm`` of the stage's products on the same operands (cuBLAS,
+    float32 with TF32 off; the port never calls it): [E_aa; E_sa]·wa_h for
+    the base products, [d_num; dU2]·wa_hᵀ for the products' d_Eaa and
+    d_Esa. One whole backward fills the scratch first."""
+    from swarmacb_torch.ops import cf_attention
+
+    B, H, N, h = args[4].shape
+    scratch, grads, stages = cf_attention._stage_calls(args, dout, d, B, N, H, h)
+    for launch in stages:
+        launch()
+    torch.cuda.synchronize()
+    wa = args[4].reshape(B * H, N, h)
+    e = scratch["terms"][:, :, :2].reshape(B * H, 2 * N, N)
+    z2 = scratch["terms"][:, :, 4].diagonal(dim1=-2, dim2=-1)[..., None]
+    u = torch.cat([scratch["d_num"], grads[7][:, None] / z2], dim=2)
+    u = u.reshape(B * H, 2 * N, h)
+    wa_t = wa.transpose(1, 2)
+    library = {"base": lambda: torch.bmm(e, wa), "products": lambda: torch.bmm(u, wa_t)}
+    work = _cf_backward_stage_work(B, N, H, h)
+    out = {}
+    for name, launch in zip(CF_STAGES, stages):
+        b_ms, b_by = bound_ms(*work[name])
+        lib = library.get(name)
+        out[name] = dict(ms=device_ms(torch, launch, cycles_per_ms),
+                         library_ms=device_ms(torch, lib, cycles_per_ms) if lib else None,
+                         bound_ms=b_ms, bound_by=b_by, bytes=work[name][0],
+                         flops=work[name][1])
+    return out
+
+
+def ptxas_report(log: str, kernels) -> dict[str, str]:
+    """Registers, spills and shared memory of each named kernel in an nvcc
+    log; a template's instances by their int argument, as
+    ``tail_bwd_wa_kernel<1>``."""
+    lines = log.splitlines()
+    report = {}
+    for i, line in enumerate(lines):
+        name = next((k for k in kernels if "Compiling entry" in line and k in line), None)
+        if name is None:
+            continue
+        instance = re.search(r"ILi(\d+)E", line)
+        if instance:
+            name += f"<{instance.group(1)}>"
+        end = next((j for j in range(i + 1, len(lines)) if "Compiling entry" in lines[j]),
+                   len(lines))
+        report[name] = "; ".join(x.split("info    :")[-1].strip() for x in lines[i + 1:end]
+                                 if "registers" in x or "spill" in x)
+    return report
+
+
+CF_BACKWARD_KERNELS = ("cf_bwd_base_kernel", "cf_bwd_rows_kernel", "cf_bwd_sums_kernel",
+                       "sum_over_groups_kernel", "cf_bwd_products_kernel")
+
+
 def phase_cf_forward(torch, ops, cycles_per_ms):
     B, N, H, h = E_MAIN, N_MAIN, H_MAIN, HID_MAIN
     d = h // H
@@ -617,13 +718,16 @@ def phase_cf_forward(torch, ops, cycles_per_ms):
                  bound_ms=b_ms, bound_by=b_by, library_ms=None)]
 
 
-def phase_cf_backward(torch, ops, cycles_per_ms):
+def phase_cf_backward(torch, ops, card, cycles_per_ms):
     B, N, H, h = E_MAIN, N_MAIN, H_MAIN, HID_MAIN
     d = h // H
     print(f"== phase 2e: K5b fused_cf_attention backward (B={B}, N={N}, H={H}, "
           f"h={h})", flush=True)
-    from swarmacb_torch.ops import cf_attention
+    from swarmacb_torch.ops import _cuda, cf_attention
 
+    for name, info in ptxas_report(_cuda.build_log("cf_attention"),
+                                   CF_BACKWARD_KERNELS).items():
+        print(f"  K5b ptxas {name}: {info}", flush=True)
     args = [a.requires_grad_() for a in _cf_inputs(torch, B, N, H, h, SEED + 5, 3.0)]
     rng = np.random.default_rng(SEED + 6)
     dout = torch.from_numpy(rng.normal(size=(B, N, h)).astype(np.float32)).to(DEVICE)
@@ -652,27 +756,70 @@ def phase_cf_backward(torch, ops, cycles_per_ms):
         limit = max(band * err_p, floor)
         worst = max(worst, float((g - w).abs().max()))
         check(err_k <= limit and g.shape == w.shape,
-              f"K5b d_{name} {tuple(g.shape)}: error against float64 {err_k:.3e}, "
-              f"plain float32's {err_p:.3e} (tolerance max({band:g}x plain, "
-              f"4 ulp {floor:.3e}) = {limit:.3e})")
+              f"K5b d_{name} {tuple(g.shape)} (stage {CF_STAGE_OF[name]}): error "
+              f"against float64 {err_k:.3e}, plain float32's {err_p:.3e} (tolerance "
+              f"max({band:g}x plain, 4 ulp {floor:.3e}) = {limit:.3e})")
     del args64, truth
     saved = [a.detach() for a in args]
+    # Each stage's output against the staged plain version, which rebuilds fc
+    # from the same base products and takes the same dot products in another
+    # order: within 1e-5 of the largest element of each (phase 2c's rule)
+    staged = {}
+    with torch.no_grad():
+        want_fc, want_st = cf_attention.cf_backward_reference(saved, dout, d, stages=staged)
+    staged["d_fc"] = want_fc
+    scratch, got_again, calls = cf_attention._stage_calls(saved, dout, d, B, N, H, h)
+    for launch in calls:
+        launch()
+    torch.cuda.synchronize()
+    rel = 1e-5
+    held = [(0, "terms", scratch["terms"], staged["terms"]),
+            (0, "base", scratch["base"], staged["base"]),
+            (1, "d_fc", scratch["d_fc"], staged["d_fc"]),
+            (1, "d_scores", scratch["d_scores"], staged["d_scores"]),
+            (2, "d_num", scratch["d_num"], staged["d_num"])]
+    held += [(CF_STAGE_OF[n], f"d_{n}", g, w)
+             for n, g, w in zip(cf_attention.NAMES, got_again, want_st)]
+    for stage, name, g, w in sorted(held, key=lambda x: x[0]):
+        scale = float(w.abs().max())
+        err, ok = max_err(g, w, rel * scale, 0.0)
+        check(ok and g.shape == w.shape,
+              f"K5b stage {stage} ({CF_STAGES[stage]}) {name} {tuple(g.shape)}: max|Δ| "
+              f"{err:.3e} against the staged plain version (tolerance {rel:g}·max|plain| "
+              f"= {rel * scale:.3e})")
+    del staged, want_fc, want_st, scratch, held
+    same = all(torch.equal(a, b) for a, b in zip(got, got_again))
+    check(same, "K5b: two calls give bit-identical cotangents")
+    del got_again
     ms = device_ms(torch, lambda: cf_attention.backward_kernel(saved, dout, d),
                    cycles_per_ms)
     plain = device_ms(torch, lambda: torch.autograd.grad(
         plain_out, args, dout, retain_graph=True), cycles_per_ms)
     n_bytes, n_flops = _cf_backward_work(B, N, H, h)
     b_ms, b_by = bound_ms(n_bytes, n_flops)
-    print(f"  K5b kernel {ms:.4f} ms, plain backward {plain:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-          f"{n_flops / 1e9:.2f} GFLOP); max|kernel − plain| over the nine "
-          f"cotangents {worst:.3e}; no single PyTorch call computes this "
-          "function, so there is no library time", flush=True)
+    stages = time_cf_backward_stages(torch, saved, dout, d, cycles_per_ms)
+    route_bytes = sum(st["bytes"] for st in stages.values())
+    r_ms, r_by = bound_ms(route_bytes, n_flops)
+    print(f"  K5b kernel {ms:.4f} ms, plain backward {plain:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP), the staged "
+          f"route's bound {r_ms:.4f} ms ({r_by}: {route_bytes / 1e6:.1f} MB with its "
+          f"scratch); max|kernel − plain| over the nine cotangents {worst:.3e}; no "
+          f"single PyTorch call computes this function, so there is no library time; "
+          f"on {card}", flush=True)
+    for i, (name, st) in enumerate(stages.items()):
+        lib = ("" if st["library_ms"] is None
+               else f", torch.bmm {st['library_ms']:.4f} ms")
+        print(f"  K5b stage {i} ({name}) alone: {st['ms']:.4f} ms{lib}, bound "
+              f"{st['bound_ms']:.4f} ms ({st['bound_by']}: {st['bytes'] / 1e6:.1f} MB, "
+              f"{st['flops'] / 1e9:.2f} GFLOP) on {card}", flush=True)
+    print("  K5b stages: " + json.dumps({"card": card, "shape": [B, N, H, h],
+                                          "whole_ms": ms, "route_bound_ms": r_ms,
+                                          "stages": stages}), flush=True)
     return [dict(name="fused_cf_attention_bwd", route="cuda",
                  source="swarmacb_torch/ops/csrc/cf_attention.cu",
                  replaces="swarmacb_tpu/ops/cf_attention.py:290",
                  max_abs_err=worst, ms=ms, plain_ms=plain,
-                 bound_ms=b_ms, bound_by=b_by, library_ms=None)]
+                 bound_ms=b_ms, bound_by=b_by, route_bound_ms=r_ms, library_ms=None)]
 
 
 def phase_critic_paths(torch, cycles_per_ms):
@@ -1361,7 +1508,7 @@ def main() -> int:
     rows += phase_tail(torch, ops, cycles_per_ms)
     rows += phase_tail_backward(torch, ops, card, cycles_per_ms)
     rows += phase_cf_forward(torch, ops, cycles_per_ms)
-    rows += phase_cf_backward(torch, ops, cycles_per_ms)
+    rows += phase_cf_backward(torch, ops, card, cycles_per_ms)
     phase_critic_paths(torch, cycles_per_ms)
     rows += phase_fused_step(torch, ops, cycles_per_ms)
     # each path with its counts set to 0 just before and read just after
@@ -1391,7 +1538,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys}, "status": status,
-                                   **{k: r[k] for k in ("f32_bound_ms",) if k in r}}
+                                   **{k: r[k] for k in ("f32_bound_ms", "route_bound_ms")
+                                      if k in r}}
                                   for r in rows]}), flush=True)
     if failures:
         return 1

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -33,25 +32,6 @@ from swarmacb_torch.ops import _cuda, baseline_tail  # noqa: E402
 
 KERNELS = ("tail_bwd_rows_kernel", "tail_bwd_wa_kernel",
            "sum_over_groups_kernel", "tail_bwd_attn_kernel")
-
-
-def ptxas_report(log: str) -> dict[str, str]:
-    """Registers, spills and shared memory of each kernel in an nvcc log; a
-    template's instances by their int argument, as ``tail_bwd_wa_kernel<1>``."""
-    lines = log.splitlines()
-    report = {}
-    for i, line in enumerate(lines):
-        name = next((k for k in KERNELS if "Compiling entry" in line and k in line), None)
-        if name is None:
-            continue
-        instance = re.search(r"ILi(\d+)E", line)
-        if instance:
-            name += f"<{instance.group(1)}>"
-        end = next((j for j in range(i + 1, len(lines)) if "Compiling entry" in lines[j]),
-                   len(lines))
-        report[name] = "; ".join(x.split("info    :")[-1].strip() for x in lines[i + 1:end]
-                                 if "registers" in x or "spill" in x)
-    return report
 
 
 def main() -> int:
@@ -74,7 +54,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
     _cuda.build(["baseline_tail"])
-    ptxas = ptxas_report(_cuda.build_log("baseline_tail"))
+    ptxas = chip_smoke.ptxas_report(_cuda.build_log("baseline_tail"), KERNELS)
     for name, info in ptxas.items():
         print(f"  ptxas {name}: {info}", flush=True)
 

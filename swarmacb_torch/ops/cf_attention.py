@@ -24,9 +24,16 @@ Output: pooled (B, N, h).
 ``fused_cf_attention`` dispatches by device: the plain version for CPU
 tensors, whose gradient is plain autograd, and for CUDA tensors a
 ``torch.autograd.Function`` whose forward is the K5f kernel and whose
-backward is the K5b kernel. The backward recomputes the attention from the
-nine saved inputs and returns the cotangents of all of them; ``d`` is a
-constant.
+backward is K5b. K5b recomputes the attention from the nine saved inputs and
+returns the cotangents of all of them (``d`` is a constant), in four kernels
+joined by scratch in device memory, the largest d_fc = ∂loss/∂fc: the
+softmax terms and base products of each (group, head); the rows of each
+(group, counterfactual) (d_fc and the rows' scalar cotangents); the sums of
+each group over counterfactuals (d_num, d_xa, d_bias); and the small
+products of each (group, head) (dS_aa, dS_sa, d_wa).
+``cf_backward_reference`` computes the same stages in plain PyTorch.
+
+The kernels take h ≤ 512 with h % 4 == 0, N ≤ 32 and H ≤ 4.
 """
 
 from __future__ import annotations
@@ -37,8 +44,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _cuda
-
-LN_EPS = 1e-5
+from .baseline_tail import _layernorm, pool_layernorm
 
 
 def cf_reference(S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias, d):
@@ -46,8 +52,14 @@ def cf_reference(S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias, d):
     (cf_attention.py:337-372), the assembled-scores composition of the
     non-kernel ``POCACritic.all_baselines``. Runs in the inputs' dtype, so
     float64 inputs give a float64 referee."""
-    B, H, N, _ = S_aa.shape
-    h = wa.shape[-1]
+    B, N, h = x_a.shape
+    fc = _fc(S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias, d)
+    return pool_layernorm(fc.reshape(B, N * N, h), N)
+
+
+def _fc(S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias, d):
+    """fc (B, I, n, h) of ``cf_reference``: the pre-LayerNorm rows."""
+    N = S_aa.shape[2]
     ii = torch.arange(N, device=S_aa.device)
     I_idx = ii.view(1, N, 1, 1, 1)
     n_idx = ii.view(1, 1, 1, N, 1)
@@ -67,13 +79,99 @@ def cf_reference(S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias, d):
     fc = fc + torch.einsum("bhnI,bhIo->bIno", attn_mI, dws)
     fc = fc + bias + x_a[:, None, :, :]
     eye = (ii[:, None] == ii[None, :])[None, :, :, None]
-    fc = fc + torch.where(eye, delta[:, :, None, :], torch.zeros_like(fc))
-    flat = fc.reshape(B * N * N, h)
-    mu = flat.mean(-1, keepdim=True)
-    xc = flat - mu
-    var = (xc * xc).mean(-1, keepdim=True)
-    y = xc * torch.rsqrt(var + LN_EPS)
-    return y.reshape(B, N, N, h).mean(dim=2)
+    return fc + torch.where(eye, delta[:, :, None, :], torch.zeros_like(fc))
+
+
+def cf_backward_base(S_aa, S_as, S_sa, S_ss, wa, d):
+    """Stage 0 of K5b in plain PyTorch: (terms, base).
+
+    terms (B, H, 5, N, N): E_aa[n, m], E_sa[I, m], and corr, rep and Z of row
+    n of counterfactual I (zc, E_as and Z_b + zc; zc2, E_ss and Z2 on n = I),
+    with the forward's shared row maxes. base (B, H, 2, N, h): the base
+    products E_aa·wa_h (rows n) and E_sa·wa_h (rows I).
+    """
+    N = S_aa.shape[2]
+    sq = math.sqrt(d)
+    p_aa, p_as, p_sa, p_ss = S_aa / sq, S_as / sq, S_sa / sq, S_ss / sq
+    M = torch.maximum(p_aa.amax(-1, keepdim=True), p_as.amax(-1, keepdim=True))
+    Eaa, Eas = torch.exp(p_aa - M), torch.exp(p_as - M)
+    M2 = torch.maximum(p_sa.amax(-1, keepdim=True), p_ss)
+    Esa, Ess = torch.exp(p_sa - M2), torch.exp(p_ss - M2)             # (…, N, 1)
+    zc2 = Ess - Esa.diagonal(dim1=-2, dim2=-1)[..., None]
+    Z2 = Esa.sum(-1, keepdim=True) + zc2
+    zc = Eas - Eaa
+    eye = torch.eye(N, dtype=torch.bool, device=S_aa.device)
+    terms = torch.stack([Eaa, Esa, torch.where(eye, zc2, zc), torch.where(eye, Ess, Eas),
+                         torch.where(eye, Z2, Eaa.sum(-1, keepdim=True) + zc)], dim=2)
+    base = torch.stack([Eaa @ wa, Esa @ wa], dim=2)
+    return terms, base
+
+
+def cf_backward_reference(args, dout, d, stages=None):
+    """Plain version of K5b, stage by stage: (d_fc, cotangents).
+
+    d_fc (B, N, N, h), laid out [b, I, n, o], is ∂⟨dout, pooled⟩/∂fc, the
+    quantity the rows stage passes on; fc is rebuilt from stage 0's base
+    products as the kernel rebuilds it, and the nine cotangents of ``args``
+    follow in the kernels' stage order (base; rows; sums over I; products)
+    and come back in the inputs' order. With a dict ``stages``, the scratch
+    of each stage is left in it under the kernels' names (``terms``,
+    ``base``, ``d_scores``, ``d_num``). Used by the tests and
+    ``chip_smoke.py`` to hold each stage of the kernel on its own.
+    """
+    S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias = args
+    B, H, N, h = wa.shape
+    sq = math.sqrt(d)
+    eye = torch.eye(N, dtype=torch.bool, device=wa.device)
+    # 0. softmax terms and base products
+    terms, base = cf_backward_base(S_aa, S_as, S_sa, S_ss, wa, d)
+    Eaa, Esa, corr, rep, Z = terms.unbind(2)                           # [b, hh, n, I]
+    # the base row of (n, I): num[n], or num2[I] on n = I, as (B, H, I, n, h)
+    num_sel = torch.where(eye[:, :, None], base[:, :, 1, :, None, :], base[:, :, 0, None, :, :])
+    # 1. rows: fc rebuilt as Σ_h num_h / Z + R, with R the rank-1 terms and
+    # bias, then the LayerNorm backward and the rows' dot products
+    t = lambda x: x.transpose(-1, -2)[..., None]                      # noqa: E731  [b, hh, I, n, 1]
+    R = bias + (t(corr / Z) * wa[:, :, :, None, :] + t(rep / Z) * dws[:, :, :, None, :]).sum(1)
+    fc = ((num_sel * t(1.0 / Z)).sum(dim=1) + R) + x_a[:, None]
+    fc = fc + torch.where(eye[None, :, :, None], delta[:, :, None, :], torch.zeros_like(fc))
+    y, rstd = _layernorm(fc)
+    d_y = (dout / N)[:, :, None, :]
+    m1 = d_y.mean(-1, keepdim=True)
+    m2 = (d_y * y).mean(-1, keepdim=True)
+    d_fc = rstd * (d_y - m1 - y * m2)                                 # [b, I, n, o]
+    dfc = d_fc[:, None]
+    A = (dfc * num_sel).sum(-1).transpose(-1, -2)                     # [b, hh, n, I]
+    Bv = (dfc * wa[:, :, :, None, :]).sum(-1).transpose(-1, -2)
+    C = (dfc * dws[:, :, :, None, :]).sum(-1).transpose(-1, -2)
+    dZ = -((((A + corr * Bv) + rep * C) / Z) / Z)
+    d_zc = Bv / Z + dZ
+    d_E = C / Z + d_zc
+    dS = (rep * d_E) / sq
+    dS_as = torch.where(eye, torch.zeros_like(dS), dS)
+    dS_ss = dS.diagonal(dim1=-2, dim2=-1)[..., None]
+    d_scores = torch.stack([-d_zc, dZ], dim=2)
+    d_delta = d_fc.diagonal(dim1=1, dim2=2).permute(0, 2, 1)
+    d_dws = torch.einsum("bhnI,bIno->bhIo", rep / Z, d_fc)
+    d_wa = torch.einsum("bhnI,bIno->bhIo", corr / Z, d_fc)
+    # 2. sums over I
+    inv = torch.where(eye, torch.zeros_like(Z), 1.0 / Z)
+    d_num = torch.einsum("bhnI,bIno->bhno", inv, d_fc)
+    d_xa = d_fc.sum(dim=1)
+    d_bias = d_xa.sum(dim=(0, 1))
+    # 3. products
+    sdz = torch.where(eye, torch.zeros_like(dZ), dZ).sum(-1, keepdim=True)
+    d_Eaa = (torch.where(eye, torch.zeros_like(d_zc), -d_zc) + sdz) + d_num @ wa.transpose(-1, -2)
+    dS_aa = (Eaa * d_Eaa) / sq
+    d_wa = d_wa + Eaa.transpose(-1, -2) @ d_num
+    dU2 = d_delta[:, None] / Z.diagonal(dim1=-2, dim2=-1)[..., None]
+    diag = lambda x: x.diagonal(dim1=-2, dim2=-1)[..., None]          # noqa: E731
+    d_Esa = (diag(dZ) + torch.where(eye, diag(-d_zc), torch.zeros_like(dZ))) \
+        + dU2 @ wa.transpose(-1, -2)
+    dS_sa = (Esa * d_Esa) / sq
+    d_wa = d_wa + Esa.transpose(-1, -2) @ dU2
+    if stages is not None:
+        stages.update(terms=terms, base=base, d_scores=d_scores, d_num=d_num)
+    return d_fc, [dS_aa, dS_as, dS_sa, dS_ss, d_wa, d_dws, d_xa, d_delta, d_bias]
 
 
 NAMES = ("S_aa", "S_as", "S_sa", "S_ss", "wa", "dws", "x_a", "delta", "bias")
@@ -96,12 +194,12 @@ def _check(args):
             raise ValueError(f"fused_cf_attention: {name} must be {shape}, "
                              f"got {tuple(t.shape)}")
         _check_layout(name, t, dev)
+    if h % 4 or h > 512 or N > 32 or H > 4:
+        raise ValueError(f"fused_cf_attention: the kernels take h % 4 == 0, "
+                         f"h <= 512, N <= 32 and H <= 4, got h={h}, N={N}, H={H}")
     if dev.type != "cuda":
         raise ValueError(f"fused_cf_attention: tensors must lie on the CPU or "
                          f"a CUDA device, got {dev}")
-    if h % 4 or h > 4096 or N > 32:
-        raise ValueError(f"fused_cf_attention: the kernels take h % 4 == 0, "
-                         f"h <= 4096 and N <= 32, got h={h}, N={N}")
     return B, N, H, h
 
 
@@ -129,25 +227,80 @@ def _forward_kernel(args, d):
     return out
 
 
+def _stage_calls(args, dout, d, B, N, H, h):
+    """The outputs of K5b and its four launches, for inputs that
+    ``backward_kernel`` takes (it checks them; ``chip_smoke.py`` calls this
+    to hold and time each stage on its own).
+
+    Returns (scratch, grads, stages): ``scratch`` the stages' scratch by
+    name (``terms``, ``base``, ``d_fc``, ``d_scores``, ``d_num``,
+    ``bias_part``; shapes in ``cf_backward_reference`` and the kernel
+    source), grads the nine cotangents in the inputs' order, and ``stages``
+    four callables, each of which launches one stage on the current stream
+    and raises if a launch failed. They must run in order: each stage reads
+    what the ones before it wrote, and stage 3 completes d_wa in place.
+    """
+    dev = dout.device
+    grads = [torch.empty_like(t) for t in args]
+    dS_aa, dS_as, dS_sa, dS_ss, d_wa, d_dws, d_xa, d_delta, d_bias = grads
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    scratch = {"terms": empty(B, H, 5, N, N), "base": empty(B, H, 2, N, h),
+               "d_fc": empty(B, N, N, h), "d_scores": empty(B, H, 2, N, N),
+               "d_num": empty(B, H, N, h), "bias_part": empty(B, h)}
+    terms, base, d_fc, d_scores, d_num, bias_part = scratch.values()
+    lib = _cuda.library("cf_attention")
+    S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias = args
+    shape, sqrt_d = (B, N, H, h), math.sqrt(d)
+
+    def base_stage():
+        _cuda.check(lib.cf_bwd_base_launch(
+            *_ptrs((S_aa, S_as, S_sa, S_ss, wa, terms, base)), *shape, sqrt_d,
+            _cuda.stream_ptr(dout)), "fused_cf_attention backward, stage 0 (base)")
+
+    def rows():
+        _cuda.check(lib.cf_bwd_rows_launch(
+            *_ptrs((terms, base, wa, dws, x_a, delta, bias, dout, d_fc, dS_as, dS_ss,
+                    d_wa, d_dws, d_delta, d_scores)), *shape, sqrt_d,
+            _cuda.stream_ptr(dout)), "fused_cf_attention backward, stage 1 (rows)")
+
+    def sums():
+        _cuda.check(lib.cf_bwd_sums_launch(
+            *_ptrs((terms, d_fc, d_num, d_xa, bias_part, d_bias)), *shape,
+            _cuda.stream_ptr(dout)), "fused_cf_attention backward, stage 2 (sums)")
+
+    def products():
+        _cuda.check(lib.cf_bwd_products_launch(
+            *_ptrs((terms, wa, d_num, d_delta, d_scores, dS_aa, dS_sa, d_wa)), *shape,
+            sqrt_d, _cuda.stream_ptr(dout)),
+            "fused_cf_attention backward, stage 3 (products)")
+
+    return scratch, grads, (base_stage, rows, sums, products)
+
+
 def backward_kernel(args, dout, d):
     """K5b: the cotangents of the nine inputs ``args`` for ``dout``
-    (B, N, h), in the inputs' order and shapes."""
+    (B, N, h), in the inputs' order and shapes.
+
+    The four kernels are joined by scratch, each a fresh ``torch.empty``;
+    the largest is the (B, N, N, h) float32 d_fc, 838.9 MB at the main
+    path's B = 1024, N = 20, h = 512 (4·B·N²·h bytes), beside the base
+    products and d_num (8·B·H·N·h and 4·B·H·N·h bytes: 335.5 and 167.8 MB),
+    the terms and score scratch (28·B·H·N² bytes, 45.9 MB) and a (B, h)
+    d_bias partial. Tensors that are not CUDA, and shapes ``_check``
+    refuses, raise before any launch.
+    """
+    if args[0].device.type != "cuda":
+        raise ValueError("fused_cf_attention backward: the kernels take CUDA "
+                         "tensors; on the CPU the gradient is autograd of cf_reference")
     B, N, H, h = _check(args)
     dout = dout.contiguous()
     if tuple(dout.shape) != (B, N, h):
         raise ValueError(f"fused_cf_attention: dout must be {(B, N, h)}, "
                          f"got {tuple(dout.shape)}")
     _check_layout("dout", dout, args[0].device)
-    grads = [torch.empty_like(t) for t in args]
-    dev = dout.device
-    bias_part = torch.empty((B, h), dtype=torch.float32, device=dev)
-    num = torch.empty((B, H, N, h), dtype=torch.float32, device=dev)
-    d_num = torch.empty((B, H, N, h), dtype=torch.float32, device=dev)
-    err = _cuda.library("cf_attention").cf_attention_bwd_launch(
-        *_ptrs(args), dout.data_ptr(), *_ptrs(grads), bias_part.data_ptr(),
-        num.data_ptr(), d_num.data_ptr(), B, N, H, h, math.sqrt(d),
-        _cuda.stream_ptr(dout))
-    _cuda.check(err, "fused_cf_attention backward")
+    _, grads, stages = _stage_calls(args, dout, d, B, N, H, h)
+    for launch in stages:
+        launch()
     _cuda.launches["fused_cf_attention_bwd"] += 1
     return grads
 

@@ -59,61 +59,71 @@
 // ── Backward (K5b) ────────────────────────────────────────────────────────
 // Given dout (B, N, h): d_y = dout[b, I] / N on every row n of I, and
 //   d_fc = rstd * ((d_y - mean(d_y)) - y * mean(d_y * y)).
-// Per head, with dctx = d_fc / Z (the row's own partition, Z2 on n = I):
-//   dZ       = -sum_o ctx * dctx,   d_zc = sum_o dctx wa[I] + dZ,
-//   d_Eas    = sum_o dctx dws[I] + d_zc,
-//   d_num[n] = sum_{I != n} dctx[n, I]         (the base product's cotangent)
-//   d_Eaa[n, m] = -d_zc[n, m] + sum_I dZ[n, I] + sum_o d_num[n, o] wa[m, o]
-//   d_wa[m]  = sum_n corr[n, m] dctx[n, m] + sum_n E_aa[n, m] d_num[n]
-//              + sum_I E_sa[I, m] dctx[I, I]
-//   d_dws[I] = sum_n rep[n, I] dctx[n, I]
-//   d_Esa[I, m] = dZ2[I] - (m == I) d_zc2[I] + sum_o dctx[I, I, o] wa[m, o]
-// (corr is zc or zc2, rep is E_as or E_ss), and dS = E * d_E / sqrt(d) for
-// each of the four score tensors (the row maxes are constants, as in
-// jax.nn.softmax). d_xa[n] = sum_I d_fc[n, I], d_delta[I] = d_fc[I, I],
-// d_bias = sum over b, I, n of d_fc.
+// Per head, with dctx = d_fc / Z (the row's own partition, Z2 on n = I), each
+// of the three sums over o that the chain needs is a dot product of the row
+// d_fc[n, I] with one vector of the head:
+//   A  = d_fc[n, I] . num[n]  (num2[I] on n = I),
+//   Bv = d_fc[n, I] . wa[I],   C = d_fc[n, I] . dws[I],
+// and then
+//   dZ = -((A + corr Bv) + rep C) / Z / Z,  d_zc = Bv / Z + dZ,
+//   d_E = C / Z + d_zc                      (d_Eas, or d_Ess on n = I),
+//   d_num[n] = sum_{I != n} d_fc[n, I] / Z[n, I],
+//   d_Eaa[n, m] = (-d_zc[n, m] (m != n) + sum_{I != n} dZ[n, I])
+//                 + d_num[n] . wa[m],
+//   d_Esa[I, m] = (dZ2[I] - (m == I) d_zc2[I]) + dU2[I] . wa[m],
+//                 dU2[I] = d_fc[I, I] / Z2[I],
+//   d_wa[m]  = sum_n corr[n, m] / Z[n, m] d_fc[n, m]
+//              + sum_n E_aa[n, m] d_num[n] + sum_J E_sa[J, m] dU2[J],
+//   d_dws[I] = sum_n rep[n, I] / Z[n, I] d_fc[n, I]
+// (corr is zc or zc2, rep is E_as or E_ss, Z is Z or Z2 by the row), and
+// dS = E * d_E / sqrt(d) for each of the four score tensors (the row maxes
+// are constants, as in jax.nn.softmax; dS_as is 0 on n = I).
+// d_xa[n] = sum_I d_fc[n, I], d_delta[I] = d_fc[I, I], d_bias = sum over b,
+// I, n of d_fc.
 //
-// What bounds it: ~29 GFLOP (~0.43 ms at 67 TFLOP/s) against ~0.92 GB of
+// What bounds it: ~29 GFLOP (~0.44 ms at 67 TFLOP/s) against ~0.92 GB of
 // inputs and cotangents (~0.28 ms at 3.35 TB/s): operations
-// (chip_smoke._cf_backward_work).
+// (chip_smoke._cf_backward_work). The staged route below also moves its
+// scratch through device memory: the (B, N, N, h) d_fc written by stage 1
+// and read by stage 2, the base products and d_num: ~4.4 GB in all, ~1.32 ms
+// of bandwidth (chip_smoke._cf_backward_stage_work; stage 1 also reads its
+// own rows of d_fc back, from L2).
 //
 // Design: the TPU kernel walks groups in one sequential grid and carries
-// d_bias from step to step; blocks on Hopper run in no order, and the sums
-// over I (d_xa, d_num, the sum of dZ), over n (d_wa, d_dws) and the
-// contractions over o all cross a (b, I) split. So one block owns a group b:
-//   0. the softmax terms of the whole group (E_aa, E_as, E_sa as H*N*N
-//      arrays, Z_b, E_ss, zc2, Z2) go to shared memory; each thread writes
-//      the base product num_h[n] = sum_m E_aa[n, m] wa_h[m] of every head
-//      and row in its own columns to a (B, H, N, h) scratch, once per group,
-//      and zeroes its columns of the d_num scratch;
-//   1. for each I, kRowsB rows at a time: pass 1 rebuilds fc from num (row I
-//      from E_sa[I, :] wa_h, computed at the start of I into shared memory),
-//      LayerNorm and d_fc follow as in K3b; pass 2 walks the heads again,
-//      rebuilds each head's ctx rows, and takes the three dot products over
-//      o of each row (block reductions); d_num, d_xa, and this I's rows of
-//      d_wa and d_dws accumulate in device memory in the thread's own
-//      columns; the scalar cotangents of the rows go straight to dS_as and
-//      dS_ss, or to shared memory (d_Eaa, sum of dZ);
-//   2. at the end of I, the N dot products of dctx[I, I] with the rows of
-//      wa_h give row I of dS_sa (one thread per head and row of wa_h);
-//   3. after the loop: d_wa_h[m] gains E_aa^T d_num and E_sa^T dctx[I, I]
-//      (dctx[I, I] = d_delta[I] / Z2[I], recomputed bit for bit), and
-//      d_Eaa's contraction over o is taken with d_num staged in shared
-//      memory, one thread per row of wa_h, as in K3b's step 3.
-// No other thread touches a thread's columns, so the sums in device memory
-// need no atomics. d_bias sums over n within each I, then over I, per group;
-// a second small kernel sums the (B, h) partials over b in runs of 32.
-// Every sum has a fixed order: the result is the same on every run. fc never
-// reaches device memory.
-//
-// What the H100 showed (scripts/time_cf_backward.py, PERF.md): the kernel is
-// bound neither by arithmetic nor by bandwidth but by latency. Each thread's
-// loads from the scratch miss L2 (the 396 resident groups hold ~250 MB), so
-// the row loops are written without branches and issue each chunk's loads
-// together before the arithmetic; fewer resident blocks were slower, not
-// faster. The body is also long (some 14,000 instructions), and the step that
-// replaced a 32-wide unrolled block reduction by one loop per (head, row)
-// gained the most.
+// d_bias from step to step; blocks on Hopper run in no order. The backward is
+// cut at d_fc into four kernels whose sums all lie inside a block, joined by
+// scratch in device memory, launched in this order on one stream:
+//   0. base (cf_bwd_base_kernel), one block per (b, head): the softmax terms
+//      of the group and head, laid out per (n, I) as the rows need them
+//      (terms: E_aa, E_sa, corr, rep, Z), and the base products
+//      num = E_aa wa_h and num2 = E_sa wa_h (base), each once.
+//   1. rows (cf_bwd_rows_kernel), one block per (b, I), b-major, four warps:
+//      a warp owns a whole row (n, I), 16 columns a lane, so every sum over o
+//      (the LayerNorm statistics and the 3 H dot products) is a sum over one
+//      warp's shuffles, with no barrier. It rebuilds fc as
+//      sum_h num_h / Z + R + x_a (+ delta on n = I), R = bias +
+//      sum_h (corr / Z) wa_h[I] + (rep / Z) dws_h[I], from the base products
+//      and the block's rows wa_h[I], dws_h[I] staged in shared memory; takes
+//      the LayerNorm backward; stores d_fc; and turns the dot products into
+//      the row's scalar cotangents: dS_as, dS_ss, and -d_zc and dZ (on the
+//      diagonal -d_zc2 and dZ2) into a (B, H, 2, N, N) scratch. After one
+//      barrier each thread sums its columns of the block's rows of d_fc over
+//      n, read back from L2: d_dws[b, :, I], the first term of d_wa[b, :, I]
+//      (stored in d_wa, completed by stage 3), and d_delta. fc never reaches
+//      device memory. 128 registers and ~18 KB of shared memory a block let
+//      four blocks share an SM; the rows were held in shared memory in an
+//      earlier form, which fitted three and was slower (PERF.md).
+//   2. sums (cf_bwd_sums_kernel), one block per group: streams d_fc[b] once;
+//      each thread sums its columns over I into d_num (every head, to a
+//      scratch) and d_xa, and d_xa over n into a (B, h) d_bias partial;
+//      sum_over_groups_kernel then sums the partials over b.
+//   3. products (cf_bwd_products_kernel), one block of 256 threads per
+//      (b, head): wa_h and d_num (then dU2) staged in shared memory; the
+//      (N x h)(h x N) products d_num wa_h^T and dU2 wa_h^T give dS_aa and
+//      dS_sa, 2 outputs a thread; E_aa^T d_num and E_sa^T dU2 complete d_wa.
+// No atomics; every sum has a fixed order, so two calls give the same bits.
+// Where a sum needs a value that another block of the same stage makes, it
+// waits for the next stage.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -122,9 +132,7 @@ namespace {
 
 constexpr int kCols = 4;    // output columns per thread (float4)
 constexpr int kRows = 10;   // fc rows per pass in the forward
-constexpr int kRowsB = 5;   // fc rows per pass in the backward
-constexpr int kM = 10;      // rows of d_wa updated per batch in step 3
-constexpr int kMaxN = 32;   // agents per group the backward takes
+constexpr int kMaxN = 32;   // agents per group the kernels take
 constexpr float kLnEps = 1e-5f;
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
 
@@ -390,430 +398,544 @@ __global__ void cf_fwd_kernel(
 
 // ── backward ───────────────────────────────────────────────────────────────
 
-// The group's softmax terms in shared memory (step 0 of the backward).
-struct GroupTerms {
-  const float* Eaa;  // [head][n][m]
-  const float* Eas;  // [head][n][m]
-  const float* Esa;  // [head][I][m]
-  const float* Zb;   // [head][n]
-  const float* Ess;  // [head][I]
-  const float* zc2;  // [head][I]
-  const float* Z2;   // [head][I]
-};
+constexpr int kMaxH = 4;          // heads the backward takes
+constexpr int kMaxCols = 512;     // columns h the backward takes
+constexpr int kLaneChunks = kMaxCols / (32 * kCols);  // float4s of a row a lane
+constexpr int kBwdThreads = 128;  // threads of a base, rows or sums block
+constexpr int kBaseRows = 10;     // base-product rows per pass over wa_h
+constexpr int kM = 10;            // rows of d_wa per pass in stage 3
 
-// corr, rep and Z of row n of head hh for counterfactual I (the forward's
-// s_corr, s_rep and s_Z, computed with the same operations). Selects, not
-// branches, so that the callers' loads of several rows issue together.
-__device__ inline void row_terms(const GroupTerms& g, int hh, int n, int I,
-                                 int N, float& corr, float& rep, float& Z) {
-  const int t = hh * N + n;
-  const bool diag = n == I;
-  const float eas = g.Eas[t * N + I];
-  const float zc = eas - g.Eaa[t * N + I];
-  corr = diag ? g.zc2[t] : zc;
-  rep = diag ? g.Ess[t] : eas;
-  Z = diag ? g.Z2[t] : g.Zb[t] + zc;
+// The per-(n, I) softmax terms of one (b, head), each N x N, in the terms
+// scratch (B, H, kTerms, N, N): E_aa[n, m], E_sa[I, m], and corr, rep and Z
+// of row n of counterfactual I (zc, E_as and Z_b + zc; zc2, E_ss and Z2 on
+// n = I).
+enum { kEaa = 0, kEsa, kCorr, kRep, kZ, kTerms };
+
+__device__ inline float4 scale4(float4 a, float s) {
+  return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
 }
 
-// This thread's columns of the base product of row n of head hh for
-// counterfactual I: num_h[n] in the scratch, or for n == I the row
-// E_sa[I, :] wa_h in shared memory.
-__device__ inline const float* num_row(const float* num, const float* s_big,
-                                       size_t hb, int hh, int n, int I, int h,
-                                       int o0) {
-  return n == I ? s_big + hh * h + o0 : num + (hb + n) * h + o0;
+__device__ inline float sum4(float4 a) { return ((a.x + a.y) + a.z) + a.w; }
+
+__device__ inline float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
 }
 
-// Offset (in floats) of the float4-aligned area after the scalar arrays.
-__host__ __device__ inline int bwd_big_offset(int N, int H) {
-  return (4 * H * N * N + 5 * H * N + 2 * H + 3) & ~3;
+// Sums each of the 3 * kMaxH values v over the warp's 32 lanes, halving the
+// values at each of the first two exchanges: lane L ends with the sums of
+// v[3 hh .. 3 hh + 2] for hh = L / 8 (the three dot products of head hh).
+static_assert(kMaxH == 4, "warp_sum_heads splits four heads over lane bits 4, 3");
+__device__ inline void warp_sum_heads(const float (&v)[3 * kMaxH],
+                                      float (&out)[3]) {
+  const bool p = threadIdx.x & 16, q = threadIdx.x & 8;
+  float half[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const float send = p ? v[i] : v[i + 6];
+    half[i] = (p ? v[i + 6] : v[i]) + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float send = q ? half[i] : half[i + 3];
+    out[i] = (q ? half[i + 3] : half[i]) + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) out[i] += __shfl_xor_sync(0xffffffffu, out[i], off);
 }
 
-__global__ void cf_bwd_kernel(
+// ── Backward, stage 0: softmax terms and base products of one (b, head) ───
+
+__global__ void __launch_bounds__(kBwdThreads) cf_bwd_base_kernel(
     const float* __restrict__ S_aa, const float* __restrict__ S_as,
     const float* __restrict__ S_sa, const float* __restrict__ S_ss,
+    const float* __restrict__ wa, float* __restrict__ terms,
+    float* __restrict__ base, int N, int h, float sqrt_d) {
+  extern __shared__ float smem[];
+  const int NN = N * N;
+  float* s_E = smem;            // [2N][N]: E_aa rows n, then E_sa rows I
+  float* s_Eas = s_E + 2 * NN;  // [N][N]
+  float* s_zb = s_Eas + NN;     // [N]: Z_b[n]
+  float* s_ess = s_zb + N;      // [N]: E_ss[I]
+  float* s_zc2 = s_ess + N;     // [N]: zc2[I]
+  float* s_z2 = s_zc2 + N;      // [N]: Z2[I]
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * N;  // (b, head, 0)
+
+  // the forward's softmax terms, one thread per row n (and diagonal row I = n)
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const float* aa = S_aa + (row0 + n) * N;
+    const float* as = S_as + (row0 + n) * N;
+    const float M = off_max(aa, as, N, sqrt_d);
+    s_zb[n] = off_row(aa, as, N, sqrt_d, M, s_E + n * N, s_Eas + n * N);
+    float ess;
+    const float z = diag_row(S_sa + (row0 + n) * N, S_ss[row0 + n], N, sqrt_d,
+                             s_E + NN + n * N, &ess);
+    const float zc2 = ess - s_E[NN + n * N + n];
+    s_ess[n] = ess;
+    s_zc2[n] = zc2;
+    s_z2[n] = z + zc2;
+  }
+  __syncthreads();
+  float* t = terms + static_cast<size_t>(blockIdx.x) * kTerms * NN;
+  for (int k = threadIdx.x; k < NN; k += blockDim.x) {
+    const int n = k / N, I = k % N;
+    const bool diag = n == I;
+    const float eas = s_Eas[k];
+    const float zc = eas - s_E[k];
+    t[kEaa * NN + k] = s_E[k];
+    t[kEsa * NN + k] = s_E[NN + k];
+    t[kCorr * NN + k] = diag ? s_zc2[n] : zc;
+    t[kRep * NN + k] = diag ? s_ess[n] : eas;
+    t[kZ * NN + k] = diag ? s_z2[n] : s_zb[n] + zc;
+  }
+  // base (B, H, 2N, h): rows n of E_aa wa_h, then rows I of E_sa wa_h
+  const int o0 = threadIdx.x * kCols;
+  if (o0 >= h) return;
+  const float* wa_h = wa + row0 * h;
+  float* out = base + 2 * row0 * h;
+  for (int r0 = 0; r0 < 2 * N; r0 += kBaseRows) {
+    const float* rows[kBaseRows];
+#pragma unroll
+    for (int r = 0; r < kBaseRows; ++r) rows[r] = s_E + min(r0 + r, 2 * N - 1) * N;
+    float4 acc[kBaseRows];
+    base_product(acc, rows, wa_h, N, h, o0);
+#pragma unroll
+    for (int r = 0; r < kBaseRows; ++r)
+      if (r0 + r < 2 * N) store4(out + static_cast<size_t>(r0 + r) * h + o0, acc[r]);
+  }
+}
+
+// ── Backward, stage 1: the rows of one (b, I) ─────────────────────────────
+
+__global__ void __launch_bounds__(kBwdThreads, 4) cf_bwd_rows_kernel(
+    const float* __restrict__ terms, const float* __restrict__ base,
     const float* __restrict__ wa, const float* __restrict__ dws,
     const float* __restrict__ x_a, const float* __restrict__ delta,
     const float* __restrict__ bias, const float* __restrict__ dout,
-    float* __restrict__ dS_aa, float* __restrict__ dS_as,
-    float* __restrict__ dS_sa, float* __restrict__ dS_ss,
-    float* __restrict__ d_wa, float* __restrict__ d_dws,
-    float* __restrict__ d_xa, float* __restrict__ d_delta,
-    float* __restrict__ d_bias_part, float* __restrict__ num,
-    float* __restrict__ d_num, int N, int H, int h, float sqrt_d) {
+    float* __restrict__ d_fc, float* __restrict__ dS_as,
+    float* __restrict__ dS_ss, float* __restrict__ d_wa,
+    float* __restrict__ d_dws, float* __restrict__ d_delta,
+    float* __restrict__ d_scores, int N, int H, int h, float sqrt_d) {
   extern __shared__ float smem[];
-  const int HN = H * N, HNN = HN * N;
-  float* s_Eaa = smem;            // [head][n][m]
-  float* s_Eas = s_Eaa + HNN;     // [head][n][m]
-  float* s_Esa = s_Eas + HNN;     // [head][I][m]
-  float* s_dEaa = s_Esa + HNN;    // -d_zc at (n, m = I), 0 on n = m
-  float* s_Zb = s_dEaa + HNN;     // [head][n]
-  float* s_Ess = s_Zb + HN;       // [head][I]
-  float* s_zc2 = s_Ess + HN;      // [head][I]
-  float* s_Z2 = s_zc2 + HN;       // [head][I]
-  float* s_dZ = s_Z2 + HN;        // [head][n]: sum over I of dZ[n, I]
-  float* s_diag = s_dZ + HN;      // [head][2]: dZ2[I], d_zc2[I] of this I
-  // in the loop over I: H rows of h, the base products E_sa[I, :] wa_h of
-  // this I; after it: N rows of h, d_num of one head
-  float* s_big = smem + bwd_big_offset(N, H);
-  float* s_red = s_big + max(H, N) * h;  // (blockDim / 32) * kMaxN
-  const GroupTerms g{s_Eaa, s_Eas, s_Esa, s_Zb, s_Ess, s_zc2, s_Z2};
+  const int HN = H * N, NN = N * N;
+  float* s_v = smem;              // [2H][h]: wa_h[I], dws_h[I] of every head
+  float* s_bias = s_v + 2 * H * h;  // [h]
+  float* s_corr = s_bias + h;     // [H][N], column I of each term
+  float* s_rep = s_corr + HN;
+  float* s_Z = s_rep + HN;
+  float* s_rz = s_Z + HN;         // 1 / Z
+  float* s_wz = s_rz + HN;        // corr / Z
+  float* s_wr = s_wz + HN;        // rep / Z
 
-  const int b = blockIdx.x;
-  const int o0 = threadIdx.x * kCols;
-  const bool owns = o0 < h;
-  const size_t gb = static_cast<size_t>(b) * HN;  // row (b, head 0, n = 0)
+  const int b = blockIdx.x / N, I = blockIdx.x % N;
+  const size_t bI = static_cast<size_t>(b) * N + I;
+  const size_t bh0 = static_cast<size_t>(b) * H;  // (b, head 0)
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int nwarps = blockDim.x / 32, h4 = h / kCols;
+  const float rows = static_cast<float>(N), cols = static_cast<float>(h);
 
-  // 0. the group's softmax terms, one thread per (head, row)
-  for (int t = threadIdx.x; t < HN; t += blockDim.x) {
-    const int n = t % N;
-    const size_t row = gb + t;
-    const float* aa = S_aa + row * N;
-    const float* as = S_as + row * N;
-    const float M = off_max(aa, as, N, sqrt_d);
-    s_Zb[t] = off_row(aa, as, N, sqrt_d, M, s_Eaa + t * N, s_Eas + t * N);
-    float ess;
-    const float z = diag_row(S_sa + row * N, S_ss[row], N, sqrt_d,
-                             s_Esa + t * N, &ess);
-    const float zc2 = ess - s_Esa[t * N + n];
-    s_Ess[t] = ess;
-    s_zc2[t] = zc2;
-    s_Z2[t] = z + zc2;
-    s_dZ[t] = 0.f;
-    for (int m = 0; m < N; ++m) s_dEaa[t * N + m] = 0.f;
-  }
-  __syncthreads();
-
-  // ... and the base products num_h[n] = sum_m E_aa[n, m] wa_h[m] of every
-  // head and row, in this thread's columns; d_num starts at zero
-  if (owns) {
-    for (int hh = 0; hh < H; ++hh) {
-      const size_t hb = gb + hh * N;
-      for (int n0 = 0; n0 < N; n0 += kRowsB) {
-        const float* base[kRowsB];
+  // the rows wa_h[I], dws_h[I] of every head, and bias, to shared memory
+  // (loaded first, so that their loads overlap those of the terms)
+  const int c = threadIdx.x;
+  float4 v_in[2 * kMaxH + 1];
+  if (c < h4) {
 #pragma unroll
-        for (int r = 0; r < kRowsB; ++r)
-          base[r] = s_Eaa + (hh * N + min(n0 + r, N - 1)) * N;
-        float4 acc[kRowsB];
-        base_product(acc, base, wa + hb * h, N, h, o0);
-#pragma unroll
-        for (int r = 0; r < kRowsB; ++r) {
-          if (n0 + r < N) {
-            const size_t at = (hb + n0 + r) * h + o0;
-            store4(num + at, acc[r]);
-            store4(d_num + at, zero4());
-          }
-        }
-      }
+    for (int hh = 0; hh < kMaxH; ++hh) {
+      const size_t at = ((bh0 + hh) * N + I) * h + c * kCols;
+      v_in[2 * hh] = hh < H ? load4(wa + at) : zero4();
+      v_in[2 * hh + 1] = hh < H ? load4(dws + at) : zero4();
     }
+    v_in[2 * kMaxH] = load4(bias + c * kCols);
+  }
+  for (int k = threadIdx.x; k < HN; k += blockDim.x) {
+    const int hh = k / N, n = k % N;
+    const float* t = terms + (bh0 + hh) * kTerms * NN + n * N + I;
+    const float corr = t[kCorr * NN], rep = t[kRep * NN], Z = t[kZ * NN];
+    s_corr[k] = corr;
+    s_rep[k] = rep;
+    s_Z[k] = Z;
+    s_rz[k] = 1.0f / Z;
+    s_wz[k] = corr / Z;
+    s_wr[k] = rep / Z;
+  }
+  if (c < h4) {
+#pragma unroll
+    for (int hh = 0; hh < kMaxH; ++hh) {
+      if (hh >= H) continue;
+      store4(s_v + (2 * hh) * h + c * kCols, v_in[2 * hh]);
+      store4(s_v + (2 * hh + 1) * h + c * kCols, v_in[2 * hh + 1]);
+    }
+    store4(s_bias + c * kCols, v_in[2 * kMaxH]);
   }
 
-  const float rows = static_cast<float>(N);
-  const float4 bi = owns ? load4(bias + o0) : zero4();
-  float4 bias_acc = zero4();
-
-  for (int I = 0; I < N; ++I) {
-    const size_t bI = static_cast<size_t>(b) * N + I;
-    __syncthreads();  // the previous I is done with s_diag, s_big and s_red
-
-    // base products of the rows n = I: E_sa[I, :] wa_h, one per head
-    if (owns) {
-      for (int hh = 0; hh < H; ++hh) {
-        const float* base[1] = {s_Esa + (hh * N + I) * N};
-        float4 acc[1];
-        base_product(acc, base, wa + (gb + hh * N) * h, N, h, o0);
-        store4(s_big + hh * h + o0, acc[0]);
-      }
-    }
-    float4 dl = zero4(), go = zero4();
-    if (owns) {
-      dl = load4(delta + bI * h + o0);
-      go = load4(dout + bI * h + o0);
-    }
+  // this lane's columns: the float4s c = lane + 32 k, k < kLaneChunks
+  bool valid[kLaneChunks];
+  float4 dy[kLaneChunks];
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < kLaneChunks; ++k) {
+    valid[k] = lane + 32 * k < h4;
     // pool backward: every row n of I gets dout[b, I] / N
-    const float4 dy = make_float4(go.x / rows, go.y / rows, go.z / rows,
-                                  go.w / rows);
-    float m1[1] = {owns ? ((dy.x + dy.y) + dy.z) + dy.w : 0.f};
-    block_sum(m1, s_red);
-    const float mean_dy = m1[0] / static_cast<float>(h);
-    float4 ddiag = zero4();   // d_fc[I, I] in this thread's columns
-    float4 bias_I = zero4();  // sum over n of d_fc[n, I]
+    const float4 go = valid[k] ? load4(dout + bI * h + (lane + 32 * k) * kCols) : zero4();
+    dy[k] = make_float4(go.x / rows, go.y / rows, go.z / rows, go.w / rows);
+    s += sum4(dy[k]);
+  }
+  const float mean_dy = warp_sum(s) / cols;
+  __syncthreads();  // the terms of I, wa_h[I], dws_h[I] and bias are in shared memory
 
-    // 1. rows n0 .. n0 + kRowsB - 1 of I
-    for (int n0 = 0; n0 < N; n0 += kRowsB) {
-      // pass 1: fc
-      float4 fc[kRowsB];
+  for (int n = warp; n < N; n += nwarps) {
+    const bool diag = n == I;
+    // fc[n, I] = sum over heads of num_h / Z + R + x_a[n] (+ delta[I]), with
+    // R = bias + sum over heads of (corr / Z) wa_h[I] + (rep / Z) dws_h[I]
+    float4 f[kLaneChunks], nm[kMaxH][kLaneChunks];
 #pragma unroll
-      for (int r = 0; r < kRowsB; ++r) fc[r] = zero4();
-      if (owns) {
-        for (int hh = 0; hh < H; ++hh) {
-          const size_t hb = gb + hh * N;
-          const float4 waI = load4(wa + (hb + I) * h + o0);
-          const float4 dwsI = load4(dws + (hb + I) * h + o0);
-          float4 nm[kRowsB];
+    for (int k = 0; k < kLaneChunks; ++k) f[k] = zero4();
 #pragma unroll
-          for (int r = 0; r < kRowsB; ++r)
-            nm[r] = load4(num_row(num, s_big, hb, hh, min(n0 + r, N - 1), I,
-                                  h, o0));
+    for (int hh = 0; hh < kMaxH; ++hh) {
+      const float rz = hh < H ? s_rz[hh * N + n] : 0.f;
+      const float* row = base + (2 * (bh0 + hh) * N + (diag ? N + I : n)) * h;
 #pragma unroll
-          for (int r = 0; r < kRowsB; ++r) {
-            float corr, rep, Z;
-            row_terms(g, hh, min(n0 + r, N - 1), I, N, corr, rep, Z);
-            fc[r] = add4(fc[r], ctx_row(nm[r], corr, rep, Z, waI, dwsI));
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kRowsB; ++r) {
-          const int n = min(n0 + r, N - 1);
-          const float4 xa =
-              load4(x_a + (static_cast<size_t>(b) * N + n) * h + o0);
-          fc[r] = residual(fc[r], xa, bi, dl, n == I);
-        }
-      }
-      // d_xa so far, loaded before the reductions hide the latency
-      float4 xa_sum[kRowsB];
-#pragma unroll
-      for (int r = 0; r < kRowsB; ++r)
-        xa_sum[r] = (owns && I > 0)
-                        ? load4(d_xa + (static_cast<size_t>(b) * N +
-                                        min(n0 + r, N - 1)) * h + o0)
-                        : zero4();
-      // LayerNorm backward; fc becomes y, then d_fc
-      float rstd[kRowsB], stat[kRowsB];
-      center_rows(fc, rstd, owns, h, s_red);
-#pragma unroll
-      for (int r = 0; r < kRowsB; ++r) {
-        fc[r].x *= rstd[r];
-        fc[r].y *= rstd[r];
-        fc[r].z *= rstd[r];
-        fc[r].w *= rstd[r];
-        stat[r] = owns ? dot4(dy, fc[r]) : 0.f;
-      }
-      block_sum(stat, s_red);
-#pragma unroll
-      for (int r = 0; r < kRowsB; ++r) {
-        const float m2 = stat[r] / static_cast<float>(h);
-        fc[r].x = rstd[r] * ((dy.x - mean_dy) - fc[r].x * m2);
-        fc[r].y = rstd[r] * ((dy.y - mean_dy) - fc[r].y * m2);
-        fc[r].z = rstd[r] * ((dy.z - mean_dy) - fc[r].z * m2);
-        fc[r].w = rstd[r] * ((dy.w - mean_dy) - fc[r].w * m2);
-      }
-      if (owns) {
-#pragma unroll
-        for (int r = 0; r < kRowsB; ++r) {
-          const int n = n0 + r;
-          if (n < N) {
-            const size_t at = (static_cast<size_t>(b) * N + n) * h + o0;
-            store4(d_xa + at, add4(xa_sum[r], fc[r]));
-            bias_I = add4(bias_I, fc[r]);
-            if (n == I) {
-              store4(d_delta + bI * h + o0, fc[r]);
-              ddiag = fc[r];
-            }
-          }
-        }
-      }
-
-      // pass 2: per head, the three dot products over o of every row
-      for (int hh = 0; hh < H; ++hh) {
-        const size_t hb = gb + hh * N;
-        float part[3 * kRowsB];
-#pragma unroll
-        for (int k = 0; k < 3 * kRowsB; ++k) part[k] = 0.f;
-        if (owns) {
-          // every load of the rows first, then the arithmetic (rows past N
-          // repeat row N - 1 and add nothing)
-          const size_t at_I = (hb + I) * h + o0;
-          const float4 waI = load4(wa + at_I);
-          const float4 dwsI = load4(dws + at_I);
-          float4 nm[kRowsB], dn[kRowsB];
-#pragma unroll
-          for (int r = 0; r < kRowsB; ++r) {
-            const int n = min(n0 + r, N - 1);
-            nm[r] = load4(num_row(num, s_big, hb, hh, n, I, h, o0));
-            dn[r] = load4(d_num + (hb + n) * h + o0);
-          }
-          // this I's rows of d_wa and d_dws so far
-          const float4 gw0 = n0 == 0 ? zero4() : load4(d_wa + at_I);
-          const float4 gd0 = n0 == 0 ? zero4() : load4(d_dws + at_I);
-          float4 gw = zero4(), gd = zero4();
-#pragma unroll
-          for (int r = 0; r < kRowsB; ++r) {
-            const int n = min(n0 + r, N - 1);
-            const bool row = n0 + r < N;
-            float corr, rep, Z;
-            row_terms(g, hh, n, I, N, corr, rep, Z);
-            const float4 cx = ctx_row(nm[r], corr, rep, Z, waI, dwsI);
-            const float4 dc = make_float4(fc[r].x / Z, fc[r].y / Z,
-                                          fc[r].z / Z, fc[r].w / Z);
-            part[3 * r] = row ? dot4(cx, dc) : 0.f;
-            part[3 * r + 1] = row ? dot4(dc, waI) : 0.f;
-            part[3 * r + 2] = row ? dot4(dc, dwsI) : 0.f;
-            const float cw = row ? corr : 0.f, cd = row ? rep : 0.f;
-            gw.x += cw * dc.x;
-            gw.y += cw * dc.y;
-            gw.z += cw * dc.z;
-            gw.w += cw * dc.w;
-            gd.x += cd * dc.x;
-            gd.y += cd * dc.y;
-            gd.z += cd * dc.z;
-            gd.w += cd * dc.w;
-            if (row && n != I)
-              store4(d_num + (hb + n) * h + o0, add4(dn[r], dc));
-          }
-          store4(d_wa + at_I, add4(gw0, gw));
-          store4(d_dws + at_I, add4(gd0, gd));
-        }
-        block_sum(part, s_red);
-        // the scalar cotangents of the rows, one thread per row
-#pragma unroll
-        for (int r = 0; r < kRowsB; ++r) {
-          const int n = n0 + r;
-          if (threadIdx.x == r && n < N) {
-            const int t = hh * N + n;
-            const size_t row = hb + n;
-            const float dZ = -part[3 * r];
-            const float d_zc = part[3 * r + 1] + dZ;
-            const float d_E = part[3 * r + 2] + d_zc;
-            if (n != I) {
-              s_dEaa[t * N + I] = -d_zc;
-              s_dZ[t] += dZ;
-              dS_as[row * N + I] = (s_Eas[t * N + I] * d_E) / sqrt_d;
-            } else {
-              dS_as[row * N + I] = 0.f;
-              dS_ss[row] = (s_Ess[t] * d_E) / sqrt_d;
-              s_diag[2 * hh] = dZ;
-              s_diag[2 * hh + 1] = d_zc;
-            }
-          }
-        }
+      for (int k = 0; k < kLaneChunks; ++k) {
+        const int o = (lane + 32 * k) * kCols;
+        nm[hh][k] = (hh < H && valid[k]) ? load4(row + o) : zero4();
+        f[k] = make_float4(f[k].x + nm[hh][k].x * rz, f[k].y + nm[hh][k].y * rz,
+                           f[k].z + nm[hh][k].z * rz, f[k].w + nm[hh][k].w * rz);
       }
     }
-    bias_acc = add4(bias_acc, bias_I);
-
-    // 2. row I of dS_sa: d_Esa[I, m] = dZ2 - (m == I) d_zc2 + dctx[I, I].wa_h[m].
-    //    dctx[I, I] of every head replaces this thread's columns of the base
-    //    products of I in s_big (pass 2 is done with them), and one thread
-    //    per (head, m) takes the product over o.
-    if (owns) {
-      for (int hh = 0; hh < H; ++hh) {
-        const float z2 = s_Z2[hh * N + I];
-        store4(s_big + hh * h + o0, make_float4(ddiag.x / z2, ddiag.y / z2,
-                                                ddiag.z / z2, ddiag.w / z2));
+    s = 0.f;
+#pragma unroll
+    for (int k = 0; k < kLaneChunks; ++k) {
+      if (!valid[k]) continue;
+      const int o = (lane + 32 * k) * kCols;
+      const float4 xa = load4(x_a + (static_cast<size_t>(b) * N + n) * h + o);
+      const float4 dl = diag ? load4(delta + bI * h + o) : zero4();
+      float4 r = load4(s_bias + o);
+#pragma unroll
+      for (int hh = 0; hh < kMaxH; ++hh) {
+        if (hh >= H) continue;
+        const float wz = s_wz[hh * N + n], wr = s_wr[hh * N + n];
+        const float4 w = load4(s_v + (2 * hh) * h + o), u = load4(s_v + (2 * hh + 1) * h + o);
+        r = make_float4((r.x + wz * w.x) + wr * u.x, (r.y + wz * w.y) + wr * u.y,
+                        (r.z + wz * w.z) + wr * u.z, (r.w + wz * w.w) + wr * u.w);
+      }
+      f[k] = residual(add4(f[k], r), xa, zero4(), dl, diag);
+      s += sum4(f[k]);
+    }
+    // LayerNorm backward, two-pass statistics; f becomes xc, y, then d_fc
+    const float mu = warp_sum(s) / cols;
+    s = 0.f;
+#pragma unroll
+    for (int k = 0; k < kLaneChunks; ++k) {
+      f[k] = valid[k] ? make_float4(f[k].x - mu, f[k].y - mu, f[k].z - mu,
+                                    f[k].w - mu)
+                      : zero4();
+      s += dot4(f[k], f[k]);
+    }
+    const float rstd = 1.0f / sqrtf(warp_sum(s) / cols + kLnEps);
+    s = 0.f;
+#pragma unroll
+    for (int k = 0; k < kLaneChunks; ++k) {
+      f[k] = scale4(f[k], rstd);
+      s += dot4(dy[k], f[k]);
+    }
+    const float m2 = warp_sum(s) / cols;
+    float* out = d_fc + (bI * N + n) * h;
+#pragma unroll
+    for (int k = 0; k < kLaneChunks; ++k) {
+      if (!valid[k]) continue;
+      const int o = (lane + 32 * k) * kCols;
+      f[k] = make_float4(rstd * ((dy[k].x - mean_dy) - f[k].x * m2),
+                         rstd * ((dy[k].y - mean_dy) - f[k].y * m2),
+                         rstd * ((dy[k].z - mean_dy) - f[k].z * m2),
+                         rstd * ((dy[k].w - mean_dy) - f[k].w * m2));
+      store4(out + o, f[k]);
+    }
+    // the three dot products of every head (invalid columns hold zeros)
+    float v[3 * kMaxH];
+#pragma unroll
+    for (int hh = 0; hh < kMaxH; ++hh) {
+      v[3 * hh] = v[3 * hh + 1] = v[3 * hh + 2] = 0.f;
+#pragma unroll
+      for (int k = 0; k < kLaneChunks; ++k) {
+        if (hh >= H || !valid[k]) continue;
+        const int o = (lane + 32 * k) * kCols;
+        v[3 * hh] += dot4(f[k], nm[hh][k]);
+        v[3 * hh + 1] += dot4(f[k], load4(s_v + (2 * hh) * h + o));
+        v[3 * hh + 2] += dot4(f[k], load4(s_v + (2 * hh + 1) * h + o));
       }
     }
-    __syncthreads();  // s_diag and s_big hold every head's terms of row I
-    for (int j = threadIdx.x; j < HN; j += blockDim.x) {
-      const int hh = j / N, m = j % N;
-      const float* w = wa + (gb + j) * h;  // row m of wa_h
-      const float* du = s_big + hh * h;
-      float acc = 0.f;
-#pragma unroll 4
-      for (int o = 0; o < h; o += kCols) acc += dot4(load4(du + o), load4(w + o));
-      const int t = hh * N + I;
-      const float dE =
-          (s_diag[2 * hh] - (m == I ? s_diag[2 * hh + 1] : 0.f)) + acc;
-      dS_sa[(gb + t) * N + m] = (s_Esa[t * N + m] * dE) / sqrt_d;
+    float tri[3];
+    warp_sum_heads(v, tri);
+    const int hh = lane / 8;
+    if (lane % 8 == 0 && hh < H) {
+      const int t = hh * N + n;
+      const float Z = s_Z[t], corr = s_corr[t], rep = s_rep[t];
+      const float dZ = -((((tri[0] + corr * tri[1]) + rep * tri[2]) / Z) / Z);
+      const float d_zc = tri[1] / Z + dZ;
+      const float d_E = tri[2] / Z + d_zc;
+      const size_t at = (bh0 + hh) * N + n;  // row (b, hh, n)
+      dS_as[at * N + I] = diag ? 0.f : (rep * d_E) / sqrt_d;
+      if (diag) dS_ss[at] = (rep * d_E) / sqrt_d;
+      float* sc = d_scores + (bh0 + hh) * 2 * NN + n * N + I;
+      sc[0] = -d_zc;  // -d_zc2 on n = I
+      sc[NN] = dZ;    // dZ2 on n = I
     }
   }
-  __syncthreads();  // s_dEaa and s_dZ are complete; s_big is free
+  __syncthreads();  // every row of d_fc is written (a barrier orders the
+                    // block's stores to device memory before its loads)
 
-  // 3. per head: d_wa_h[m] += sum_n E_aa[n, m] d_num[n]
-  //                          + sum_J E_sa[J, m] dctx[J, J],
-  //    then d_Eaa[n, m] = (-d_zc + sum_I dZ) + d_num[n] . wa_h[m]
-  for (int hh = 0; hh < H; ++hh) {
-    const size_t hb = gb + hh * N;
-    if (owns) {
-      for (int m0 = 0; m0 < N; m0 += kM) {
-        float4 acc[kM];
+  // sums over n of this thread's columns of the rows just stored (L2):
+  // d_dws[b, :, I], d_wa's first term, d_delta
+  if (c >= h4) return;
+  const float* rows_I = d_fc + bI * N * h + c * kCols;
+  float4 gw[kMaxH], gd[kMaxH];
 #pragma unroll
-        for (int k = 0; k < kM; ++k)
-          acc[k] = m0 + k < N ? load4(d_wa + (hb + m0 + k) * h + o0) : zero4();
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          const float4 dn = load4(d_num + (hb + n) * h + o0);
-          const float* e = s_Eaa + (hh * N + n) * N + m0;
+  for (int hh = 0; hh < kMaxH; ++hh) gw[hh] = gd[hh] = zero4();
+  for (int n = 0; n < N; ++n) {
+    const float4 dv = load4(rows_I + static_cast<size_t>(n) * h);
 #pragma unroll
-          for (int k = 0; k < kM; ++k) {
-            if (m0 + k < N) {
-              acc[k].x += e[k] * dn.x;
-              acc[k].y += e[k] * dn.y;
-              acc[k].z += e[k] * dn.z;
-              acc[k].w += e[k] * dn.w;
-            }
-          }
-        }
-#pragma unroll 4
-        for (int J = 0; J < N; ++J) {
-          const float z2 = s_Z2[hh * N + J];
-          const float4 dd =
-              load4(d_delta + (static_cast<size_t>(b) * N + J) * h + o0);
-          const float4 du =
-              make_float4(dd.x / z2, dd.y / z2, dd.z / z2, dd.w / z2);
-          const float* e = s_Esa + (hh * N + J) * N + m0;
-#pragma unroll
-          for (int k = 0; k < kM; ++k) {
-            if (m0 + k < N) {
-              acc[k].x += e[k] * du.x;
-              acc[k].y += e[k] * du.y;
-              acc[k].z += e[k] * du.z;
-              acc[k].w += e[k] * du.w;
-            }
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < kM; ++k)
-          if (m0 + k < N) store4(d_wa + (hb + m0 + k) * h + o0, acc[k]);
-      }
-#pragma unroll 4
-      for (int n = 0; n < N; ++n)
-        store4(s_big + n * h + o0, load4(d_num + (hb + n) * h + o0));
+    for (int hh = 0; hh < kMaxH; ++hh) {
+      if (hh >= H) continue;
+      const float wz = s_wz[hh * N + n], wr = s_wr[hh * N + n];
+      gw[hh] = make_float4(gw[hh].x + wz * dv.x, gw[hh].y + wz * dv.y,
+                           gw[hh].z + wz * dv.z, gw[hh].w + wz * dv.w);
+      gd[hh] = make_float4(gd[hh].x + wr * dv.x, gd[hh].y + wr * dv.y,
+                           gd[hh].z + wr * dv.z, gd[hh].w + wr * dv.w);
     }
-    __syncthreads();  // s_big holds d_num of this head
-    for (int m = threadIdx.x; m < N; m += blockDim.x) {
-      const float* w = wa + (hb + m) * h;
-      float acc[kMaxN];
-#pragma unroll
-      for (int n = 0; n < kMaxN; ++n) acc[n] = 0.f;
-      float4 wv_next = load4(w);  // the row's next float4, one step ahead
-      for (int o = 0; o < h; o += kCols) {
-        const float4 wv = wv_next;
-        if (o + kCols < h) wv_next = load4(w + o + kCols);
-#pragma unroll
-        for (int n = 0; n < kMaxN; ++n)
-          if (n < N) acc[n] += dot4(load4(s_big + n * h + o), wv);
-      }
-#pragma unroll
-      for (int n = 0; n < kMaxN; ++n) {
-        if (n < N) {
-          const int t = hh * N + n;
-          const float dE = (s_dEaa[t * N + m] + s_dZ[t]) + acc[n];
-          dS_aa[(hb + n) * N + m] = (s_Eaa[t * N + m] * dE) / sqrt_d;
-        }
-      }
-    }
-    __syncthreads();  // before the next head's d_num replaces s_big
   }
-
-  if (owns) store4(d_bias_part + static_cast<size_t>(b) * h + o0, bias_acc);
+#pragma unroll
+  for (int hh = 0; hh < kMaxH; ++hh) {
+    if (hh >= H) continue;
+    const size_t at = ((bh0 + hh) * N + I) * h + c * kCols;
+    store4(d_wa + at, gw[hh]);
+    store4(d_dws + at, gd[hh]);
+  }
+  store4(d_delta + bI * h + c * kCols, load4(rows_I + static_cast<size_t>(I) * h));
 }
 
-// d_bias[o] = sum over b of part[b, o]: the sums of runs of 32 groups, in
-// order of b, added in order (a fixed order that keeps the rounding of a
-// sum over B * N * N rows near that of a tree).
-__global__ void sum_over_groups_kernel(const float* __restrict__ part,
-                                       float* __restrict__ out, int B, int h) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= h) return;
-  float s = 0.f;
-  for (int b0 = 0; b0 < B; b0 += 32) {
-    float run = 0.f;
-    const int end = min(b0 + 32, B);
-#pragma unroll 8
-    for (int b = b0; b < end; ++b) run += part[static_cast<size_t>(b) * h + o];
-    s += run;
+// ── Backward, stage 2: the sums over I of one group ───────────────────────
+
+__global__ void __launch_bounds__(kBwdThreads) cf_bwd_sums_kernel(
+    const float* __restrict__ terms, const float* __restrict__ d_fc,
+    float* __restrict__ d_num, float* __restrict__ d_xa,
+    float* __restrict__ d_bias_part, int N, int H, int h) {
+  extern __shared__ float smem[];  // [H][n][I]: 1 / Z[n, I], 0 on I = n
+  const int NN = N * N;
+  const int b = blockIdx.x;
+  const size_t bh0 = static_cast<size_t>(b) * H;
+  for (int k = threadIdx.x; k < H * NN; k += blockDim.x) {
+    const int hh = k / NN, nI = k % NN;
+    const float Z = terms[((bh0 + hh) * kTerms + kZ) * NN + nI];
+    smem[k] = nI / N == nI % N ? 0.f : 1.0f / Z;
   }
-  out[o] = s;
+  __syncthreads();
+  const int o = threadIdx.x * kCols;
+  if (o >= h) return;
+  const float* src = d_fc + static_cast<size_t>(b) * NN * h + o;  // [I][n][o]
+  float4 bsum = zero4();
+  for (int n = 0; n < N; ++n) {
+    float4 xa = zero4(), dn[kMaxH];
+#pragma unroll
+    for (int hh = 0; hh < kMaxH; ++hh) dn[hh] = zero4();
+#pragma unroll 4
+    for (int I = 0; I < N; ++I) {
+      const float4 dv = load4(src + static_cast<size_t>(I * N + n) * h);
+      xa = add4(xa, dv);
+#pragma unroll
+      for (int hh = 0; hh < kMaxH; ++hh) {
+        if (hh >= H) continue;
+        const float w = smem[(hh * N + n) * N + I];
+        dn[hh] = make_float4(dn[hh].x + w * dv.x, dn[hh].y + w * dv.y,
+                             dn[hh].z + w * dv.z, dn[hh].w + w * dv.w);
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < kMaxH; ++hh)
+      if (hh < H) store4(d_num + ((bh0 + hh) * N + n) * h + o, dn[hh]);
+    store4(d_xa + (static_cast<size_t>(b) * N + n) * h + o, xa);
+    bsum = add4(bsum, xa);
+  }
+  store4(d_bias_part + static_cast<size_t>(b) * h + o, bsum);
+}
+
+// d_bias[o] = sum over b of part[b, o]: a block of 32 columns x kSumLanes
+// lanes; lane j sums b = j, j + kSumLanes, ... in order, then the lanes'
+// sums are added in order of j (runs of 32 at the main path's B = 1024,
+// which keeps the rounding of the sum near that of a tree).
+constexpr int kSumLanes = 32;
+
+__global__ void __launch_bounds__(32 * kSumLanes) sum_over_groups_kernel(
+    const float* __restrict__ part, float* __restrict__ out, int B, int h) {
+  __shared__ float s_part[kSumLanes][32];
+  const int tx = threadIdx.x % 32, j = threadIdx.x / 32;
+  const int o = blockIdx.x * 32 + tx;
+  float acc = 0.f;
+  if (o < h) {
+#pragma unroll 4
+    for (int b = j; b < B; b += kSumLanes) acc += part[static_cast<size_t>(b) * h + o];
+  }
+  s_part[j][tx] = acc;
+  __syncthreads();
+  if (j == 0 && o < h) {
+    float x = 0.f;
+#pragma unroll
+    for (int k = 0; k < kSumLanes; ++k) x += s_part[k][tx];
+    out[o] = x;
+  }
+}
+
+// ── Backward, stage 3: the products of one (b, head) ──────────────────────
+
+constexpr int kProductThreads = 256;  // threads of a products block
+
+// out(n, m) = x[n] . w[m] over h columns, for n, m < N, from rows staged at
+// a stride of hs floats; each thread takes rows n and n + P of x against
+// row m of w (P = ceil(N / 2); neighbouring threads read neighbouring rows
+// of w, in distinct banks), and hands each output to epilogue(n, m, value).
+template <typename Epilogue>
+__device__ void staged_products(const float* s_x, const float* s_w, int N,
+                                int h, int hs, Epilogue epilogue) {
+  const int P = (N + 1) / 2;
+  for (int t = threadIdx.x; t < P * N; t += blockDim.x) {
+    const int n0 = t / N, m = t % N;
+    const int n1 = min(n0 + P, N - 1);
+    const float* x0 = s_x + n0 * hs;
+    const float* x1 = s_x + n1 * hs;
+    const float* w = s_w + m * hs;
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll 4
+    for (int o = 0; o < h; o += kCols) {
+      const float4 q = load4(w + o);
+      a0 += dot4(load4(x0 + o), q);
+      a1 += dot4(load4(x1 + o), q);
+    }
+    epilogue(n0, m, a0);
+    if (n0 + P < N) epilogue(n0 + P, m, a1);
+  }
+}
+
+// d_wa[b, hh, m] += sum_n E[n, m] u[n] for every m (E an N x N term in
+// shared memory, u staged rows): one thread per 4 columns and kM rows m.
+__device__ void add_transposed_product(float* d_wa_h, const float* s_e,
+                                       const float* s_u, int N, int h, int hs) {
+  const int h4 = h / kCols, jobs = h4 * ((N + kM - 1) / kM);
+  for (int job = threadIdx.x; job < jobs; job += blockDim.x) {
+    const int o = (job % h4) * kCols, m0 = (job / h4) * kM;
+    float4 acc[kM];
+#pragma unroll
+    for (int k = 0; k < kM; ++k)
+      acc[k] = m0 + k < N ? load4(d_wa_h + static_cast<size_t>(m0 + k) * h + o)
+                          : zero4();
+    for (int n = 0; n < N; ++n) {
+      const float4 u = load4(s_u + n * hs + o);
+#pragma unroll
+      for (int k = 0; k < kM; ++k) {
+        const float e = s_e[n * N + min(m0 + k, N - 1)];
+        acc[k] = make_float4(acc[k].x + e * u.x, acc[k].y + e * u.y,
+                             acc[k].z + e * u.z, acc[k].w + e * u.w);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kM; ++k)
+      if (m0 + k < N) store4(d_wa_h + static_cast<size_t>(m0 + k) * h + o, acc[k]);
+  }
+}
+
+// Copies R rows of h floats (src row r at src + r * h) to shared memory at a
+// row stride of hs floats, scaled by scale[r] if scale is not null; each
+// thread has kStageLoads 16-byte loads in flight at a time.
+constexpr int kStageLoads = 8;
+
+__device__ void stage_rows(float* dst, const float* src, const float* scale,
+                           int R, int h, int hs) {
+  const int h4 = h / kCols, total = R * h4;
+  for (int k0 = threadIdx.x; k0 < total; k0 += kStageLoads * blockDim.x) {
+    float4 v[kStageLoads];
+#pragma unroll
+    for (int j = 0; j < kStageLoads; ++j) {
+      const int k = k0 + j * blockDim.x;
+      v[j] = k < total ? load4(src + static_cast<size_t>(k / h4) * h + (k % h4) * kCols)
+                       : zero4();
+    }
+#pragma unroll
+    for (int j = 0; j < kStageLoads; ++j) {
+      const int k = k0 + j * blockDim.x;
+      if (k >= total) continue;
+      const int r = k / h4;
+      float4 x = v[j];
+      if (scale != nullptr)
+        x = make_float4(x.x / scale[r], x.y / scale[r], x.z / scale[r], x.w / scale[r]);
+      store4(dst + r * hs + (k % h4) * kCols, x);
+    }
+  }
+}
+
+// Floats of shared memory of cf_bwd_products_kernel.
+__host__ __device__ inline int products_smem_floats(int N, int h) {
+  return 2 * N * (h + kCols) + 4 * N * N + 2 * N;
+}
+
+__global__ void __launch_bounds__(kProductThreads) cf_bwd_products_kernel(
+    const float* __restrict__ terms, const float* __restrict__ wa,
+    const float* __restrict__ d_num, const float* __restrict__ d_delta,
+    const float* __restrict__ d_scores, float* __restrict__ dS_aa,
+    float* __restrict__ dS_sa, float* __restrict__ d_wa, int N, int H, int h,
+    float sqrt_d) {
+  extern __shared__ float smem[];
+  const int NN = N * N, hs = h + kCols;
+  float* s_w = smem;            // [N][hs]: wa_h
+  float* s_u = s_w + N * hs;    // [N][hs]: d_num, then dU2
+  float* s_Eaa = s_u + N * hs;  // [N][N]
+  float* s_Esa = s_Eaa + NN;    // [N][N]
+  float* s_a = s_Esa + NN;      // [N][N]: -d_zc (-d_zc2 on the diagonal)
+  float* s_dz = s_a + NN;       // [N][N]: dZ (dZ2 on the diagonal)
+  float* s_sdz = s_dz + NN;     // [N]: sum over I != n of dZ[n, I]
+  float* s_z2 = s_sdz + N;      // [N]: Z2[I]
+  const size_t bh = blockIdx.x;  // (b, head)
+  const size_t b = bh / H;
+  const float* t = terms + bh * kTerms * NN;
+  const float* sc = d_scores + bh * 2 * NN;
+  stage_rows(s_w, wa + bh * N * h, nullptr, N, h, hs);
+  stage_rows(s_u, d_num + bh * N * h, nullptr, N, h, hs);
+  for (int k = threadIdx.x; k < NN; k += blockDim.x) {
+    s_Eaa[k] = t[kEaa * NN + k];
+    s_Esa[k] = t[kEsa * NN + k];
+    s_a[k] = sc[k];
+    s_dz[k] = sc[NN + k];
+  }
+  if (threadIdx.x < N) s_z2[threadIdx.x] = t[kZ * NN + threadIdx.x * (N + 1)];
+  __syncthreads();
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    float x = 0.f;
+    for (int I = 0; I < N; ++I)
+      if (I != n) x += s_dz[n * N + I];
+    s_sdz[n] = x;
+  }
+  __syncthreads();
+  float* dwa_h = d_wa + bh * N * h;
+  // d_wa_h[m] += sum_n E_aa[n, m] d_num[n]
+  add_transposed_product(dwa_h, s_Eaa, s_u, N, h, hs);
+  // dS_aa: d_Eaa[n, m] = (-d_zc[n, m] (m != n) + sum_I dZ[n, I]) + d_num[n].wa[m]
+  float* ds = dS_aa + bh * NN;
+  staged_products(s_u, s_w, N, h, hs, [&](int n, int m, float g) {
+    const float dE = ((n == m ? 0.f : s_a[n * N + m]) + s_sdz[n]) + g;
+    ds[n * N + m] = (s_Eaa[n * N + m] * dE) / sqrt_d;
+  });
+  __syncthreads();  // every thread is done with d_num
+  // dU2[J] = d_delta[b, J] / Z2[J]
+  stage_rows(s_u, d_delta + b * N * h, s_z2, N, h, hs);
+  __syncthreads();  // s_u holds dU2
+  // d_wa_h[m] += sum_J E_sa[J, m] dU2[J]
+  add_transposed_product(dwa_h, s_Esa, s_u, N, h, hs);
+  // dS_sa: d_Esa[I, m] = (dZ2[I] - (m == I) d_zc2[I]) + dU2[I].wa[m]
+  ds = dS_sa + bh * NN;
+  staged_products(s_u, s_w, N, h, hs, [&](int I, int m, float g) {
+    const float dE = (s_dz[I * N + I] + (m == I ? s_a[I * N + I] : 0.f)) + g;
+    ds[I * N + m] = (s_Esa[I * N + m] * dE) / sqrt_d;
+  });
 }
 
 int threads_for(int h) { return ((h / kCols + 31) / 32) * 32; }
@@ -829,6 +951,15 @@ cudaError_t allow_smem(Kernel* kernel, size_t smem) {
 bool takes(int B, int N, int H, int h, int threads) {
   return h % kCols == 0 && h > 0 && threads <= 1024 && B > 0 && N > 0 &&
          N <= kMaxN && H > 0;
+}
+
+// The backward's kernels take h % 4 == 0 and h <= 512 (one row a warp, 16
+// columns a lane; one block of kBwdThreads threads of 4 columns), N <= 32
+// and H <= 4 (the heads' dot products share one warp reduction); the Python
+// wrapper refuses other shapes first.
+bool backward_shape_ok(int B, int N, int H, int h) {
+  return B > 0 && N > 0 && N <= kMaxN && H > 0 && H <= kMaxH && h > 0 &&
+         h % kCols == 0 && h <= kMaxCols;
 }
 
 }  // namespace
@@ -858,38 +989,70 @@ int cf_attention_fwd_launch(const float* S_aa, const float* S_as,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The cotangents of the nine inputs for dout. d_bias_part is (B, h) scratch,
-// num and d_num (B, H, N, h) scratch. Returns cudaGetLastError() after the
-// two launches (0 = success), or cudaErrorInvalidValue for shapes the kernel
-// does not take (N > 32, or more shared memory than a block has: about
-// 4 * (4*H*N*N + max(H, N)*h) bytes).
-int cf_attention_bwd_launch(
-    const float* S_aa, const float* S_as, const float* S_sa,
-    const float* S_ss, const float* wa, const float* dws, const float* x_a,
-    const float* delta, const float* bias, const float* dout, float* dS_aa,
-    float* dS_as, float* dS_sa, float* dS_ss, float* d_wa, float* d_dws,
-    float* d_xa, float* d_delta, float* d_bias, float* d_bias_part,
-    float* num, float* d_num, int B, int N, int H, int h, float sqrt_d,
-    void* stream) {
-  const int threads = threads_for(h);
-  if (!takes(B, N, H, h, threads))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      (static_cast<size_t>(bwd_big_offset(N, H)) +
-       static_cast<size_t>(H > N ? H : N) * h + (threads / 32) * kMaxN) *
-      sizeof(float);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(cf_bwd_kernel, smem);
+// The backward, in four launches on one stream (the Python wrapper makes
+// them in this order). Each returns cudaGetLastError() after its launches
+// (0 = success), or cudaErrorInvalidValue for shapes the kernels do not take
+// (backward_shape_ok). Scratch: terms (B, H, 5, N, N), base (B, H, 2N, h),
+// d_fc (B, N, N, h) as [b, I, n, o], d_scores (B, H, 2, N, N), d_num
+// (B, H, N, h), d_bias_part (B, h).
+
+// Stage 0: terms and base.
+int cf_bwd_base_launch(const float* S_aa, const float* S_as, const float* S_sa,
+                       const float* S_ss, const float* wa, float* terms,
+                       float* base, int B, int N, int H, int h, float sqrt_d,
+                       void* stream) {
+  if (!backward_shape_ok(B, N, H, h)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(3 * N * N + 4 * N) * sizeof(float);
+  cf_bwd_base_kernel<<<B * H, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      S_aa, S_as, S_sa, S_ss, wa, terms, base, N, h, sqrt_d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage 1: d_fc, dS_as, dS_ss, d_dws, d_delta, d_scores, and d_wa's first term.
+int cf_bwd_rows_launch(const float* terms, const float* base, const float* wa,
+                       const float* dws, const float* x_a, const float* delta,
+                       const float* bias, const float* dout, float* d_fc,
+                       float* dS_as, float* dS_ss, float* d_wa, float* d_dws,
+                       float* d_delta, float* d_scores, int B, int N, int H,
+                       int h, float sqrt_d, void* stream) {
+  if (!backward_shape_ok(B, N, H, h)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>((2 * H + 1) * h + 6 * H * N) * sizeof(float);
+  cudaError_t err = allow_smem(cf_bwd_rows_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  cf_bwd_rows_kernel<<<B * N, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      terms, base, wa, dws, x_a, delta, bias, dout, d_fc, dS_as, dS_ss, d_wa,
+      d_dws, d_delta, d_scores, N, H, h, sqrt_d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage 2: d_num, d_xa, and d_bias through the partial d_bias_part.
+int cf_bwd_sums_launch(const float* terms, const float* d_fc, float* d_num,
+                       float* d_xa, float* d_bias_part, float* d_bias, int B,
+                       int N, int H, int h, void* stream) {
+  if (!backward_shape_ok(B, N, H, h)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cf_bwd_kernel<<<B, threads, smem, s>>>(
-      S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias, dout, dS_aa, dS_as,
-      dS_sa, dS_ss, d_wa, d_dws, d_xa, d_delta, d_bias_part, num, d_num, N, H,
-      h, sqrt_d);
-  err = cudaGetLastError();
+  const size_t smem = static_cast<size_t>(H * N * N) * sizeof(float);
+  cf_bwd_sums_kernel<<<B, kBwdThreads, smem, s>>>(terms, d_fc, d_num, d_xa,
+                                                  d_bias_part, N, H, h);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_over_groups_kernel<<<(h + 127) / 128, 128, 0, s>>>(d_bias_part, d_bias,
-                                                          B, h);
+  sum_over_groups_kernel<<<(h + 31) / 32, 32 * kSumLanes, 0, s>>>(d_bias_part,
+                                                                  d_bias, B, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage 3: dS_aa, dS_sa, and d_wa completed in place.
+int cf_bwd_products_launch(const float* terms, const float* wa,
+                           const float* d_num, const float* d_delta,
+                           const float* d_scores, float* dS_aa, float* dS_sa,
+                           float* d_wa, int B, int N, int H, int h, float sqrt_d,
+                           void* stream) {
+  if (!backward_shape_ok(B, N, H, h)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(products_smem_floats(N, h)) * sizeof(float);
+  cudaError_t err = allow_smem(cf_bwd_products_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cf_bwd_products_kernel<<<B * H, kProductThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      terms, wa, d_num, d_delta, d_scores, dS_aa, dS_sa, d_wa, N, H, h, sqrt_d);
   return static_cast<int>(cudaGetLastError());
 }
 
