@@ -28,7 +28,15 @@ Phases, each of which must pass for the run to pass:
      d_attn_lhs) joined by a d_fc scratch: phase 2c holds that scratch
      against the staged plain version (``tail_backward_reference``),
      checks that two calls give the same bits, and times each stage alone
-     beside its bound and, for the two products, ``torch.bmm``. K5b
+     beside its bound and, for the two products, ``torch.bmm``. K5f runs
+     as two kernels (the base products, K5b's first stage; the rows)
+     joined by scratch: phase 2d holds its pooled rows against
+     ``cf_reference`` at score scales 3 and 12 (and at a small ragged
+     shape), each stage's outputs and scratch against the staged plain
+     version (``cf_forward_reference``), checks that two calls give the
+     same bits, prints ptxas's registers and spills, and times each stage
+     alone beside its bound (``torch.bmm`` beside the base products), and
+     K5f beside the algorithm's bound and the staged route's. K5b
      runs as four kernels (the base products, the rows, the sums over
      counterfactuals, the small products) joined by scratch: phase 2e also
      holds each stage's outputs and scratch against the staged plain version
@@ -678,44 +686,132 @@ def ptxas_report(log: str, kernels) -> dict[str, str]:
 
 CF_BACKWARD_KERNELS = ("cf_bwd_base_kernel", "cf_bwd_rows_kernel", "cf_bwd_sums_kernel",
                        "sum_over_groups_kernel", "cf_bwd_products_kernel")
+# K5f's two kernels, in launch order (stage 0 is the backward's)
+CF_FORWARD_STAGES = ("base", "rows")
+CF_FORWARD_KERNELS = ("cf_bwd_base_kernel", "cf_fwd_rows_kernel")
 
 
-def phase_cf_forward(torch, ops, cycles_per_ms):
+def _cf_forward_stage_work(B, N, H, h):
+    """Bytes and float32 operations of each K5f stage, with its scratch
+    (terms 5·B·H·N², base products 2·B·H·N·h) counted as an output of stage 0
+    and an input of stage 1. base: as K5b's stage 0. rows: three terms
+    (corr, rep, Z), base, wa, dws, x_a, delta and bias in, pooled out; per fc
+    element the rebuild (5 a head, 3 for the residual), LayerNorm (6) and the
+    pool (1)."""
+    HNN, HNh, Nh = B * H * N * N, B * H * N * h, B * N * h
+    return {"base": _cf_backward_stage_work(B, N, H, h)["base"],
+            "rows": (4 * (3 * HNN + 2 * HNh + 2 * HNh + 2 * Nh + h + Nh),
+                     B * N * N * h * (5 * H + 3 + 7))}
+
+
+def time_cf_forward_stages(torch, args, d, cycles_per_ms):
+    """Each K5f stage launched alone, at the shape of ``args``: its median
+    device ms and its bound, for stage 0 the time of one ``torch.bmm`` of
+    its products on the same operands ([E_aa; E_sa]·wa_h; cuBLAS, float32
+    with TF32 off; the port never calls it). One whole forward fills the
+    scratch first."""
+    from swarmacb_torch.ops import cf_attention
+
+    B, H, N, h = args[4].shape
+    scratch, _, stages = cf_attention._forward_stage_calls(args, d, B, N, H, h)
+    for launch in stages:
+        launch()
+    torch.cuda.synchronize()
+    e = scratch["terms"][:, :, :2].reshape(B * H, 2 * N, N)
+    wa = args[4].reshape(B * H, N, h)
+    library = {"base": lambda: torch.bmm(e, wa)}
+    work = _cf_forward_stage_work(B, N, H, h)
+    out = {}
+    for name, launch in zip(CF_FORWARD_STAGES, stages):
+        b_ms, b_by = bound_ms(*work[name])
+        lib = library.get(name)
+        out[name] = dict(ms=device_ms(torch, launch, cycles_per_ms),
+                         library_ms=device_ms(torch, lib, cycles_per_ms) if lib else None,
+                         bound_ms=b_ms, bound_by=b_by, bytes=work[name][0],
+                         flops=work[name][1])
+    return out
+
+
+def phase_cf_forward(torch, ops, card, cycles_per_ms):
     B, N, H, h = E_MAIN, N_MAIN, H_MAIN, HID_MAIN
     d = h // H
     print(f"== phase 2d: K5f fused_cf_attention forward (B={B}, N={N}, H={H}, "
           f"h={h}, d={d})", flush=True)
-    from swarmacb_torch.ops import cf_attention
+    from swarmacb_torch.ops import _cuda, cf_attention
 
+    for name, info in ptxas_report(_cuda.build_log("cf_attention"),
+                                   CF_FORWARD_KERNELS).items():
+        print(f"  K5f ptxas {name}: {info}", flush=True)
     # LayerNorm outputs are O(1); the kernel's partition Z_b - E_aa + E_as
     # rounds otherwise than a fresh softmax row sum (the JAX package holds
-    # its kernel to its plain version at the same tolerance)
+    # its kernel to its plain version at the same tolerance). At
+    # (6, 5, 4, 32) a group's last rows block holds one counterfactual of two.
     worst = 0.0
-    for scale in (3.0, 12.0):
-        args = _cf_inputs(torch, B, N, H, h, SEED + 4, scale)
+    for shape, scale in (((B, N, H, h), 3.0), ((B, N, H, h), 12.0), ((6, 5, 4, 32), 3.0)):
+        args = _cf_inputs(torch, *shape, SEED + 4, scale)
         with torch.no_grad():
-            got = ops.fused_cf_attention(*args, d)
-            want = cf_attention.cf_reference(*args, d)
+            got = ops.fused_cf_attention(*args, shape[3] // shape[2])
+            want = cf_attention.cf_reference(*args, shape[3] // shape[2])
         torch.cuda.synchronize()
         err, ok = max_err(got, want, 2e-5, 2e-5)
         worst = max(worst, err)
-        check(ok and tuple(got.shape) == (B, N, h),
+        check(ok and got.shape == want.shape,
               f"K5f pooled {tuple(got.shape)}, scores x{scale:g}: max|Δ| {err:.3e} "
               "(tolerance 2e-05 + 2e-05·|plain|)")
     args = _cf_inputs(torch, B, N, H, h, SEED + 4, 3.0)
+    # Each stage's output against the staged plain version, which rebuilds fc
+    # from the same base products in another order: within 1e-5 of the
+    # largest element of each (phase 2e's rule)
+    staged = {}
+    with torch.no_grad():
+        want = cf_attention.cf_forward_reference(args, d, stages=staged)
+        first = ops.fused_cf_attention(*args, d)
+        again = ops.fused_cf_attention(*args, d)
+    scratch, pooled, calls = cf_attention._forward_stage_calls(args, d, B, N, H, h)
+    for launch in calls:
+        launch()
+    torch.cuda.synchronize()
+    rel = 1e-5
+    for stage, name, g, w in ((0, "terms", scratch["terms"], staged["terms"]),
+                              (0, "base", scratch["base"], staged["base"]),
+                              (1, "pooled", pooled, want)):
+        scale = float(w.abs().max())
+        err, ok = max_err(g, w, rel * scale, 0.0)
+        check(ok and g.shape == w.shape,
+              f"K5f stage {stage} ({CF_FORWARD_STAGES[stage]}) {name} {tuple(g.shape)}: "
+              f"max|Δ| {err:.3e} against the staged plain version (tolerance "
+              f"{rel:g}·max|plain| = {rel * scale:.3e})")
+    check(torch.equal(first, again) and torch.equal(first, pooled),
+          "K5f: two calls give bit-identical pooled rows")
+    del staged, want, first, again, scratch, pooled
     with torch.no_grad():
         ms = device_ms(torch, lambda: ops.fused_cf_attention(*args, d), cycles_per_ms)
         plain = device_ms(torch, lambda: cf_attention.cf_reference(*args, d),
                           cycles_per_ms)
     n_bytes, n_flops = _cf_forward_work(B, N, H, h)
     b_ms, b_by = bound_ms(n_bytes, n_flops)
-    print(f"  K5f kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP)", flush=True)
+    stages = time_cf_forward_stages(torch, args, d, cycles_per_ms)
+    route_bytes = sum(st["bytes"] for st in stages.values())
+    r_ms, r_by = bound_ms(route_bytes, n_flops)
+    print(f"  K5f kernel {ms:.4f} ms, plain {plain:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP), the staged "
+          f"route's bound {r_ms:.4f} ms ({r_by}: {route_bytes / 1e6:.1f} MB with its "
+          f"scratch); no single PyTorch call computes this function, so there is no "
+          f"library time; on {card}", flush=True)
+    for i, (name, st) in enumerate(stages.items()):
+        lib = ("" if st["library_ms"] is None
+               else f", torch.bmm {st['library_ms']:.4f} ms")
+        print(f"  K5f stage {i} ({name}) alone: {st['ms']:.4f} ms{lib}, bound "
+              f"{st['bound_ms']:.4f} ms ({st['bound_by']}: {st['bytes'] / 1e6:.1f} MB, "
+              f"{st['flops'] / 1e9:.2f} GFLOP) on {card}", flush=True)
+    print("  K5f stages: " + json.dumps({"card": card, "shape": [B, N, H, h],
+                                          "whole_ms": ms, "route_bound_ms": r_ms,
+                                          "stages": stages}), flush=True)
     return [dict(name="fused_cf_attention", route="cuda",
                  source="swarmacb_torch/ops/csrc/cf_attention.cu",
                  replaces="swarmacb_tpu/ops/cf_attention.py:267",
                  max_abs_err=worst, ms=ms, plain_ms=plain,
-                 bound_ms=b_ms, bound_by=b_by, library_ms=None)]
+                 bound_ms=b_ms, bound_by=b_by, route_bound_ms=r_ms, library_ms=None)]
 
 
 def phase_cf_backward(torch, ops, card, cycles_per_ms):
@@ -1507,7 +1603,7 @@ def main() -> int:
     rows = phase_pairwise(torch, ops, env.cfg, env.wall_segments, cycles_per_ms)
     rows += phase_tail(torch, ops, cycles_per_ms)
     rows += phase_tail_backward(torch, ops, card, cycles_per_ms)
-    rows += phase_cf_forward(torch, ops, cycles_per_ms)
+    rows += phase_cf_forward(torch, ops, card, cycles_per_ms)
     rows += phase_cf_backward(torch, ops, card, cycles_per_ms)
     phase_critic_paths(torch, cycles_per_ms)
     rows += phase_fused_step(torch, ops, cycles_per_ms)

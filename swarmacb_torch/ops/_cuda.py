@@ -20,9 +20,10 @@ SM, the two batched products two blocks each), and
 ``scripts/time_tail_backward.py`` prints what ptxas gave each of them.
 ``tail_forward.cu`` (K3f) takes no cap: its kernel's ``__launch_bounds__``
 asks for one block of 512 threads an SM (128 registers a thread).
-``cf_attention.cu`` (K5f, K5b) caps at 168 registers too; K5b's rows
-kernel asks for four blocks of 128 threads an SM (128 registers), and
-``scripts/time_cf_backward.py`` prints what ptxas gave each K5b kernel.
+``cf_attention.cu`` (K5f, K5b) caps at 168 registers too; the rows
+kernels of both directions ask for four blocks of 128 threads an SM (128
+registers), and ``chip_smoke.py`` (phases 2d, 2e) and
+``scripts/time_cf_backward.py`` print what ptxas gave each kernel.
 
 Nothing here runs when the package is imported: the CPU tests import every
 module, and the CPU has no nvcc.
@@ -74,8 +75,8 @@ SIGNATURES = {
         "tail_forward_launch": [_P] * 8 + [_I, _I, _I, _I, _P],
     },
     "cf_attention": {
-        "cf_attention_fwd_launch": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
         "cf_bwd_base_launch": [_P] * 7 + [_I, _I, _I, _I, _F, _P],
+        "cf_fwd_rows_launch": [_P] * 8 + [_I, _I, _I, _I, _P],
         "cf_bwd_rows_launch": [_P] * 15 + [_I, _I, _I, _I, _F, _P],
         "cf_bwd_sums_launch": [_P] * 6 + [_I, _I, _I, _I, _P],
         "cf_bwd_products_launch": [_P] * 8 + [_I, _I, _I, _I, _F, _P],

@@ -23,15 +23,21 @@ Output: pooled (B, N, h).
 
 ``fused_cf_attention`` dispatches by device: the plain version for CPU
 tensors, whose gradient is plain autograd, and for CUDA tensors a
-``torch.autograd.Function`` whose forward is the K5f kernel and whose
-backward is K5b. K5b recomputes the attention from the nine saved inputs and
-returns the cotangents of all of them (``d`` is a constant), in four kernels
-joined by scratch in device memory, the largest d_fc = ∂loss/∂fc: the
-softmax terms and base products of each (group, head); the rows of each
-(group, counterfactual) (d_fc and the rows' scalar cotangents); the sums of
-each group over counterfactuals (d_num, d_xa, d_bias); and the small
-products of each (group, head) (dS_aa, dS_sa, d_wa).
-``cf_backward_reference`` computes the same stages in plain PyTorch.
+``torch.autograd.Function`` whose forward is the K5f kernels and whose
+backward is K5b. Both start with the same stage 0, one kernel per (group,
+head): the softmax terms and the base products E_aa·wa_h and E_sa·wa_h, each
+once, into scratch in device memory. K5f then takes one kernel per (group,
+counterfactuals): it rebuilds the rows fc from the base products, takes
+their LayerNorm and pools them, and fc never reaches device memory. K5b
+recomputes the attention from the nine saved inputs and returns the
+cotangents of all of them (``d`` is a constant), in three more kernels
+joined by scratch, the largest d_fc = ∂loss/∂fc: the rows of each (group,
+counterfactual) (d_fc and the rows' scalar cotangents); the sums of each
+group over counterfactuals (d_num, d_xa, d_bias); and the small products of
+each (group, head) (dS_aa, dS_sa, d_wa). ``cf_forward_reference`` and
+``cf_backward_reference`` compute the same stages in plain PyTorch, with fc
+rebuilt by one function (``_rebuild_fc``) in both directions, as the two
+rows kernels share one device function.
 
 The kernels take h ≤ 512 with h % 4 == 0, N ≤ 32 and H ≤ 4.
 """
@@ -83,7 +89,7 @@ def _fc(S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias, d):
 
 
 def cf_backward_base(S_aa, S_as, S_sa, S_ss, wa, d):
-    """Stage 0 of K5b in plain PyTorch: (terms, base).
+    """Stage 0 of K5f and K5b in plain PyTorch: (terms, base).
 
     terms (B, H, 5, N, N): E_aa[n, m], E_sa[I, m], and corr, rep and Z of row
     n of counterfactual I (zc, E_as and Z_b + zc; zc2, E_ss and Z2 on n = I),
@@ -107,6 +113,43 @@ def cf_backward_base(S_aa, S_as, S_sa, S_ss, wa, d):
     return terms, base
 
 
+def _rebuild_fc(terms, base, wa, dws, x_a, delta, bias):
+    """fc (B, I, n, h) rebuilt from stage 0's ``terms`` and ``base`` as the
+    rows kernels of both directions rebuild it:
+    Σ_h num_h / Z + R, + x_a[n] (+ delta[I] on n = I), with
+    R = bias + Σ_h (corr / Z)·wa_h[I] + (rep / Z)·dws_h[I]. Also returns
+    the base row of each (n, I), num_h[n] or num2_h[I] on n = I, as
+    (B, H, I, n, h)."""
+    N = terms.shape[-1]
+    eye = torch.eye(N, dtype=torch.bool, device=wa.device)
+    _, _, corr, rep, Z = terms.unbind(2)                               # [b, hh, n, I]
+    num_sel = torch.where(eye[:, :, None], base[:, :, 1, :, None, :], base[:, :, 0, None, :, :])
+    t = lambda x: x.transpose(-1, -2)[..., None]                      # noqa: E731  [b, hh, I, n, 1]
+    R = bias + (t(corr / Z) * wa[:, :, :, None, :] + t(rep / Z) * dws[:, :, :, None, :]).sum(1)
+    fc = ((num_sel * t(1.0 / Z)).sum(dim=1) + R) + x_a[:, None]
+    fc = fc + torch.where(eye[None, :, :, None], delta[:, :, None, :], torch.zeros_like(fc))
+    return fc, num_sel
+
+
+def cf_forward_reference(args, d, stages=None):
+    """Plain version of K5f, stage by stage: pooled (B, N, h).
+
+    Stage 0 is ``cf_backward_base``; stage 1 rebuilds fc from its terms and
+    base products as the kernel does (``_rebuild_fc``), then takes the
+    LayerNorm and the mean over n. With a dict ``stages``, the scratch is
+    left in it under the kernels' names (``terms``, ``base``). Used by the
+    tests and ``chip_smoke.py`` to hold each stage of the kernel on its
+    own; ``cf_reference`` stays the CPU path of ``fused_cf_attention``.
+    """
+    S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias = args
+    B, H, N, h = wa.shape
+    terms, base = cf_backward_base(S_aa, S_as, S_sa, S_ss, wa, d)
+    fc, _ = _rebuild_fc(terms, base, wa, dws, x_a, delta, bias)
+    if stages is not None:
+        stages.update(terms=terms, base=base)
+    return pool_layernorm(fc.reshape(B, N * N, h), N)
+
+
 def cf_backward_reference(args, dout, d, stages=None):
     """Plain version of K5b, stage by stage: (d_fc, cotangents).
 
@@ -126,14 +169,9 @@ def cf_backward_reference(args, dout, d, stages=None):
     # 0. softmax terms and base products
     terms, base = cf_backward_base(S_aa, S_as, S_sa, S_ss, wa, d)
     Eaa, Esa, corr, rep, Z = terms.unbind(2)                           # [b, hh, n, I]
-    # the base row of (n, I): num[n], or num2[I] on n = I, as (B, H, I, n, h)
-    num_sel = torch.where(eye[:, :, None], base[:, :, 1, :, None, :], base[:, :, 0, None, :, :])
-    # 1. rows: fc rebuilt as Σ_h num_h / Z + R, with R the rank-1 terms and
-    # bias, then the LayerNorm backward and the rows' dot products
-    t = lambda x: x.transpose(-1, -2)[..., None]                      # noqa: E731  [b, hh, I, n, 1]
-    R = bias + (t(corr / Z) * wa[:, :, :, None, :] + t(rep / Z) * dws[:, :, :, None, :]).sum(1)
-    fc = ((num_sel * t(1.0 / Z)).sum(dim=1) + R) + x_a[:, None]
-    fc = fc + torch.where(eye[None, :, :, None], delta[:, :, None, :], torch.zeros_like(fc))
+    # 1. rows: fc rebuilt from the base products, then the LayerNorm
+    # backward and the rows' dot products
+    fc, num_sel = _rebuild_fc(terms, base, wa, dws, x_a, delta, bias)
     y, rstd = _layernorm(fc)
     d_y = (dout / N)[:, :, None, :]
     m1 = d_y.mean(-1, keepdim=True)
@@ -198,8 +236,8 @@ def _check(args):
         raise ValueError(f"fused_cf_attention: the kernels take h % 4 == 0, "
                          f"h <= 512, N <= 32 and H <= 4, got h={h}, N={N}, H={H}")
     if dev.type != "cuda":
-        raise ValueError(f"fused_cf_attention: tensors must lie on the CPU or "
-                         f"a CUDA device, got {dev}")
+        raise ValueError(f"fused_cf_attention: the kernels take CUDA tensors, got "
+                         f"{dev} (CPU tensors take the plain version)")
     return B, N, H, h
 
 
@@ -215,16 +253,64 @@ def _ptrs(tensors):
     return [t.data_ptr() for t in tensors]
 
 
-def _forward_kernel(args, d):
-    """K5f: pooled (B, N, h)."""
+def _empty(dev):
+    return lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+
+
+def _base_stage(lib, args, terms, base, shape, sqrt_d, what):
+    """A callable that launches stage 0 of both directions (terms, base)."""
+    S_aa, S_as, S_sa, S_ss, wa = args[:5]
+
+    def launch():
+        _cuda.check(lib.cf_bwd_base_launch(
+            *_ptrs((S_aa, S_as, S_sa, S_ss, wa, terms, base)), *shape, sqrt_d,
+            _cuda.stream_ptr(wa)), f"fused_cf_attention {what}, stage 0 (base)")
+    return launch
+
+
+def _forward_stage_calls(args, d, B, N, H, h):
+    """The output of K5f and its two launches, for inputs that
+    ``forward_kernel`` takes (it checks them; ``chip_smoke.py`` calls this
+    to hold and time each stage on its own).
+
+    Returns (scratch, pooled, stages): ``scratch`` the stage-0 scratch by
+    name (``terms``, ``base``), ``pooled`` the (B, N, h) output, and
+    ``stages`` two callables, each of which launches one stage on the
+    current stream and raises if its launch failed; stage 1 reads what
+    stage 0 wrote.
+    """
+    empty = _empty(args[0].device)
+    scratch = {"terms": empty(B, H, 5, N, N), "base": empty(B, H, 2, N, h)}
+    terms, base = scratch.values()
+    pooled = empty(B, N, h)
+    lib = _cuda.library("cf_attention")
+    wa, dws, x_a, delta, bias = args[4:]
+    shape = (B, N, H, h)
+
+    def rows():
+        _cuda.check(lib.cf_fwd_rows_launch(
+            *_ptrs((terms, base, wa, dws, x_a, delta, bias, pooled)), *shape,
+            _cuda.stream_ptr(wa)), "fused_cf_attention forward, stage 1 (rows)")
+
+    return scratch, pooled, (_base_stage(lib, args, terms, base, shape, math.sqrt(d),
+                                         "forward"), rows)
+
+
+def forward_kernel(args, d):
+    """K5f: pooled (B, N, h) of the nine inputs ``args``.
+
+    Two kernels joined by scratch, each a fresh ``torch.empty``: the terms
+    (20·B·H·N² bytes, 32.8 MB at the main path's B = 1024, N = 20, H = 4)
+    and the base products (8·B·H·N·h bytes, 335.5 MB at h = 512), 368 MB
+    in all, freed when the call returns. Tensors that are not CUDA, and
+    shapes ``_check`` refuses, raise before any launch.
+    """
     B, N, H, h = _check(args)
-    out = torch.empty((B, N, h), dtype=torch.float32, device=args[0].device)
-    err = _cuda.library("cf_attention").cf_attention_fwd_launch(
-        *_ptrs(args), out.data_ptr(), B, N, H, h, math.sqrt(d),
-        _cuda.stream_ptr(args[0]))
-    _cuda.check(err, "fused_cf_attention")
+    _, pooled, stages = _forward_stage_calls(args, d, B, N, H, h)
+    for launch in stages:
+        launch()
     _cuda.launches["fused_cf_attention"] += 1
-    return out
+    return pooled
 
 
 def _stage_calls(args, dout, d, B, N, H, h):
@@ -240,22 +326,16 @@ def _stage_calls(args, dout, d, B, N, H, h):
     and raises if a launch failed. They must run in order: each stage reads
     what the ones before it wrote, and stage 3 completes d_wa in place.
     """
-    dev = dout.device
     grads = [torch.empty_like(t) for t in args]
     dS_aa, dS_as, dS_sa, dS_ss, d_wa, d_dws, d_xa, d_delta, d_bias = grads
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    empty = _empty(dout.device)
     scratch = {"terms": empty(B, H, 5, N, N), "base": empty(B, H, 2, N, h),
                "d_fc": empty(B, N, N, h), "d_scores": empty(B, H, 2, N, N),
                "d_num": empty(B, H, N, h), "bias_part": empty(B, h)}
     terms, base, d_fc, d_scores, d_num, bias_part = scratch.values()
     lib = _cuda.library("cf_attention")
-    S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias = args
+    wa, dws, x_a, delta, bias = args[4:]
     shape, sqrt_d = (B, N, H, h), math.sqrt(d)
-
-    def base_stage():
-        _cuda.check(lib.cf_bwd_base_launch(
-            *_ptrs((S_aa, S_as, S_sa, S_ss, wa, terms, base)), *shape, sqrt_d,
-            _cuda.stream_ptr(dout)), "fused_cf_attention backward, stage 0 (base)")
 
     def rows():
         _cuda.check(lib.cf_bwd_rows_launch(
@@ -274,7 +354,8 @@ def _stage_calls(args, dout, d, B, N, H, h):
             sqrt_d, _cuda.stream_ptr(dout)),
             "fused_cf_attention backward, stage 3 (products)")
 
-    return scratch, grads, (base_stage, rows, sums, products)
+    return scratch, grads, (_base_stage(lib, args, terms, base, shape, sqrt_d, "backward"),
+                            rows, sums, products)
 
 
 def backward_kernel(args, dout, d):
@@ -313,7 +394,7 @@ class _FusedCfAttention(torch.autograd.Function):
         args = (S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias)
         ctx.d = d
         ctx.save_for_backward(*args)
-        return _forward_kernel(args, d)
+        return forward_kernel(args, d)
 
     @staticmethod
     @once_differentiable

@@ -35,26 +35,41 @@
 // ── Forward (K5f) ─────────────────────────────────────────────────────────
 // What bounds it on the H100: at the main path's B = 1024, H = 4, N = 20,
 // h = 512 the function reads ~440 MB and writes ~42 MB (~0.14 ms at
-// 3.35 TB/s) and needs ~10 GFLOP (~0.15 ms at the 67 TFLOP/s f32 rate):
+// 3.35 TB/s) and needs ~10 GFLOP (~0.16 ms at the 67 TFLOP/s f32 rate):
 // both about equal (chip_smoke._cf_forward_work computes the exact numbers).
 //
-// Design: K3f's (baseline_tail.cu). One block per (b, I), b-major, so the N
-// blocks of a group run close together and L2 serves their re-reads of wa[b].
-// The block first computes the softmax terms of its counterfactual for every
-// head and row (one thread per (head, row), N + 1 exponentials each) into
-// shared memory. Each thread owns 4 adjacent output columns and builds kRows
-// rows of fc at a time in registers: per head, the base rows times wa_h (a
-// loop over m of one float4 of wa_h and kRows multiply-adds per column), then
-// the rank-1 corrections and the division by the row's partition. LayerNorm
-// statistics are block reductions, and the pooled row accumulates in
-// registers until the single store; fc never reaches device memory.
-// The trade-off: every (b, I) block recomputes the base product sum_m E_aa wa
-// of all N rows, so the kernel does N times the ~0.8 MFLOP per head and group
-// that the algorithm needs (~34 GFLOP of multiply-adds in all, as K3f does).
-// Computing it once per group would need either H*N*h floats (160 KB at
-// h = 512) of shared memory in a block per group, one block and four warps
-// an SM, or a round trip through device memory; both are left for a later
-// version.
+// Design: two kernels joined by scratch in device memory, launched in this
+// order on one stream, each doing only the work its block owns:
+//   0. base (cf_bwd_base_kernel, stage 0 of the backward as it stands), one
+//      block per (b, head): the softmax terms of the group and head (terms)
+//      and the base products num = E_aa wa_h and num2 = E_sa wa_h (base),
+//      each once. Only column I of corr, rep and Z differs between
+//      counterfactuals, so nothing here is repeated per I.
+//   1. rows (cf_fwd_rows_kernel), one block per (b, P counterfactuals),
+//      b-major so that L2 serves the group's blocks their re-reads of base
+//      and x_a; four warps, a warp owns a whole row n, 16 columns a lane.
+//      For each of the block's counterfactuals I it rebuilds fc[n, I] from
+//      the base rows as stage 1 of the backward does (load_base_rows and
+//      rebuild_fc, the same device functions), takes the two-pass
+//      LayerNorm statistics with warp shuffles (center_row, no block
+//      barrier), and adds y into the warp's pooled row of I in shared
+//      memory. The base rows num_h[n] are loaded once for the block's P
+//      counterfactuals; the diagonal row n = I takes num2_h[I] instead and
+//      is built last. At the end the warps' pooled rows are summed in order
+//      of the warp, divided by N and stored. fc never reaches device
+//      memory. P = 2 (kFwdPerBlock) was the fastest of 1, 2 and 4 at the
+//      main path's shapes (PERF.md): one counterfactual a block re-reads
+//      the base rows from L2 twice as often, four leave two blocks an SM.
+// The trade: the scratch (terms 20·B·H·N² and base 8·B·H·N·h bytes, 368 MB
+// at the main path's shapes) goes through device memory, ~0.41 ms of
+// bandwidth with the function's own bytes (the staged route's bound,
+// chip_smoke._cf_forward_stage_work), against the N-fold recompute of the
+// base products (~34 GFLOP) that a one-kernel form needs. Stage 1 re-reads
+// the group's base rows from L2 once per block: ~224 KB a block at P = 1,
+// fewer with more counterfactuals a block, at the price of shared memory
+// (2·P·H·h floats of staged rows wa_h[I], dws_h[I] and 4·P·h of pooled
+// rows) and so of blocks an SM. No atomics, fixed orders: two calls give the
+// same bits.
 //
 // ── Backward (K5b) ────────────────────────────────────────────────────────
 // Given dout (B, N, h): d_y = dout[b, I] / N on every row n of I, and
@@ -103,7 +118,8 @@
 //      warp's shuffles, with no barrier. It rebuilds fc as
 //      sum_h num_h / Z + R + x_a (+ delta on n = I), R = bias +
 //      sum_h (corr / Z) wa_h[I] + (rep / Z) dws_h[I], from the base products
-//      and the block's rows wa_h[I], dws_h[I] staged in shared memory; takes
+//      and the block's rows wa_h[I], dws_h[I] staged in shared memory
+//      (rebuild_fc, shared with the forward's rows kernel); takes
 //      the LayerNorm backward; stores d_fc; and turns the dot products into
 //      the row's scalar cotangents: dS_as, dS_ss, and -d_zc and dZ (on the
 //      diagonal -d_zc2 and dZ2) into a (B, H, 2, N, N) scratch. After one
@@ -130,34 +146,16 @@
 
 namespace {
 
-constexpr int kCols = 4;    // output columns per thread (float4)
-constexpr int kRows = 10;   // fc rows per pass in the forward
-constexpr int kMaxN = 32;   // agents per group the kernels take
+constexpr int kCols = 4;          // columns a thread takes at a time (float4)
+constexpr int kMaxN = 32;         // agents per group the kernels take
+constexpr int kMaxH = 4;          // heads the kernels take
+constexpr int kMaxCols = 512;     // columns h the kernels take
+constexpr int kLaneChunks = kMaxCols / (32 * kCols);  // float4s of a row a lane
+constexpr int kThreads = 128;     // threads of a base, rows or sums block
+constexpr int kBaseRows = 10;     // base-product rows per pass over wa_h
+constexpr int kM = 10;            // rows of d_wa per pass in stage 3
+constexpr int kFwdPerBlock = 2;   // counterfactuals a forward rows block takes
 constexpr float kLnEps = 1e-5f;
-constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
-
-// Sums v[0..K) over the whole block; every thread gets the totals.
-template <int K>
-__device__ void block_sum(float (&v)[K], float* s_red) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int nwarps = blockDim.x / 32;
-#pragma unroll
-  for (int r = 0; r < K; ++r) {
-    float x = v[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      x += __shfl_xor_sync(0xffffffffu, x, off);
-    if (lane == 0) s_red[warp * K + r] = x;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < K; ++r) {
-    float x = 0.f;
-    for (int w = 0; w < nwarps; ++w) x += s_red[w * K + r];
-    v[r] = x;
-  }
-  __syncthreads();
-}
 
 __device__ inline float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -191,8 +189,8 @@ __device__ float off_max(const float* s_aa, const float* s_as, int N,
   return M;
 }
 
-// E_aa[n, :] (and E_as[n, :] unless e_as is null) of an off-diagonal row
-// with row max M; returns Z_b[n] = sum_m E_aa[n, m], summed in order of m.
+// E_aa[n, :] and E_as[n, :] of an off-diagonal row with row max M; returns
+// Z_b[n] = sum_m E_aa[n, m], summed in order of m.
 __device__ float off_row(const float* s_aa, const float* s_as, int N,
                          float sqrt_d, float M, float* e_aa, float* e_as) {
   float zb = 0.f;
@@ -200,7 +198,7 @@ __device__ float off_row(const float* s_aa, const float* s_as, int N,
     const float e = expf(scaled(s_aa[m], sqrt_d) - M);
     zb += e;
     e_aa[m] = e;
-    if (e_as != nullptr) e_as[m] = expf(scaled(s_as[m], sqrt_d) - M);
+    e_as[m] = expf(scaled(s_as[m], sqrt_d) - M);
   }
   return zb;
 }
@@ -245,165 +243,12 @@ __device__ void base_product(float4 (&acc)[R], const float* const (&base)[R],
   }
 }
 
-// ((num + corr * waI) + rep * dwsI) / Z, columnwise.
-__device__ inline float4 ctx_row(float4 num, float corr, float rep, float Z,
-                                 float4 waI, float4 dwsI) {
-  return make_float4(((num.x + corr * waI.x) + rep * dwsI.x) / Z,
-                     ((num.y + corr * waI.y) + rep * dwsI.y) / Z,
-                     ((num.z + corr * waI.z) + rep * dwsI.z) / Z,
-                     ((num.w + corr * waI.w) + rep * dwsI.w) / Z);
-}
-
 // fc = ((fc + x_a[n]) + bias) + (n == I) delta[I].
 __device__ inline float4 residual(float4 fc, float4 xa, float4 bi, float4 dl,
                                   bool diag) {
   const float4 r = add4(add4(fc, xa), bi);
   return diag ? add4(r, dl) : r;
 }
-
-// Non-affine LayerNorm statistics of R rows over the block's h columns,
-// two-pass: centres fc in place (fc becomes fc - mean) and returns rstd.
-// Every thread of the block must call it.
-template <int R>
-__device__ void center_rows(float4 (&fc)[R], float (&rstd)[R], bool owns,
-                            int h, float* s_red) {
-  float stat[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    stat[r] = owns ? ((fc[r].x + fc[r].y) + fc[r].z) + fc[r].w : 0.f;
-  block_sum(stat, s_red);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float mu = stat[r] / static_cast<float>(h);
-    fc[r].x -= mu;
-    fc[r].y -= mu;
-    fc[r].z -= mu;
-    fc[r].w -= mu;
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) stat[r] = owns ? dot4(fc[r], fc[r]) : 0.f;
-  block_sum(stat, s_red);
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    rstd[r] = 1.0f / sqrtf(stat[r] / static_cast<float>(h) + kLnEps);
-}
-
-// ── forward ────────────────────────────────────────────────────────────────
-
-__global__ void cf_fwd_kernel(
-    const float* __restrict__ S_aa, const float* __restrict__ S_as,
-    const float* __restrict__ S_sa, const float* __restrict__ S_ss,
-    const float* __restrict__ wa, const float* __restrict__ dws,
-    const float* __restrict__ x_a, const float* __restrict__ delta,
-    const float* __restrict__ bias, float* __restrict__ out, int N, int H,
-    int h, float sqrt_d) {
-  extern __shared__ float smem[];
-  const int HN = H * N;
-  float* s_base = smem;             // H*N rows of N: the base row of (head, n)
-  float* s_corr = s_base + HN * N;  // zc[n, I], or zc2[I] on n = I
-  float* s_rep = s_corr + HN;       // E_as[n, I], or E_ss[I] on n = I
-  float* s_Z = s_rep + HN;          // Z[n, I], or Z2[I] on n = I
-  float* s_red = s_Z + HN;          // (blockDim / 32) * kRows
-
-  const int b = blockIdx.x / N;
-  const int I = blockIdx.x % N;
-
-  // softmax terms of counterfactual I, one thread per (head, row)
-  for (int t = threadIdx.x; t < HN; t += blockDim.x) {
-    const int n = t % N;
-    const size_t row = static_cast<size_t>(b) * HN + t;  // (b, head, n)
-    float* base = s_base + t * N;
-    if (n != I) {
-      const float* aa = S_aa + row * N;
-      const float* as = S_as + row * N;
-      const float M = off_max(aa, as, N, sqrt_d);
-      const float zb = off_row(aa, as, N, sqrt_d, M, base, nullptr);
-      const float eas = expf(scaled(as[I], sqrt_d) - M);
-      const float zc = eas - base[I];
-      s_corr[t] = zc;
-      s_rep[t] = eas;
-      s_Z[t] = zb + zc;
-    } else {
-      float ess;
-      const float z = diag_row(S_sa + row * N, S_ss[row], N, sqrt_d, base,
-                               &ess);
-      const float zc2 = ess - base[I];
-      s_corr[t] = zc2;
-      s_rep[t] = ess;
-      s_Z[t] = z + zc2;
-    }
-  }
-  __syncthreads();
-
-  const int o0 = threadIdx.x * kCols;
-  const bool owns = o0 < h;
-  float4 bi = zero4(), dl = zero4();
-  if (owns) {
-    bi = load4(bias + o0);
-    dl = load4(delta + (static_cast<size_t>(b) * N + I) * h + o0);
-  }
-  float4 pooled = zero4();
-
-  for (int n0 = 0; n0 < N; n0 += kRows) {
-    float4 fc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) fc[r] = zero4();
-    if (owns) {
-      for (int hh = 0; hh < H; ++hh) {
-        const size_t hb = static_cast<size_t>(b) * HN + hh * N;
-        const float* wa_h = wa + hb * h;
-        const float* base[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          base[r] = s_base + (hh * N + min(n0 + r, N - 1)) * N;
-        float4 num[kRows];
-        base_product(num, base, wa_h, N, h, o0);
-        const float4 waI = load4(wa_h + static_cast<size_t>(I) * h + o0);
-        const float4 dwsI = load4(dws + (hb + I) * h + o0);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int t = hh * N + min(n0 + r, N - 1);
-          fc[r] = add4(fc[r], ctx_row(num[r], s_corr[t], s_rep[t], s_Z[t],
-                                      waI, dwsI));
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int n = min(n0 + r, N - 1);
-        const float4 xa =
-            load4(x_a + (static_cast<size_t>(b) * N + n) * h + o0);
-        fc[r] = residual(fc[r], xa, bi, dl, n == I);
-      }
-    }
-    float rstd[kRows];
-    center_rows(fc, rstd, owns, h, s_red);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (n0 + r < N) {
-        pooled.x += fc[r].x * rstd[r];
-        pooled.y += fc[r].y * rstd[r];
-        pooled.z += fc[r].z * rstd[r];
-        pooled.w += fc[r].w * rstd[r];
-      }
-    }
-  }
-
-  if (owns) {
-    const float rows = static_cast<float>(N);
-    store4(out + (static_cast<size_t>(b) * N + I) * h + o0,
-           make_float4(pooled.x / rows, pooled.y / rows, pooled.z / rows,
-                       pooled.w / rows));
-  }
-}
-
-// ── backward ───────────────────────────────────────────────────────────────
-
-constexpr int kMaxH = 4;          // heads the backward takes
-constexpr int kMaxCols = 512;     // columns h the backward takes
-constexpr int kLaneChunks = kMaxCols / (32 * kCols);  // float4s of a row a lane
-constexpr int kBwdThreads = 128;  // threads of a base, rows or sums block
-constexpr int kBaseRows = 10;     // base-product rows per pass over wa_h
-constexpr int kM = 10;            // rows of d_wa per pass in stage 3
 
 // The per-(n, I) softmax terms of one (b, head), each N x N, in the terms
 // scratch (B, H, kTerms, N, N): E_aa[n, m], E_sa[I, m], and corr, rep and Z
@@ -447,9 +292,97 @@ __device__ inline void warp_sum_heads(const float (&v)[3 * kMaxH],
     for (int i = 0; i < 3; ++i) out[i] += __shfl_xor_sync(0xffffffffu, out[i], off);
 }
 
-// ── Backward, stage 0: softmax terms and base products of one (b, head) ───
+// ── The rows of one (b, I): what the forward's and the backward's share ──
+// A warp owns a whole row (n, I); lane L takes the float4s c = L + 32 k,
+// k < kLaneChunks, of its h columns (valid[k]: c < h / 4).
 
-__global__ void __launch_bounds__(kBwdThreads) cf_bwd_base_kernel(
+// The base rows of every head for one row, this lane's columns: base_row is
+// the index of the row of head 0 in the base scratch (num[n], or num2[I] on
+// the diagonal n = I), the heads follow at a stride of 2 N rows. Zeros past H
+// heads and h columns.
+__device__ inline void load_base_rows(float4 (&nm)[kMaxH][kLaneChunks],
+                                      const float* base, size_t base_row,
+                                      int N, int H, int h,
+                                      const bool (&valid)[kLaneChunks],
+                                      int lane) {
+#pragma unroll
+  for (int hh = 0; hh < kMaxH; ++hh)
+#pragma unroll
+    for (int k = 0; k < kLaneChunks; ++k)
+      nm[hh][k] = (hh < H && valid[k])
+                      ? load4(base + (base_row + 2 * hh * N) * h + (lane + 32 * k) * kCols)
+                      : zero4();
+}
+
+// fc[n, I], this lane's columns, rebuilt from the base rows nm
+// (load_base_rows):
+//   f = sum over heads of nm_h / Z_h, then + R, + x_a[n] (+ delta[I] on n = I),
+//   R = bias + sum over heads of (corr_h / Z_h) wa_h[I] + (rep_h / Z_h) dws_h[I].
+// s_rz, s_wz, s_wr: 1 / Z, corr / Z and rep / Z in shared memory, those of
+// the row's head hh at t + hh N; s_v: the rows wa_h[I], dws_h[I] of every
+// head (2 H rows of h) and s_bias: bias, in shared memory; xa_row = b N + n
+// and dl_row = b N + I: the rows of x_a and delta (read on n = I only).
+// Returns the sum of the lane's columns.
+__device__ inline float rebuild_fc(
+    float4 (&f)[kLaneChunks], const float4 (&nm)[kMaxH][kLaneChunks],
+    const float* s_rz, const float* s_wz, const float* s_wr, int t,
+    const float* s_v, const float* s_bias, const float* x_a, size_t xa_row,
+    const float* delta, size_t dl_row, bool diag, int N, int H, int h,
+    const bool (&valid)[kLaneChunks], int lane) {
+#pragma unroll
+  for (int k = 0; k < kLaneChunks; ++k) f[k] = zero4();
+#pragma unroll
+  for (int hh = 0; hh < kMaxH; ++hh) {
+    const float z = hh < H ? s_rz[t + hh * N] : 0.f;
+#pragma unroll
+    for (int k = 0; k < kLaneChunks; ++k)
+      f[k] = make_float4(f[k].x + nm[hh][k].x * z, f[k].y + nm[hh][k].y * z,
+                         f[k].z + nm[hh][k].z * z, f[k].w + nm[hh][k].w * z);
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < kLaneChunks; ++k) {
+    if (!valid[k]) continue;
+    const int o = (lane + 32 * k) * kCols;
+    const float4 x = load4(x_a + xa_row * h + o);
+    const float4 d = diag ? load4(delta + dl_row * h + o) : zero4();
+    float4 r = load4(s_bias + o);
+#pragma unroll
+    for (int hh = 0; hh < kMaxH; ++hh) {
+      if (hh >= H) continue;
+      const float a = s_wz[t + hh * N], c = s_wr[t + hh * N];
+      const float4 w = load4(s_v + (2 * hh) * h + o), u = load4(s_v + (2 * hh + 1) * h + o);
+      r = make_float4((r.x + a * w.x) + c * u.x, (r.y + a * w.y) + c * u.y,
+                      (r.z + a * w.z) + c * u.z, (r.w + a * w.w) + c * u.w);
+    }
+    f[k] = residual(add4(f[k], r), x, zero4(), d, diag);
+    s += sum4(f[k]);
+  }
+  return s;
+}
+
+// The non-affine LayerNorm statistics of one row over the warp, two-pass: f,
+// whose lane's columns sum to s, becomes f - mean (zeros past h columns);
+// returns rstd.
+__device__ inline float center_row(float4 (&f)[kLaneChunks], float s, int h,
+                                   const bool (&valid)[kLaneChunks]) {
+  const float cols = static_cast<float>(h);
+  const float mu = warp_sum(s) / cols;
+  s = 0.f;
+#pragma unroll
+  for (int k = 0; k < kLaneChunks; ++k) {
+    f[k] = valid[k] ? make_float4(f[k].x - mu, f[k].y - mu, f[k].z - mu,
+                                  f[k].w - mu)
+                    : zero4();
+    s += dot4(f[k], f[k]);
+  }
+  return 1.0f / sqrtf(warp_sum(s) / cols + kLnEps);
+}
+
+// ── Stage 0 of both directions: softmax terms and base products of one
+// (b, head) ─────────────────────────────────────────────────────────────────
+
+__global__ void __launch_bounds__(kThreads) cf_bwd_base_kernel(
     const float* __restrict__ S_aa, const float* __restrict__ S_as,
     const float* __restrict__ S_sa, const float* __restrict__ S_ss,
     const float* __restrict__ wa, float* __restrict__ terms,
@@ -508,9 +441,121 @@ __global__ void __launch_bounds__(kBwdThreads) cf_bwd_base_kernel(
   }
 }
 
+// ── Forward, stage 1: the rows of one (b, P counterfactuals) ─────────────
+
+// Floats of shared memory of cf_fwd_rows_kernel.
+__host__ __device__ inline int fwd_rows_smem_floats(int N, int H, int h) {
+  constexpr int P = kFwdPerBlock;
+  return P * 2 * H * h + h + (kThreads / 32) * P * h + 3 * P * H * N;
+}
+
+__global__ void __launch_bounds__(kThreads, 4) cf_fwd_rows_kernel(
+    const float* __restrict__ terms, const float* __restrict__ base,
+    const float* __restrict__ wa, const float* __restrict__ dws,
+    const float* __restrict__ x_a, const float* __restrict__ delta,
+    const float* __restrict__ bias, float* __restrict__ out, int N, int H,
+    int h) {
+  extern __shared__ float smem[];
+  constexpr int P = kFwdPerBlock;
+  const int HN = H * N, NN = N * N;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int nwarps = kThreads / 32, h4 = h / kCols;
+  float* s_v = smem;                     // [P][2H][h]: wa_h[I], dws_h[I]
+  float* s_bias = s_v + P * 2 * H * h;   // [h]
+  float* s_pool = s_bias + h;            // [nwarps][P][h]: each warp's pooled rows
+  float* s_rz = s_pool + nwarps * P * h;  // [P][H][N]: 1 / Z of column I
+  float* s_wz = s_rz + P * HN;           // corr / Z
+  float* s_wr = s_wz + P * HN;           // rep / Z
+
+  const int per_group = (N + P - 1) / P;
+  const int b = blockIdx.x / per_group, I0 = (blockIdx.x % per_group) * P;
+  const int np = min(P, N - I0);         // the block's counterfactuals I0 + p
+  const size_t bh0 = static_cast<size_t>(b) * H;  // (b, head 0)
+
+  // the rows wa_h[I], dws_h[I] of every head and counterfactual, and bias,
+  // to shared memory; the pooled rows start at 0
+  for (int c = threadIdx.x; c < h4; c += blockDim.x) {
+    const int o = c * kCols;
+    for (int p = 0; p < np; ++p) {
+      float4 v[2 * kMaxH];
+#pragma unroll
+      for (int hh = 0; hh < kMaxH; ++hh) {
+        const size_t at = ((bh0 + hh) * N + I0 + p) * h + o;
+        v[2 * hh] = hh < H ? load4(wa + at) : zero4();
+        v[2 * hh + 1] = hh < H ? load4(dws + at) : zero4();
+      }
+#pragma unroll
+      for (int j = 0; j < 2 * kMaxH; ++j)
+        if (j < 2 * H) store4(s_v + (p * 2 * H + j) * h + o, v[j]);
+    }
+    store4(s_bias + o, load4(bias + o));
+    for (int r = 0; r < nwarps * P; ++r) store4(s_pool + r * h + o, zero4());
+  }
+  for (int k = threadIdx.x; k < np * HN; k += blockDim.x) {
+    const int p = k / HN, hh = (k % HN) / N, n = k % N;
+    const float* t = terms + (bh0 + hh) * kTerms * NN + n * N + I0 + p;
+    const float Z = t[kZ * NN];
+    s_rz[k] = 1.0f / Z;
+    s_wz[k] = t[kCorr * NN] / Z;
+    s_wr[k] = t[kRep * NN] / Z;
+  }
+  bool valid[kLaneChunks];
+#pragma unroll
+  for (int k = 0; k < kLaneChunks; ++k) valid[k] = lane + 32 * k < h4;
+  __syncthreads();
+
+  float* pool = s_pool + warp * P * h;
+  for (int n = warp; n < N; n += nwarps) {
+    const int kd = n - I0;  // the counterfactual whose diagonal row n is
+    const bool has_diag = kd >= 0 && kd < np;
+    float4 nm[kMaxH][kLaneChunks];
+    // fc[n, I0 + p] from the base rows in nm, its LayerNorm, and its share
+    // of the pool
+    auto add_row = [&](int p, bool diag) {
+      float4 f[kLaneChunks];
+      const float s = rebuild_fc(f, nm, s_rz, s_wz, s_wr, p * HN + n, s_v + p * 2 * H * h,
+                                 s_bias, x_a, static_cast<size_t>(b) * N + n, delta,
+                                 static_cast<size_t>(b) * N + I0 + p, diag, N, H, h, valid,
+                                 lane);
+      const float rstd = center_row(f, s, h, valid);
+#pragma unroll
+      for (int k = 0; k < kLaneChunks; ++k) {
+        if (!valid[k]) continue;
+        float* at = pool + p * h + (lane + 32 * k) * kCols;
+        const float4 q = load4(at);
+        store4(at, make_float4(q.x + f[k].x * rstd, q.y + f[k].y * rstd,
+                               q.z + f[k].z * rstd, q.w + f[k].w * rstd));
+      }
+    };
+    // the base rows of (n, I): num_h[n] for I != n, shared by the block's
+    // off-diagonal rows; num2_h[n] for the diagonal row (n = I), built last
+    if (np > 1 || !has_diag) {
+      load_base_rows(nm, base, 2 * bh0 * N + n, N, H, h, valid, lane);
+#pragma unroll 1
+      for (int p = 0; p < np; ++p)
+        if (p != kd) add_row(p, false);
+    }
+    if (has_diag) {
+      load_base_rows(nm, base, 2 * bh0 * N + N + n, N, H, h, valid, lane);
+      add_row(kd, true);
+    }
+  }
+  __syncthreads();
+
+  // pooled[b, I] = (sum over the warps, in order) / N
+  const float rows = static_cast<float>(N);
+  for (int k = threadIdx.x; k < np * h4; k += blockDim.x) {
+    const int p = k / h4, o = (k % h4) * kCols;
+    float4 acc = load4(s_pool + p * h + o);
+    for (int w = 1; w < nwarps; ++w) acc = add4(acc, load4(s_pool + (w * P + p) * h + o));
+    store4(out + (static_cast<size_t>(b) * N + I0 + p) * h + o,
+           make_float4(acc.x / rows, acc.y / rows, acc.z / rows, acc.w / rows));
+  }
+}
+
 // ── Backward, stage 1: the rows of one (b, I) ─────────────────────────────
 
-__global__ void __launch_bounds__(kBwdThreads, 4) cf_bwd_rows_kernel(
+__global__ void __launch_bounds__(kThreads, 4) cf_bwd_rows_kernel(
     const float* __restrict__ terms, const float* __restrict__ base,
     const float* __restrict__ wa, const float* __restrict__ dws,
     const float* __restrict__ x_a, const float* __restrict__ delta,
@@ -588,53 +633,13 @@ __global__ void __launch_bounds__(kBwdThreads, 4) cf_bwd_rows_kernel(
 
   for (int n = warp; n < N; n += nwarps) {
     const bool diag = n == I;
-    // fc[n, I] = sum over heads of num_h / Z + R + x_a[n] (+ delta[I]), with
-    // R = bias + sum over heads of (corr / Z) wa_h[I] + (rep / Z) dws_h[I]
+    // fc[n, I] from the base rows (num[n], num2[I] on n = I), then the
+    // LayerNorm backward, two-pass statistics: f becomes y, then d_fc
     float4 f[kLaneChunks], nm[kMaxH][kLaneChunks];
-#pragma unroll
-    for (int k = 0; k < kLaneChunks; ++k) f[k] = zero4();
-#pragma unroll
-    for (int hh = 0; hh < kMaxH; ++hh) {
-      const float rz = hh < H ? s_rz[hh * N + n] : 0.f;
-      const float* row = base + (2 * (bh0 + hh) * N + (diag ? N + I : n)) * h;
-#pragma unroll
-      for (int k = 0; k < kLaneChunks; ++k) {
-        const int o = (lane + 32 * k) * kCols;
-        nm[hh][k] = (hh < H && valid[k]) ? load4(row + o) : zero4();
-        f[k] = make_float4(f[k].x + nm[hh][k].x * rz, f[k].y + nm[hh][k].y * rz,
-                           f[k].z + nm[hh][k].z * rz, f[k].w + nm[hh][k].w * rz);
-      }
-    }
-    s = 0.f;
-#pragma unroll
-    for (int k = 0; k < kLaneChunks; ++k) {
-      if (!valid[k]) continue;
-      const int o = (lane + 32 * k) * kCols;
-      const float4 xa = load4(x_a + (static_cast<size_t>(b) * N + n) * h + o);
-      const float4 dl = diag ? load4(delta + bI * h + o) : zero4();
-      float4 r = load4(s_bias + o);
-#pragma unroll
-      for (int hh = 0; hh < kMaxH; ++hh) {
-        if (hh >= H) continue;
-        const float wz = s_wz[hh * N + n], wr = s_wr[hh * N + n];
-        const float4 w = load4(s_v + (2 * hh) * h + o), u = load4(s_v + (2 * hh + 1) * h + o);
-        r = make_float4((r.x + wz * w.x) + wr * u.x, (r.y + wz * w.y) + wr * u.y,
-                        (r.z + wz * w.z) + wr * u.z, (r.w + wz * w.w) + wr * u.w);
-      }
-      f[k] = residual(add4(f[k], r), xa, zero4(), dl, diag);
-      s += sum4(f[k]);
-    }
-    // LayerNorm backward, two-pass statistics; f becomes xc, y, then d_fc
-    const float mu = warp_sum(s) / cols;
-    s = 0.f;
-#pragma unroll
-    for (int k = 0; k < kLaneChunks; ++k) {
-      f[k] = valid[k] ? make_float4(f[k].x - mu, f[k].y - mu, f[k].z - mu,
-                                    f[k].w - mu)
-                      : zero4();
-      s += dot4(f[k], f[k]);
-    }
-    const float rstd = 1.0f / sqrtf(warp_sum(s) / cols + kLnEps);
+    load_base_rows(nm, base, 2 * bh0 * N + (diag ? N + I : n), N, H, h, valid, lane);
+    s = rebuild_fc(f, nm, s_rz, s_wz, s_wr, n, s_v, s_bias, x_a, static_cast<size_t>(b) * N + n,
+                   delta, bI, diag, N, H, h, valid, lane);
+    const float rstd = center_row(f, s, h, valid);
     s = 0.f;
 #pragma unroll
     for (int k = 0; k < kLaneChunks; ++k) {
@@ -718,7 +723,7 @@ __global__ void __launch_bounds__(kBwdThreads, 4) cf_bwd_rows_kernel(
 
 // ── Backward, stage 2: the sums over I of one group ───────────────────────
 
-__global__ void __launch_bounds__(kBwdThreads) cf_bwd_sums_kernel(
+__global__ void __launch_bounds__(kThreads) cf_bwd_sums_kernel(
     const float* __restrict__ terms, const float* __restrict__ d_fc,
     float* __restrict__ d_num, float* __restrict__ d_xa,
     float* __restrict__ d_bias_part, int N, int H, int h) {
@@ -938,8 +943,6 @@ __global__ void __launch_bounds__(kProductThreads) cf_bwd_products_kernel(
   });
 }
 
-int threads_for(int h) { return ((h / kCols + 31) / 32) * 32; }
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel* kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -948,16 +951,11 @@ cudaError_t allow_smem(Kernel* kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-bool takes(int B, int N, int H, int h, int threads) {
-  return h % kCols == 0 && h > 0 && threads <= 1024 && B > 0 && N > 0 &&
-         N <= kMaxN && H > 0;
-}
-
-// The backward's kernels take h % 4 == 0 and h <= 512 (one row a warp, 16
-// columns a lane; one block of kBwdThreads threads of 4 columns), N <= 32
-// and H <= 4 (the heads' dot products share one warp reduction); the Python
-// wrapper refuses other shapes first.
-bool backward_shape_ok(int B, int N, int H, int h) {
+// The kernels take h % 4 == 0 and h <= 512 (one row a warp, 16 columns a
+// lane; one block of kThreads threads of 4 columns), N <= 32 and H <= 4 (the
+// heads' dot products share one warp reduction); the Python wrapper refuses
+// other shapes first.
+bool shape_ok(int B, int N, int H, int h) {
   return B > 0 && N > 0 && N <= kMaxN && H > 0 && H <= kMaxH && h > 0 &&
          h % kCols == 0 && h <= kMaxCols;
 }
@@ -966,47 +964,44 @@ bool backward_shape_ok(int B, int N, int H, int h) {
 
 extern "C" {
 
-// pooled (B, N, h). Returns cudaGetLastError() after the launch (0 =
-// success), or cudaErrorInvalidValue for shapes the kernel does not take.
-// Needs h % 4 == 0 and 16-byte aligned pointers (checked by the wrapper).
-int cf_attention_fwd_launch(const float* S_aa, const float* S_as,
-                            const float* S_sa, const float* S_ss,
-                            const float* wa, const float* dws,
-                            const float* x_a, const float* delta,
-                            const float* bias, float* out, int B, int N, int H,
-                            int h, float sqrt_d, void* stream) {
-  const int threads = threads_for(h);
-  if (!takes(B, N, H, h, threads))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (static_cast<size_t>(H) * N * N +
-                       3 * static_cast<size_t>(H) * N + (threads / 32) * kRows) *
-                      sizeof(float);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(cf_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cf_fwd_kernel<<<B * N, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias, out, N, H, h, sqrt_d);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The backward, in four launches on one stream (the Python wrapper makes
-// them in this order). Each returns cudaGetLastError() after its launches
-// (0 = success), or cudaErrorInvalidValue for shapes the kernels do not take
-// (backward_shape_ok). Scratch: terms (B, H, 5, N, N), base (B, H, 2N, h),
-// d_fc (B, N, N, h) as [b, I, n, o], d_scores (B, H, 2, N, N), d_num
+// Both directions start with stage 0, then the forward takes one launch
+// (stage 1, rows) and the backward three (rows, sums, products), on one
+// stream in that order (the Python wrapper makes them). Each entry point
+// returns cudaGetLastError() after its launches (0 = success), or
+// cudaErrorInvalidValue for shapes the kernels do not take (shape_ok). Needs
+// 16-byte aligned pointers (checked by the wrapper). Scratch: terms
+// (B, H, 5, N, N), base (B, H, 2N, h); the backward's also d_fc
+// (B, N, N, h) as [b, I, n, o], d_scores (B, H, 2, N, N), d_num
 // (B, H, N, h), d_bias_part (B, h).
 
-// Stage 0: terms and base.
+// Stage 0 of both: terms and base.
 int cf_bwd_base_launch(const float* S_aa, const float* S_as, const float* S_sa,
                        const float* S_ss, const float* wa, float* terms,
                        float* base, int B, int N, int H, int h, float sqrt_d,
                        void* stream) {
-  if (!backward_shape_ok(B, N, H, h)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(B, N, H, h)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(3 * N * N + 4 * N) * sizeof(float);
-  cf_bwd_base_kernel<<<B * H, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  cf_bwd_base_kernel<<<B * H, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       S_aa, S_as, S_sa, S_ss, wa, terms, base, N, h, sqrt_d);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The forward's stage 1: pooled (B, N, h) into out.
+int cf_fwd_rows_launch(const float* terms, const float* base, const float* wa,
+                       const float* dws, const float* x_a, const float* delta,
+                       const float* bias, float* out, int B, int N, int H, int h,
+                       void* stream) {
+  if (!shape_ok(B, N, H, h)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(fwd_rows_smem_floats(N, H, h)) * sizeof(float);
+  const cudaError_t err = allow_smem(cf_fwd_rows_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = B * ((N + kFwdPerBlock - 1) / kFwdPerBlock);
+  cf_fwd_rows_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      terms, base, wa, dws, x_a, delta, bias, out, N, H, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's stages 1 to 3.
 
 // Stage 1: d_fc, dS_as, dS_ss, d_dws, d_delta, d_scores, and d_wa's first term.
 int cf_bwd_rows_launch(const float* terms, const float* base, const float* wa,
@@ -1015,11 +1010,11 @@ int cf_bwd_rows_launch(const float* terms, const float* base, const float* wa,
                        float* dS_as, float* dS_ss, float* d_wa, float* d_dws,
                        float* d_delta, float* d_scores, int B, int N, int H,
                        int h, float sqrt_d, void* stream) {
-  if (!backward_shape_ok(B, N, H, h)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(B, N, H, h)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>((2 * H + 1) * h + 6 * H * N) * sizeof(float);
   cudaError_t err = allow_smem(cf_bwd_rows_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cf_bwd_rows_kernel<<<B * N, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  cf_bwd_rows_kernel<<<B * N, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       terms, base, wa, dws, x_a, delta, bias, dout, d_fc, dS_as, dS_ss, d_wa,
       d_dws, d_delta, d_scores, N, H, h, sqrt_d);
   return static_cast<int>(cudaGetLastError());
@@ -1029,10 +1024,10 @@ int cf_bwd_rows_launch(const float* terms, const float* base, const float* wa,
 int cf_bwd_sums_launch(const float* terms, const float* d_fc, float* d_num,
                        float* d_xa, float* d_bias_part, float* d_bias, int B,
                        int N, int H, int h, void* stream) {
-  if (!backward_shape_ok(B, N, H, h)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(B, N, H, h)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(H * N * N) * sizeof(float);
-  cf_bwd_sums_kernel<<<B, kBwdThreads, smem, s>>>(terms, d_fc, d_num, d_xa,
+  cf_bwd_sums_kernel<<<B, kThreads, smem, s>>>(terms, d_fc, d_num, d_xa,
                                                   d_bias_part, N, H, h);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1047,7 +1042,7 @@ int cf_bwd_products_launch(const float* terms, const float* wa,
                            const float* d_scores, float* dS_aa, float* dS_sa,
                            float* d_wa, int B, int N, int H, int h, float sqrt_d,
                            void* stream) {
-  if (!backward_shape_ok(B, N, H, h)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(B, N, H, h)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(products_smem_floats(N, h)) * sizeof(float);
   cudaError_t err = allow_smem(cf_bwd_products_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -163,14 +163,15 @@ def test_stage_entry_points_are_registered():
     stage 1 terms, base, wa, dws, x_a, delta, bias, dout and its seven
     outputs; stage 2 terms, d_fc and its four outputs; stage 3 terms, wa,
     d_num, d_delta, d_scores and its three outputs; each then (B, N, H, h),
-    √d where the stage needs it, and the stream. The forward (K5f) is one
-    entry point."""
+    √d where the stage needs it, and the stream. The forward (K5f) is stage
+    0 and its own rows stage: terms, base, wa, dws, x_a, delta, bias and
+    pooled, then (B, N, H, h) and the stream."""
     entries = _cuda.SIGNATURES["cf_attention"]
     ptr, num, real = _cuda._P, _cuda._I, _cuda._F
     shape = [num] * 4
     assert entries == {
-        "cf_attention_fwd_launch": [ptr] * 10 + shape + [real, ptr],
         "cf_bwd_base_launch": [ptr] * 7 + shape + [real, ptr],
+        "cf_fwd_rows_launch": [ptr] * 8 + shape + [ptr],
         "cf_bwd_rows_launch": [ptr] * 15 + shape + [real, ptr],
         "cf_bwd_sums_launch": [ptr] * 6 + shape + [ptr],
         "cf_bwd_products_launch": [ptr] * 8 + shape + [real, ptr],
