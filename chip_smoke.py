@@ -15,9 +15,14 @@ Phases, each of which must pass for the run to pass:
      PyTorch version on the same inputs, made from a numpy seed, with the
      tolerance printed beside the error; the median device time of each
      over 25 runs after warm-up; and the least time the card could take
-     (bound). K3f (``tail_forward.cu``, its product in 3xTF32 on the
-     tensor cores) is also held at h = 128 and at a small ragged shape,
-     two calls of it must give the same bits, and its time is printed
+     (bound). Phase 2a also prints the launch floor (an empty kernel under
+     the same timing) and ptxas's registers and spills for K1 and K2, and
+     holds K1 at bench.py's E = 32768 too, as phase 2g holds K4's daisy
+     form with observations: against the plain version, two calls giving
+     the same bits, the kernel alone timed beside its bound there. K3f
+     (``tail_forward.cu``, its product in 3xTF32 on the tensor cores) is
+     also held at h = 128 and at a small ragged shape, two calls of it
+     must give the same bits, and its time is printed
      beside the bound of its route and that of a float32 CUDA-core route,
      with ptxas's registers and spills. K3b's seven and K5b's nine
      cotangents come from
@@ -50,8 +55,9 @@ Phases, each of which must pass for the run to pass:
      its plain version in its four compiled forms (daisy, lily, dandelion,
      and daisy without observation tiles): integer and boolean tiles
      exactly, but for decision inputs within 16 ulps of their thresholds
-     (the exemptions are counted), floats to the printed tolerance; and
-     prints how far a 200-step free run of each drifts from the plain one;
+     (the exemptions are counted), floats to the printed tolerance, two
+     calls giving the same bits; and prints ptxas's registers and spills
+     and how far a 200-step free run of each drifts from the plain one;
   3. the slice: ``configs/DirGate_dandelion.yaml`` through the port's
      loader, cut to E = 1024 arenas and a 200-decision horizon, drives
      ``DirectionalGateEnv.reset`` and ``POCATrainer.rollout`` (env step,
@@ -65,8 +71,8 @@ Phases, each of which must pass for the run to pass:
      composed env step (K1, K2, K3f), then one whole training iteration
      with ``fused_env_step=True`` (K4 once per env step, K2 never, K1 only
      for the reset's observations), then the env arena-steps/s of both env
-     paths. Every kernel's launch count must show that each path went
-     through it, and each iteration's agent-decisions/s is printed. A small
+     paths at E = 1024 and at bench.py's E = 32768. Every kernel's launch
+     count must show that each path went through it, and each iteration's agent-decisions/s is printed. A small
      full-width rollout and update (E = 4, T = 4, h = 512) is then held
      against the same rollout and update on the CPU, where every op takes
      its plain version: dandelion on both critic paths, daisy on both env
@@ -100,6 +106,7 @@ PEAK_TF32_FLOPS = 495e12            # dense, on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 E_MAIN, N_MAIN = 1024, 20           # arenas × robots on the main path
+E_BENCH = 32768                     # bench.py's arenas: K1, K4 and the env rate
 H_MAIN, HID_MAIN = 4, 512           # critic heads × hidden width
 HORIZON = 200                       # decisions in the smoke rollout
 RUNS, WARMUP = 25, 3                # timed runs per function
@@ -209,67 +216,137 @@ def _arena_poses(rng, cfg, E, N):
     return pos, yaw
 
 
-def _sensor_work(pos, yaw, cfg, n_seg):
+def _sensor_work(pos, yaw, cfg, walls):
     """Bytes and float32 operations of one pairwise_sensors call on these
-    inputs. Per ordered pair: the squared distance and both distances (13);
-    per pair inside the proximity range, the clipped reading and the 8-ray
-    cone test (44); per pair inside the RAB range, the bearing and the four
-    sums (22); per robot and wall segment, the 8-ray intersection (162);
-    per robot, the sensor directions and the outputs (65). Transcendentals
-    count as one operation."""
+    inputs, the least the function needs, with what depends on the data
+    counted on this data. Per ordered pair: the squared distance and both
+    distances (13); per pair inside the proximity reach, the clipped reading
+    and the 8-ray cone test (44); per pair inside the RAB range, the bearing
+    and the four sums (22). Walls, ``walls`` (S, 4) as numpy: per robot and
+    segment, the offset to its start and the numerator of t with its
+    magnitude, which no ray changes (6); per ray and segment, the
+    denominator, its test and ε, and the range test |num| ≤ |den|·reach
+    that spares the divisions of a ray that cannot hit (9); per candidate
+    passing that, t and its two bounds (3); per t that passes, u's
+    numerator, quotient and bounds (6); per hit, the reading (3). Per
+    robot, the sensor directions and the outputs (65). Transcendentals and
+    divisions count one operation each."""
+    from swarmacb_torch.env.geometry import EPUCK_SENSOR_ANGLES
+
     E, N = yaw.shape
     d = np.sqrt(((pos[:, None] - pos[:, :, None]) ** 2).sum(-1))
     off = ~np.eye(N, dtype=bool)[None]
     n_prox = int(((d < cfg.prox_range + cfg.robot_radius) & off).sum())
     n_rab = int(((d < cfg.rab_range) & off).sum())
-    flops = 13 * E * N * N + 44 * n_prox + 22 * n_rab + E * N * (162 * n_seg + 65)
+    # the wall candidates, in float32 as the kernel takes them
+    f32 = np.float32
+    ang = EPUCK_SENSOR_ANGLES.astype(np.float64)
+    cos_a, sin_a = np.cos(ang).astype(f32)[:, None], np.sin(ang).astype(f32)[:, None]
+    ax, ay = walls[:, 0], walls[:, 1]
+    sx, sy = walls[:, 2] - walls[:, 0], walls[:, 3] - walls[:, 1]
+    reach = f32(cfg.prox_range) * f32(1.0 + 2.0 ** -20)
+    n_t = n_u = n_hit = 0
+    for e0 in range(0, E, 1024):
+        px, py = (pos[e0:e0 + 1024, :, None, None, k] for k in (0, 1))  # (e, N, 1, 1)
+        th = yaw[e0:e0 + 1024, :, None, None]
+        wdx = cos_a * np.cos(th) - sin_a * np.sin(th)                     # (e, N, 8, 1)
+        wdy = cos_a * np.sin(th) + sin_a * np.cos(th)
+        rx, ry = ax - px, ay - py                                         # (e, N, 1, S)
+        num = rx * sy - ry * sx
+        den = wdx * sy - wdy * sx                                         # (e, N, 8, S)
+        cand = (np.abs(den) > f32(1e-8)) & (np.abs(num) <= np.abs(den + f32(1e-12)) * reach)
+        den = np.where(cand, den + f32(1e-12), f32(1))
+        t_ok = cand & (num / den >= 0) & (num / den <= f32(cfg.prox_range))
+        u = (rx * wdy - ry * wdx) / den
+        n_t += int(cand.sum())
+        n_u += int(t_ok.sum())
+        n_hit += int((t_ok & (u >= 0) & (u <= 1)).sum())
+    n_seg = walls.shape[0]
+    flops = (13 * E * N * N + 44 * n_prox + 22 * n_rab
+             + E * N * ((6 + 8 * 9) * n_seg + 65) + 3 * n_t + 6 * n_u + 3 * n_hit)
     n_bytes = 4 * (E * N * 3 + 24 + 4 * n_seg) + 4 * E * N * 15
     return n_bytes, flops
 
 
+PAIRWISE_KERNELS = ("pairwise_sensors_kernel", "robot_collisions_kernel")
+# (E, N) that leave K1's last block ragged, at 4, 4 and 2 arenas a block
+K1_RAGGED = ((37, 7), (999, 31), (45, 10))
+
+
+def _bench_keys(at_bench: dict) -> dict:
+    """A kernel's time and bound at E_BENCH, for its JSON row."""
+    return {f"e{E_BENCH}_ms": at_bench["ms"], f"e{E_BENCH}_bound_ms": at_bench["bound_ms"]}
+
+
 def phase_pairwise(torch, ops, cfg, walls, cycles_per_ms):
     print("== phase 2a: K1 pairwise_sensors and K2 resolve_robot_collisions "
-          f"(E={E_MAIN}, N={N_MAIN})", flush=True)
+          f"(E={E_MAIN} and, K1 alone, E={E_BENCH}; N={N_MAIN}; K1 also at (E, N) in "
+          f"{K1_RAGGED})", flush=True)
     from swarmacb_torch.env import physics
-    from swarmacb_torch.ops import pairwise
+    from swarmacb_torch.ops import _cuda, pairwise
 
-    rng = np.random.default_rng(SEED)
-    pos_np, yaw_np = _arena_poses(rng, cfg, E_MAIN, N_MAIN)
-    pos = torch.from_numpy(pos_np).to(DEVICE)
-    yaw = torch.from_numpy(yaw_np).to(DEVICE)
+    for name, info in ptxas_report(_cuda.build_log("pairwise"), PAIRWISE_KERNELS).items():
+        print(f"  ptxas {name}: {info}", flush=True)
+    floor = device_ms(torch, lambda: torch.cuda._sleep(0), cycles_per_ms)
+    print(f"  launch floor: an empty kernel (torch.cuda._sleep(0)) {floor:.4f} ms",
+          flush=True)
     kw = dict(prox_range=cfg.prox_range, robot_radius=cfg.robot_radius,
               rab_range=cfg.rab_range, alpha_rab=cfg.alpha_parameter,
               wall_segments=walls)
-    rows = []
-
     # K1. prox and ztilde: same formulas, comparisons and max-reductions
     # (exact up to libm ulps); the RAB sums over up to N − 1 neighbours of
     # terms up to 1/(2r) ≈ 14 run in another order than PyTorch's sums.
     tol = {"prox": (1e-6, 0.0), "ztilde": (1e-6, 0.0), "rab_proj": (1e-5, 1e-5),
            "attr_x": (1e-5, 1e-5), "attr_y": (1e-5, 1e-5)}
-    got = ops.pairwise_sensors(pos, yaw, **kw)
-    want = pairwise.pairwise_sensors_plain(pos, yaw, **kw)
-    torch.cuda.synchronize()
-    worst = 0.0
-    for (name, (atol, rtol)), g, w in zip(tol.items(), got, want):
-        err, ok = max_err(g, w, atol, rtol)
-        worst = max(worst, err)
-        check(ok and tuple(g.shape) == tuple(w.shape),
-              f"K1 {name} {tuple(g.shape)}: max|Δ| {err:.3e} "
-              f"(tolerance {atol:g} + {rtol:g}·|plain|)")
-    check(float(got[0].max()) > 0 and float(got[2].abs().max()) > 0,
-          "K1 inputs reach walls and neighbours (non-trivial readings)")
-    ms = device_ms(torch, lambda: ops.pairwise_sensors(pos, yaw, **kw), cycles_per_ms)
-    plain = device_ms(torch, lambda: pairwise.pairwise_sensors_plain(pos, yaw, **kw),
-                      cycles_per_ms)
-    b_ms, b_by = bound_ms(*_sensor_work(pos_np, yaw_np, cfg, walls.shape[0]))
-    rows.append(dict(name="pairwise_sensors", route="cuda",
-                     source="swarmacb_torch/ops/csrc/pairwise.cu",
-                     replaces="swarmacb_tpu/ops/pairwise.py:145",
-                     max_abs_err=worst, ms=ms, plain_ms=plain,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    print(f"  K1 kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
-          f"({b_by})", flush=True)
+    k1 = {}
+    for E, N in ((E_MAIN, N_MAIN), (E_BENCH, N_MAIN), *K1_RAGGED):
+        rng = np.random.default_rng(SEED)
+        pos_np, yaw_np = _arena_poses(rng, cfg, E, N)
+        pos = torch.from_numpy(pos_np).to(DEVICE)
+        yaw = torch.from_numpy(yaw_np).to(DEVICE)
+        call = lambda: ops.pairwise_sensors(pos, yaw, **kw)  # noqa: E731
+        got, again = call(), call()
+        want = pairwise.pairwise_sensors_plain(pos, yaw, **kw)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for (name, (atol, rtol)), g, w in zip(tol.items(), got, want):
+            err, ok = max_err(g, w, atol, rtol)
+            worst = max(worst, err)
+            check(ok and tuple(g.shape) == tuple(w.shape),
+                  f"K1 E={E} N={N} {name} {tuple(g.shape)}: max|Δ| {err:.3e} "
+                  f"(tolerance {atol:g} + {rtol:g}·|plain|)")
+        check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+              f"K1 E={E} N={N}: two calls give the same bits")
+        check(float(got[0].max()) > 0 and float(got[2].abs().max()) > 0,
+              f"K1 E={E} N={N}: inputs reach walls and neighbours (non-trivial readings)")
+        del got, again, want
+        k1[(E, N)] = dict(max_abs_err=worst)
+        if N != N_MAIN:   # a ragged shape: held, not timed
+            continue
+        b_ms, b_by = bound_ms(*_sensor_work(pos_np, yaw_np, cfg, walls.cpu().numpy()))
+        ms = device_ms(torch, call, cycles_per_ms)
+        k1[(E, N)].update(ms=ms, bound_ms=b_ms, bound_by=b_by)
+        if E != E_MAIN:   # the plain version is not timed at 32 times the size
+            print(f"  K1 E={E} kernel {ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})",
+                  flush=True)
+            continue
+        pos_main = pos
+        # the constants built in every call, as before they were cached
+        per_call = device_ms(torch, lambda: (pairwise.sensor_constants(walls), call()),
+                             cycles_per_ms)
+        plain = device_ms(torch, lambda: pairwise.pairwise_sensors_plain(pos, yaw, **kw),
+                          cycles_per_ms)
+        k1[(E, N)]["plain_ms"] = plain
+        print(f"  K1 E={E} kernel {ms:.4f} ms (with the constants built in the call "
+              f"{per_call:.4f} ms), plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})",
+              flush=True)
+    rows = [dict(name="pairwise_sensors", route="cuda",
+                 source="swarmacb_torch/ops/csrc/pairwise.cu",
+                 replaces="swarmacb_tpu/ops/pairwise.py:145", library_ms=None,
+                 **{**k1[(E_MAIN, N_MAIN)],
+                    "max_abs_err": max(v["max_abs_err"] for v in k1.values())},
+                 **_bench_keys(k1[(E_BENCH, N_MAIN)]))]
+    pos = pos_main
 
     # K2. Sums of at most N − 1 pushes of ≤ r each, in another order.
     got = ops.resolve_robot_collisions(pos, cfg.robot_radius)
@@ -962,6 +1039,9 @@ def phase_critic_paths(torch, cycles_per_ms):
 K4_FORMS = (("daisy", True), ("lily", True), ("dandelion", True), ("daisy", False))
 K4_TIE_ULPS = 16
 K4_FREE_STEPS = 200
+# shapes that leave lanes of a block idle: a partial last warp row (4 ∤ N)
+# and padded arenas (E below the lanes' multiple of 128), both env branches
+K4_RAGGED = (("daisy", True, 37, 13), ("dandelion", True, 1000, 7))
 # kernel against plain on the card, from one state: positions, yaw and the
 # readings run the same float32 operations (the sums over the 8 sensors in
 # one order); the sums over up to 19 neighbours (RAB vectors, push-outs)
@@ -978,7 +1058,7 @@ def _k4_state(torch, variant, E, N, seed):
     from swarmacb_torch.env import DirectionalGateEnv, lanes
     from swarmacb_torch.ops import fused_step
 
-    cfg = DirectionalGateEnvCfg(variant=variant, num_envs=E)
+    cfg = DirectionalGateEnvCfg(variant=variant, num_envs=E, num_agents=N)
     env = DirectionalGateEnv(cfg, device=DEVICE)
     rng = np.random.default_rng(seed)
     pos, yaw = _arena_poses(rng, cfg, E, N)
@@ -1094,20 +1174,31 @@ def _k4_free_run(torch, fn, env, k, tiles, rng_seed, steps):
 
 
 def phase_fused_step(torch, ops, cycles_per_ms):
-    """K4 against its plain version in each of its four compiled forms."""
-    from swarmacb_torch.ops import fused_step
+    """K4 against its plain version in each of its four compiled forms at
+    E_MAIN, in the fused rollout's form (daisy, with observations) at
+    E_BENCH, and at K4_RAGGED's shapes (held, not timed)."""
+    from swarmacb_torch.ops import _cuda, fused_step
 
-    E, N = E_MAIN, N_MAIN
     forms = {}
-    for variant, want_obs in K4_FORMS:
+    for variant, want_obs, E, N in (*((v, w, E_MAIN, N_MAIN) for v, w in K4_FORMS),
+                                    ("daisy", True, E_BENCH, N_MAIN), *K4_RAGGED):
+        tag = f"K4 {variant} E={E} N={N}"
         print(f"== phase 2g: K4 fused_env_step, {variant}"
               f"{'' if want_obs else ', want_obs=False'} (E={E}, N={N})", flush=True)
+        if not forms:
+            for name, info in ptxas_report(_cuda.build_log("fused_step"),
+                                           ("fused_step_kernel",)).items():
+                print(f"  ptxas {name}: {info}", flush=True)
         env, k, tiles, acts, draws, spawn = _k4_state(torch, variant, E, N, SEED + 11)
         cfg = env.cfg
         args = (tiles, acts, draws, spawn, cfg)
         got = ops.fused_env_step(*args, want_obs=want_obs)
+        again = ops.fused_env_step(*args, want_obs=want_obs)
         want = fused_step.fused_env_step_plain(*args, want_obs=want_obs)
         torch.cuda.synchronize()
+        flat = lambda out: [*out[0].values(), out[1], out[2], *out[3]]  # noqa: E731
+        check(all(bool(torch.equal(a, b)) for a, b in zip(flat(got), flat(again))),
+              f"{tag}: two calls give the same bits")
         robot_tie, arena_tie = _k4_ties(torch, k, *args, want_obs)
         exempt, stray, off = 0, [], torch.zeros_like(robot_tie)
         ints = [(n, robot_tie) for n in fused_step.MACHINE_TILES if n in got[0]]
@@ -1120,9 +1211,9 @@ def phase_fused_step(torch, ops, cycles_per_ms):
             if bool((bad & ~tie.expand_as(bad)).any()):
                 stray.append(name)
             off |= bad.any(0, keepdim=True) if bad.shape[0] == 1 else bad
-        check(not stray, f"K4 {variant}: integer and boolean tiles equal to the plain "
-                         f"version's ({exempt} tie exemptions within {K4_TIE_ULPS} ulps; "
-                         f"mismatches away from a tie: {stray or 'none'})")
+        check(not stray, f"{tag}: integer and boolean tiles equal to the plain "
+                         f"version's ({exempt} tie exemptions within {K4_TIE_ULPS} "
+                         f"ulps; mismatches away from a tie: {stray or 'none'})")
         keep = ~off.any(0)
         worst = 0.0
         floats = [(n, got[0][n], want[0][n]) for n in ("px", "py", "yaw")]
@@ -1134,25 +1225,35 @@ def phase_fused_step(torch, ops, cycles_per_ms):
             err, ok = max_err(g[:, keep], w[:, keep], K4_TOL[name], rtol)
             worst = max(worst, err)
             check(ok and g.shape == w.shape,
-                  f"K4 {variant} {name} {tuple(g.shape)}: max|Δ| {err:.3e} "
+                  f"{tag} {name} {tuple(g.shape)}: max|Δ| {err:.3e} "
                   f"(tolerance {K4_TOL[name]:g} + {rtol:g}·|plain|)")
         dones = int(got[2].sum())
         moved = int((got[0]["es"] != tiles["es"]).sum()) if "es" in tiles else -1
-        check(dones > 0, f"K4 {variant}: {dones} arenas reset, {float(got[1].abs().sum()):.0f}"
-                         f" reward counts, {moved} exploration latches moved")
+        check(dones > 0, f"{tag}: {dones} arenas reset, "
+                         f"{float(got[1].abs().sum()):.0f} reward counts, {moved} "
+                         "exploration latches moved")
+        del got, again, want
+        forms[(variant, want_obs, E, N)] = dict(max_abs_err=worst)
+        if N != N_MAIN:   # a ragged shape: held, not timed
+            continue
         ms = device_ms(torch, lambda: ops.fused_env_step(*args, want_obs=want_obs),
                        cycles_per_ms)
-        plain = device_ms(torch, lambda: fused_step.fused_env_step_plain(
-            *args, want_obs=want_obs), cycles_per_ms)
         n_bytes, n_flops = _k4_work(
             E, N, len(k.segments), len(k.faces),
             1 if (cfg.discrete_actions or want_obs) else 0, want_obs,
             variant in ("dandelion", "daisy"), cfg.discrete_actions)
         b_ms, b_by = bound_ms(n_bytes, n_flops)
+        forms[(variant, want_obs, E, N)].update(ms=ms, bound_ms=b_ms, bound_by=b_by)
+        work = f"bound {b_ms:.6f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, {n_flops / 1e9:.4f} GFLOP)"
+        if E != E_MAIN:   # the plain version is not timed at 32 times the size
+            print(f"  K4 {variant} E={E} kernel {ms:.4f} ms, {work}", flush=True)
+            continue
+        plain = device_ms(torch, lambda: fused_step.fused_env_step_plain(
+            *args, want_obs=want_obs), cycles_per_ms)
+        forms[(variant, want_obs, E, N)]["plain_ms"] = plain
         print(f"  K4 {variant}{'' if want_obs else ' (no obs)'} kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
-              f"{n_flops / 1e9:.4f} GFLOP); no single PyTorch call computes this "
-              "function, so there is no library time", flush=True)
+              f"{plain:.4f} ms, {work}; no single PyTorch call computes this function, so "
+              "there is no library time", flush=True)
         # information, not a gate: where two float orders take a chaotic
         # trajectory apart
         a = _k4_free_run(torch, ops.fused_env_step, env, k, tiles, SEED + 12, K4_FREE_STEPS)
@@ -1164,15 +1265,14 @@ def phase_fused_step(torch, ops, cycles_per_ms):
         print(f"  K4 {variant} free run of {K4_FREE_STEPS} steps, kernel against plain: "
               f"largest position gap {gap:.3e} m, {n_int} integer tile entries differ",
               flush=True)
-        forms[(variant, want_obs)] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
-                                          bound_ms=b_ms, bound_by=b_by)
     # the JSON row: the form the main path (the fused daisy rollout) runs,
-    # with observations; the error is the largest over the four forms
+    # with observations; the error is the largest over every form and shape
     return [dict(name="fused_env_step", route="cuda",
                  source="swarmacb_torch/ops/csrc/fused_step.cu",
                  replaces="swarmacb_tpu/ops/fused_step.py:530", library_ms=None,
-                 **{**forms[("daisy", True)],
-                    "max_abs_err": max(f["max_abs_err"] for f in forms.values())})]
+                 **{**forms[("daisy", True, E_MAIN, N_MAIN)],
+                    "max_abs_err": max(f["max_abs_err"] for f in forms.values())},
+                 **_bench_keys(forms[("daisy", True, E_BENCH, N_MAIN)]))]
 
 
 # ── phase 3: the slice ───────────────────────────────────────────────────
@@ -1428,12 +1528,17 @@ def phase_daisy(torch, ops, card):
     print("  " + ", ".join(f"{k} {v:.5g}" for k, v in metrics.items()), flush=True)
     del trainer
 
-    gen.manual_seed(SEED + 3)
-    rates = {"composed": _env_rate(torch, env, gen, False),
-             "fused": _env_rate(torch, env, gen, True),
-             "fused, want_obs=False": _env_rate(torch, env, gen, True, want_obs=False)}
-    print(f"  daisy env arena-steps/s over {ENV_STEPS} steps at E={E} on {card}: "
-          + "; ".join(f"{k} {v:,.0f}" for k, v in rates.items()), flush=True)
+    # the env rates at the smoke cut's E and at bench.py's
+    for n_envs in (E, E_BENCH):
+        if n_envs != E:
+            env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant, num_envs=n_envs,
+                                                           **env_kw))
+        gen.manual_seed(SEED + 3)
+        rates = {"composed": _env_rate(torch, env, gen, False),
+                 "fused": _env_rate(torch, env, gen, True),
+                 "fused, want_obs=False": _env_rate(torch, env, gen, True, want_obs=False)}
+        print(f"  daisy env arena-steps/s over {ENV_STEPS} steps at E={n_envs} on {card}: "
+              + "; ".join(f"{k} {v:,.0f}" for k, v in rates.items()), flush=True)
     return launches
 
 
@@ -1634,7 +1739,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys}, "status": status,
-                                   **{k: r[k] for k in ("f32_bound_ms", "route_bound_ms")
+                                   **{k: r[k] for k in ("f32_bound_ms", "route_bound_ms",
+                                                        f"e{E_BENCH}_ms",
+                                                        f"e{E_BENCH}_bound_ms")
                                       if k in r}}
                                   for r in rows]}), flush=True)
     if failures:

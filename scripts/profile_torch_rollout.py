@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the port's dandelion acting path goes, on one NVIDIA GPU.
+"""Where the time of the port's acting path goes, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_rollout.py [--num_envs 1024] [--decisions 20]
+                                             [--config configs/DirGate_dandelion.yaml]
                                              [--trace build/rollout_trace.json]
 
-Loads ``configs/DirGate_dandelion.yaml`` through the port's loader (hidden
+Loads ``--config`` (dandelion by default) through the port's loader (hidden
 512x2, N = 20 robots), cuts it to ``--num_envs`` arenas, warms the rollout up,
 then collects ``--decisions`` decisions twice, first with no tracing and then
 under ``torch.profiler``, and prints
@@ -14,10 +15,10 @@ under ``torch.profiler``, and prints
     profiler's cost),
   - the device's busy share of the traced window (kernel and copy time over
     its wall time),
-  - device time and host time by stage: env step, critic state, actor,
-    critic value, all counterfactual baselines, and the rest of the loop
-    (the device time of a stage is that of the kernels inside its span on
-    the device's timeline),
+  - device time, host time and kernels by stage: env step, critic state,
+    actor, critic value, all counterfactual baselines, and the rest of the
+    loop (a stage's kernels are those inside its span on the device's
+    timeline),
   - the kernels that took the most device time,
 
 with the card's name and power limit, and a JSON line of the same numbers.
@@ -53,6 +54,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--num_envs", type=int, default=1024)
     ap.add_argument("--decisions", type=int, default=20)
+    ap.add_argument("--config", default="configs/DirGate_dandelion.yaml")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", default=None,
@@ -77,7 +79,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
 
-    _, variant, pcfg, env_ov = load_config(ROOT / "configs" / "DirGate_dandelion.yaml")
+    _, variant, pcfg, env_ov = load_config(ROOT / args.config)
     pcfg = dataclasses.replace(pcfg, seed=args.seed)
     env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
     env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant,
@@ -119,7 +121,7 @@ def main() -> int:
                    for ev in events if ev.device_type == DeviceType.CUDA
                    and ev.is_user_annotation and ev.name in STAGES)
     kernels = defaultdict(lambda: [0, 0.0])       # name → [count, device µs]
-    stages = defaultdict(lambda: [0.0, 0.0])      # name → [device µs, host µs]
+    stages = defaultdict(lambda: [0.0, 0.0, 0])   # name → [device µs, host µs, kernels]
     for ev in events:
         if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
             us = ev.time_range.elapsed_us()
@@ -129,6 +131,7 @@ def main() -> int:
                           if start <= ev.time_range.start and ev.time_range.end <= end),
                          "other")
             stages[stage][0] += us
+            stages[stage][2] += 1
         elif ev.device_type == DeviceType.CPU and ev.name in STAGES:
             stages[ev.name][1] += ev.cpu_time_total
     busy_us = sum(us for _, us in kernels.values())
@@ -140,10 +143,11 @@ def main() -> int:
           f"({decisions / wall_s:,.0f} agent-decisions/s), {traced_s * 1e3 / n:.3f} "
           f"ms traced, device busy {busy_us / (traced_s * 1e6):.1%} of the traced "
           f"window, on {card}", flush=True)
-    print("stage                    device ms/decision   host ms/decision")
+    print("stage                    device ms/decision   host ms/decision   kernels/decision")
     for name in (*STAGES, "other"):
-        dev_us, cpu_us = stages[name]
-        print(f"  {name:<22} {dev_us / 1e3 / n:>12.4f} {cpu_us / 1e3 / n:>18.4f}")
+        dev_us, cpu_us, count = stages[name]
+        print(f"  {name:<22} {dev_us / 1e3 / n:>12.4f} {cpu_us / 1e3 / n:>18.4f} "
+              f"{count / n:>18.1f}")
     print(f"top kernels by device time (of {busy_us / 1e3 / n:.4f} ms per decision):")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:args.top]
     for name, (count, us) in top:
@@ -158,6 +162,7 @@ def main() -> int:
         "kernels_per_decision": sum(c for c, _ in kernels.values()) / n,
         "stage_device_ms_per_decision": {k: v[0] / 1e3 / n for k, v in stages.items()},
         "stage_host_ms_per_decision": {k: v[1] / 1e3 / n for k, v in stages.items()},
+        "stage_kernels_per_decision": {k: v[2] / n for k, v in stages.items()},
         "top_kernels_ms_per_decision": {k[:110]: v[1] / 1e3 / n for k, v in top},
     }), flush=True)
     return 0

@@ -1,0 +1,142 @@
+#!/usr/bin/env python3
+"""The env kernels K1 (``pairwise_sensors``) and K4 (``fused_env_step``)
+and the env step of one checkout, timed on one NVIDIA GPU, to set two
+versions of the port side by side.
+
+    python3 scripts/time_env_kernels.py [--E 1024 32768] [--root DIR] [--label L]
+
+``--root`` times the package of another checkout (for instance the parent
+commit, unpacked with ``git archive``) through its public entry points,
+with this script's timing (``chip_smoke.device_ms``: the median device time
+of 25 calls between CUDA events, the stream kept busy so that no host gap
+enters an interval), so that parent and change can run in one call on one
+card. For each E (daisy, N = 20):
+
+  - K1 through its wrapper, as the env calls it, and
+    ``pairwise.sensor_constants`` alone, the packed constants that a
+    wrapper without a cache builds in every call;
+  - K4 on daisy tiles, with observations (the fused rollout's form) and
+    without;
+  - the device time of one fused ``step_lanes`` (draws included), and the
+    daisy arena-steps/s of it and of the composed ``env.step``
+    (``chip_smoke._env_rate``): where a step's wall time is well above its
+    device time, the host sets the rate. The composed step is not timed on
+    the device here: its ~500 launches a step, queued 25 steps deep, pace
+    the events by the host's launches; ``scripts/profile_torch_rollout.py``
+    traces its device time.
+
+Prints the card's name and power limit, ptxas's registers and spills for
+both kernels, and a JSON line. ``chip_smoke.py`` holds the kernels against
+their plain versions and times them beside their bounds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--E", type=int, nargs="+", default=[1024, 32768])
+    ap.add_argument("--root", type=Path, default=HERE,
+                    help="checkout whose swarmacb_torch is timed")
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+    root = args.root.resolve()
+    sys.path.insert(0, str(root))
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_env_kernels: no CUDA device is available", file=sys.stderr)
+        return 1
+    # this checkout's helpers, whichever package is timed
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import swarmacb_torch
+    from swarmacb_torch import ops
+    from swarmacb_torch.config import DirectionalGateEnvCfg, load_config
+    from swarmacb_torch.env import DirectionalGateEnv, lanes
+    from swarmacb_torch.ops import _cuda, pairwise
+
+    if Path(swarmacb_torch.__file__).resolve().parents[1] != root:
+        print(f"time_env_kernels: swarmacb_torch is not {root}'s", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"{card}; timing {root} {args.label}", flush=True)
+    _cuda.build(["pairwise", "fused_step"])
+    for name, kernels in (("pairwise", ("pairwise_sensors_kernel",)),
+                          ("fused_step", ("fused_step_kernel",))):
+        for k, info in cs.ptxas_report(_cuda.build_log(name), kernels).items():
+            print(f"  ptxas {k}: {info}", flush=True)
+    cyc = cs._sleep_cycles_per_ms(torch)
+
+    run, variant, pcfg, env_ov = load_config(HERE / "configs" / "DirGate_daisy.yaml")
+    env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
+    out = dict(card=card, root=str(root), label=args.label, E={})
+    for E in args.E:
+        res = out["E"][E] = {}
+        env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant, num_envs=E,
+                                                       **env_kw), device="cuda")
+        cfg, N = env.cfg, env.num_agents
+        rng = np.random.default_rng(cs.SEED)
+        pos_np, yaw_np = cs._arena_poses(rng, cfg, E, N)
+        pos = torch.from_numpy(pos_np).cuda()
+        yaw = torch.from_numpy(yaw_np).cuda()
+        kw = dict(prox_range=cfg.prox_range, robot_radius=cfg.robot_radius,
+                  rab_range=cfg.rab_range, alpha_rab=cfg.alpha_parameter,
+                  wall_segments=env.wall_segments)
+        res["k1_ms"] = cs.device_ms(torch, lambda: ops.pairwise_sensors(pos, yaw, **kw), cyc)
+        res["constants_ms"] = cs.device_ms(
+            torch, lambda: pairwise.sensor_constants(env.wall_segments), cyc)
+        print(f"  E={E} K1 through its wrapper {res['k1_ms']:.4f} ms; the packed constants "
+              f"alone {res['constants_ms']:.4f} ms", flush=True)
+
+        for want_obs in (True, False):
+            kenv, k, tiles, acts, draws, spawn = cs._k4_state(torch, "daisy", E, N,
+                                                              cs.SEED + 11)
+            k4 = lambda: ops.fused_env_step(  # noqa: E731
+                tiles, acts, draws, spawn, kenv.cfg, want_obs=want_obs)
+            ms = res[f"k4_{'obs' if want_obs else 'no_obs'}_ms"] = cs.device_ms(torch, k4, cyc)
+            print(f"  E={E} K4 daisy{'' if want_obs else ' (no obs)'}: {ms:.4f} ms",
+                  flush=True)
+            del kenv, tiles, acts, draws, spawn
+
+        # device ms of one fused step (the draws included): set beside the
+        # rates below, it says how much of a step the host takes
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(cs.SEED + 3)
+        st, _ = env.reset(gen)
+        ids = torch.randint(0, 6, (E, N), generator=gen, device="cuda", dtype=torch.int32)
+        cur, acts = lanes.state_to_lanes(env, st), lanes.actions_to_lanes(env, ids)
+        res["fused_step_device_ms"] = cs.device_ms(
+            torch, lambda: lanes.step_lanes(env, cur, acts), cyc)
+        print(f"  E={E} device ms of one fused env step: "
+              f"{res['fused_step_device_ms']:.4f}", flush=True)
+        del st, cur, acts
+        gen.manual_seed(cs.SEED + 3)
+        rates = {"composed": cs._env_rate(torch, env, gen, False),
+                 "fused": cs._env_rate(torch, env, gen, True),
+                 "fused_no_obs": cs._env_rate(torch, env, gen, True, want_obs=False)}
+        res["arena_steps_per_s"] = rates
+        print(f"  E={E} daisy env arena-steps/s: "
+              + "; ".join(f"{k} {v:,.0f}" for k, v in rates.items()), flush=True)
+        del env, pos, yaw
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -49,6 +49,7 @@ from ..config.poca_cfg import POCAConfig
 from ..env.directional_gate import DirectionalGateEnv
 from ..env import lanes as laneslib
 from ..models.networks import Actor, DiscreteActor, POCACritic
+from ..ops import baseline_tail, cf_attention
 from . import buffer as buf
 from . import losses
 from .buffer import Rollout
@@ -60,6 +61,18 @@ def _not_ported(cfg: POCAConfig) -> Optional[str]:
     if cfg.mixed_precision:
         return "mixed_precision=True: ROADMAP.md §1 item 10"
     return None
+
+
+def check_card_widths(device, num_agents: int, cfg: POCAConfig) -> None:
+    """Refuse, on a CUDA device, the widths that the critic kernels of the
+    configured path do not take (``ops.baseline_tail.check_widths`` on the
+    default path, ``ops.cf_attention.check_widths`` with
+    ``fused_attention``), with the kernels' own message. The CPU's plain
+    versions take any width."""
+    if torch.device(device).type != "cuda":
+        return
+    path = cf_attention if cfg.fused_attention else baseline_tail
+    path.check_widths(num_agents, cfg.critic_num_heads, cfg.hidden_dim)
 
 
 class POCATrainer:
@@ -82,6 +95,7 @@ class POCATrainer:
         if missing is not None:
             raise NotImplementedError(f"not ported yet — {missing}")
         self.device = env.device
+        check_card_widths(self.device, env.num_agents, c)
         self.num_envs = env.num_envs
         self.num_agents = env.num_agents
         self.obs_dim = env.obs_dim

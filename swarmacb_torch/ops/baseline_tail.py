@@ -151,6 +151,14 @@ def tail_backward_reference(args, dout, N):
     return d_fc, [d_attn_lhs, d_attn_mI, d_wa, d_dws, d_xa, d_delta, d_bias]
 
 
+def check_widths(N, H, h):
+    """Raise on the widths the card's kernels do not take: N agents, H
+    heads, hidden width h (the CPU's plain version takes any)."""
+    if h % 4 or h > 512 or N > 32 or (H * N) % 4:
+        raise ValueError(f"fused_tail: the kernels take h % 4 == 0, h <= 512, "
+                         f"N <= 32 and H*N % 4 == 0, got h={h}, N={N}, H={H}")
+
+
 def _check(args, N):
     """(B, H, h) of the seven tail inputs; raises on what the kernels do not
     take (shape, dtype, device, layout)."""
@@ -167,9 +175,7 @@ def _check(args, N):
             raise ValueError(f"fused_tail: {name} must be {shape}, "
                              f"got {tuple(t.shape)}")
         _check_layout(name, t, dev)
-    if h % 4 or h > 512 or N > 32 or (H * N) % 4:
-        raise ValueError(f"fused_tail: the kernels take h % 4 == 0, h <= 512, "
-                         f"N <= 32 and H*N % 4 == 0, got h={h}, N={N}, H={H}")
+    check_widths(N, H, h)
     if dev.type != "cuda":
         raise ValueError(f"fused_tail: tensors must lie on the CPU or a CUDA "
                          f"device, got {dev}")

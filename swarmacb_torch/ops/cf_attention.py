@@ -215,6 +215,14 @@ def cf_backward_reference(args, dout, d, stages=None):
 NAMES = ("S_aa", "S_as", "S_sa", "S_ss", "wa", "dws", "x_a", "delta", "bias")
 
 
+def check_widths(N, H, h):
+    """Raise on the widths the card's kernels do not take: N agents, H
+    heads, hidden width h (the CPU's plain version takes any)."""
+    if h % 4 or h > 512 or N > 32 or H > 4:
+        raise ValueError(f"fused_cf_attention: the kernels take h % 4 == 0, "
+                         f"h <= 512, N <= 32 and H <= 4, got h={h}, N={N}, H={H}")
+
+
 def _check(args):
     """(B, N, H, h) of the nine inputs; raises on what the kernels do not
     take (shape, dtype, device, layout)."""
@@ -232,9 +240,7 @@ def _check(args):
             raise ValueError(f"fused_cf_attention: {name} must be {shape}, "
                              f"got {tuple(t.shape)}")
         _check_layout(name, t, dev)
-    if h % 4 or h > 512 or N > 32 or H > 4:
-        raise ValueError(f"fused_cf_attention: the kernels take h % 4 == 0, "
-                         f"h <= 512, N <= 32 and H <= 4, got h={h}, N={N}, H={H}")
+    check_widths(N, H, h)
     if dev.type != "cuda":
         raise ValueError(f"fused_cf_attention: the kernels take CUDA tensors, got "
                          f"{dev} (CPU tensors take the plain version)")

@@ -13,17 +13,28 @@
 // swarmacb_torch/ops/fused_step.py:fused_env_step_plain, and this file
 // follows it operation by operation.
 //
-// What bounds it on the H100: neither bytes nor arithmetic. At E = 1024
-// arenas of N = 20 robots one step moves ~4.5 MB with observations and does
-// ~0.1 GFLOP; both are worth a few microseconds of the card at its peaks.
-// Latency bounds it: each thread's serial loops over the other robots, the
-// 8 sensors and the wall segments, with only E * N threads, and the launch
-// itself. The design keeps the whole tick in one launch, with nothing staged
-// through device memory between its phases: one warp per arena and one lane
-// per robot (N <= 32), the arena's poses in shared memory (per warp, synced
-// with __syncwarp), the reward's sum over robots by warp shuffles. Tiles
-// keep the JAX package's (rows, arenas) layout, so a warp's loads of one row
-// are strided; the four warps of a block take four neighbouring arenas.
+// What bounds it on the H100: neither bytes nor arithmetic at the main
+// path's E = 1024 arenas of N = 20 robots (~4.5 MB with observations and
+// ~0.1 GFLOP a step, a few microseconds of the card at its peaks), where
+// the launch and each thread's serial loops over the other robots, the 8
+// sensors and the wall segments set the time. At bench.py's E = 32768 the
+// same step moves ~144 MB and does ~3.2 GFLOP, and then how the lanes and
+// the tile rows meet decides it. The design keeps the whole tick in one
+// launch with nothing staged through device memory between its phases, one
+// thread per robot, and puts neighbouring arenas on neighbouring lanes, the
+// TPU kernel's arenas-on-lanes put onto warps: a warp is 8 arenas × 4
+// robots, lane = 8·(i mod 4) + a, so the 8 lanes of one robot row read and
+// write 32 contiguous bytes of each (rows, Ep) tile, a whole sector. A
+// block is 8 arenas × N robots (N rounded up to whole warps: 5 full warps
+// at N = 20), so no lane idles where 4 | N, and Ep % 128 == 0 means no
+// block straddles the end. (A form with 32 arenas a warp row, whole
+// 128-byte lines in a block of N warps held to 64 registers a thread, was
+// slower at E = 1024, where it fills a quarter as many SMs, and at
+// E = 32768.) The block's poses sit in shared memory as [robot][arena],
+// read conflict-free, behind block barriers; the team reward is summed
+// through shared memory over the arena's robots in index order (integer
+// counts, exact in float32), and the per-arena outputs are written by
+// robot 0's lanes.
 //
 // Why not one shared header with pairwise.cu: the formulae differ in each
 // place they overlap. K4 tests the proximity cone as dot > 0.9659 * (d +
@@ -46,8 +57,9 @@
 
 namespace {
 
-constexpr int kMaxN = 32;           // robots per arena: one warp
-constexpr int kArenasPerBlock = 4;  // 4 warps per block
+constexpr int kMaxN = 32;  // robots per arena
+constexpr int kGroup = 8;  // arenas a warp row
+constexpr int kRows = 32 / kGroup;  // robot rows a warp
 constexpr int kMaxSeg = 32;
 constexpr int kMaxFace = 16;
 constexpr int kSensors = 8;
@@ -92,7 +104,8 @@ struct Sensors {
 };
 
 // All sensors of robot i, its pose (xi, yi, cy, sy) and its arena's
-// positions in shared memory (ops/fused_step.py: sensor_block).
+// positions in shared memory, robot j at s_x[j * kGroup]
+// (ops/fused_step.py: sensor_block).
 __device__ void sensor_block(const Consts& c, const float* s_x, const float* s_y,
                              int i, int N, int n_seg, float xi, float yi,
                              float cy, float sy, Sensors& o) {
@@ -107,8 +120,8 @@ __device__ void sensor_block(const Consts& c, const float* s_x, const float* s_y
   // other robots: proximity cone test and range-and-bearing
   float count = 0.f, w_x = 0.f, w_y = 0.f, a_x = 0.f, a_y = 0.f;
   for (int j = 0; j < N; ++j) {
-    const float dx = s_x[j] - xi;
-    const float dy = s_y[j] - yi;
+    const float dx = s_x[j * kGroup] - xi;
+    const float dy = s_y[j * kGroup] - yi;
     const float d2 = dx * dx + dy * dy;
 
     const float dist_p = sqrtf(d2 + 1e-12f);
@@ -249,20 +262,24 @@ __device__ __forceinline__ void st_(const Ptrs& P, int slot, size_t k, T v) {
   static_cast<T*>(P.p[slot])[k] = v;
 }
 
-__global__ void __launch_bounds__(32 * kArenasPerBlock)
+// The block is kGroup arenas × N robots.
+__global__ void __launch_bounds__(kGroup * kMaxN)
 fused_step_kernel(const __grid_constant__ Consts c, const __grid_constant__ Ptrs P,
                   const Flags F) {
-  __shared__ float s_x[kArenasPerBlock][kMaxN];
-  __shared__ float s_y[kArenasPerBlock][kMaxN];
+  __shared__ float s_x[kMaxN * kGroup];  // [robot][arena]
+  __shared__ float s_y[kMaxN * kGroup];
+  __shared__ float s_rew[kMaxN * kGroup];
 
-  const int warp = threadIdx.x / 32;
-  const int i = threadIdx.x % 32;
-  const int e = blockIdx.x * kArenasPerBlock + warp;
-  if (e >= F.Ep) return;  // a whole warp leaves together
+  const int lane = threadIdx.x % 32;
+  const int a = lane % kGroup;                               // arena in the block
+  const int i = (threadIdx.x / 32) * kRows + lane / kGroup;  // robot
+  const int e = blockIdx.x * kGroup + a;  // < Ep: the grid is Ep / kGroup blocks
   const int N = F.N;
-  const bool active = i < N;
+  const bool active = i < N;  // false only in a last, partial warp row
   const size_t Ep = F.Ep;
   const size_t r = static_cast<size_t>(active ? i : 0) * Ep + e;  // (row i, arena e)
+  const float* arena_x = s_x + a;  // robot j at arena_x[j * kGroup]
+  const float* arena_y = s_y + a;
 
   float px = 0.f, py = 0.f, yaw = 0.f, prev = 0.f;
   if (active) {
@@ -270,10 +287,10 @@ fused_step_kernel(const __grid_constant__ Consts c, const __grid_constant__ Ptrs
     py = ld<float>(P, kPy, r);
     yaw = ld<float>(P, kYaw, r);
     prev = ld<float>(P, kPrev, r);
-    s_x[warp][i] = px;
-    s_y[warp][i] = py;
+    s_x[i * kGroup + a] = px;
+    s_y[i * kGroup + a] = py;
   }
-  __syncwarp();
+  __syncthreads();
   const float cy = cosf(yaw);
   const float sy = sinf(yaw);
 
@@ -283,7 +300,7 @@ fused_step_kernel(const __grid_constant__ Consts c, const __grid_constant__ Ptrs
   float ed = 0.f, pd = 0.f, ad = 0.f;
   if (F.discrete) {
     if (active) {
-      sensor_block(c, s_x[warp], s_y[warp], i, N, F.n_seg, px, py, cy, sy, sb);
+      sensor_block(c, arena_x, arena_y, i, N, F.n_seg, px, py, cy, sy, sb);
       const int mod = ld<int>(P, kMod, r);
       es = ld<int>(P, kEs, r);
       ek = ld<int>(P, kEk, r);
@@ -376,20 +393,20 @@ fused_step_kernel(const __grid_constant__ Consts c, const __grid_constant__ Ptrs
     npx = c.gate_hw + (dx_r < 0.f ? -1.f : 1.f) * c.robot_radius;
 
   // robot push-out: one Jacobi pass from the clamped positions
-  __syncwarp();
+  __syncthreads();  // every sensor read of the pre-step poses is done
   if (active) {
-    s_x[warp][i] = npx;
-    s_y[warp][i] = npy;
+    s_x[i * kGroup + a] = npx;
+    s_y[i * kGroup + a] = npy;
   }
-  __syncwarp();
+  __syncthreads();
   if (active) {
     float own_x = 0.f, own_y = 0.f, oth_x = 0.f, oth_y = 0.f;
     for (int j = 0; j < N; ++j) {
       if (j == i) continue;
-      const int a = j > i ? i : j;  // the pair (a, b), a < b
-      const int b = j > i ? j : i;
-      const float cdx = s_x[warp][a] - s_x[warp][b];
-      const float cdy = s_y[warp][a] - s_y[warp][b];
+      const int lo = j > i ? i : j;  // the pair (lo, hi), lo < hi
+      const int hi = j > i ? j : i;
+      const float cdx = arena_x[lo * kGroup] - arena_x[hi * kGroup];
+      const float cdy = arena_y[lo * kGroup] - arena_y[hi * kGroup];
       const float cdist = sqrtf(cdx * cdx + cdy * cdy + 1e-8f);
       const float overlap = fmaxf(c.two_r - cdist, 0.f);
       const float cinv = 1.0f / (cdist + 1e-8f);
@@ -407,18 +424,16 @@ fused_step_kernel(const __grid_constant__ Consts c, const __grid_constant__ Ptrs
     npy = npy + own_y - oth_y;
   }
 
-  // colour-transition team reward: small integer counts, exact in f32
+  // colour-transition team reward: small integer counts, exact in f32, so
+  // the sum over the arena's robots gives the same value in any order
   const float curr = ground(c, npx, npy);
-  float rew = 0.f;
-  if (active) rew = ((prev < 0.25f && curr > 0.75f) ? 1.f : 0.f) -
-                    ((prev > 0.75f && curr < 0.25f) ? 1.f : 0.f);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) rew += __shfl_xor_sync(0xffffffffu, rew, off);
+  if (active)
+    s_rew[i * kGroup + a] = ((prev < 0.25f && curr > 0.75f) ? 1.f : 0.f) -
+                       ((prev > 0.75f && curr < 0.25f) ? 1.f : 0.f);
+  __syncthreads();  // also ends every push-out read of s_x, s_y
 
   // time-limit done + folded auto-reset
   int sc = ld<int>(P, kSc, e) + 1;
-  float er = ld<float>(P, kEr, e) + rew;
-  float cg = ld<float>(P, kCg, e);
   const bool done = sc >= F.max_episode_length - 1;
   if (done && active) {
     npx = ld<float>(P, kSx, r);
@@ -426,33 +441,36 @@ fused_step_kernel(const __grid_constant__ Consts c, const __grid_constant__ Ptrs
     nyaw = ld<float>(P, kSw, r);
   }
   const float nprev = ground(c, npx, npy);
-  if (done) {
-    cg = er;
-    er = 0.f;
-    sc = 0;
-  }
 
   if (!F.discrete && F.want_obs) {
     // fresh observations from the post-reset poses
-    __syncwarp();
     if (active) {
-      s_x[warp][i] = npx;
-      s_y[warp][i] = npy;
+      s_x[i * kGroup + a] = npx;
+      s_y[i * kGroup + a] = npy;
     }
-    __syncwarp();
+    __syncthreads();
     if (active)
-      sensor_block(c, s_x[warp], s_y[warp], i, N, F.n_seg, npx, npy, cosf(nyaw),
+      sensor_block(c, arena_x, arena_y, i, N, F.n_seg, npx, npy, cosf(nyaw),
                    sinf(nyaw), sb);
   }
 
-  if (i == 0) {
+  if (i == 0) {  // the arena's outputs, once
+    float rew = 0.f;
+    for (int j = 0; j < N; ++j) rew += s_rew[j * kGroup + a];
+    float er = ld<float>(P, kEr, e) + rew;
+    float cg = ld<float>(P, kCg, e);
+    if (done) {
+      cg = er;
+      er = 0.f;
+      sc = 0;
+    }
     st_<int>(P, kOSc, e, sc);
     st_<float>(P, kOEr, e, er);
     st_<float>(P, kOCg, e, cg);
     st_<float>(P, kReward, e, rew);
     st_<int>(P, kDone, e, done ? 1 : 0);
   }
-  if (!active) return;
+  if (!active) return;  // after the last barrier
   st_<float>(P, kOPx, r, npx);
   st_<float>(P, kOPy, r, npy);
   st_<float>(P, kOYaw, r, nyaw);
@@ -500,16 +518,16 @@ int fused_step_launch(void* const* ptrs, const float* consts, int n_consts,
                       int n_seg, int n_face, int Ep, int N, int discrete, int obs24,
                       int want_obs, int max_episode_length, void* stream) {
   if (n_consts * sizeof(float) != sizeof(Consts) || N > kMaxN || N < 1 ||
-      n_seg > kMaxSeg || n_face > kMaxFace || Ep < 1)
+      n_seg > kMaxSeg || n_face > kMaxFace || Ep < 1 || Ep % kGroup)
     return static_cast<int>(cudaErrorInvalidValue);
   Consts c;
   memcpy(&c, consts, sizeof(Consts));
   Ptrs P;
   for (int k = 0; k < kNumSlots; ++k) P.p[k] = ptrs[k];
   const Flags F{Ep, N, n_seg, n_face, discrete, obs24, want_obs, max_episode_length};
-  const int blocks = (Ep + kArenasPerBlock - 1) / kArenasPerBlock;
-  fused_step_kernel<<<blocks, 32 * kArenasPerBlock, 0,
-                      static_cast<cudaStream_t>(stream)>>>(c, P, F);
+  const int warps = (N + kRows - 1) / kRows;
+  fused_step_kernel<<<Ep / kGroup, 32 * warps, 0, static_cast<cudaStream_t>(stream)>>>(
+      c, P, F);
   return static_cast<int>(cudaGetLastError());
 }
 

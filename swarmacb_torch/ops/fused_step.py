@@ -58,7 +58,7 @@ from ..env import geometry
 from . import _cuda
 
 LANES = 128
-MAX_AGENTS = 32      # one warp per arena
+MAX_AGENTS = 32
 MAX_SEGMENTS = 32
 MAX_FACES = 16
 

@@ -16,12 +16,14 @@ from the card to the plain version.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from ..env import physics, sensors
 from . import _cuda
 
-MAX_AGENTS = 32  # one warp per arena
+MAX_AGENTS = 32
 MAX_SEGMENTS = 64
 
 
@@ -65,9 +67,29 @@ def sensor_constants(wall_segments):
     return torch.cat([cos_a, sin_a, rab_cos, rab_sin, packed])
 
 
+_CONSTS = {}  # id(segments) -> (weak reference to them, their version, constants)
+
+
+def cached_sensor_constants(wall_segments):
+    """``sensor_constants(wall_segments)``, built at a segments tensor's
+    first call and again only after the tensor is changed in place, so the
+    env's steps build none of it. An entry goes with its tensor."""
+    key = id(wall_segments)
+    hit = _CONSTS.get(key)
+    if hit is None or hit[0]() is not wall_segments:
+        weakref.finalize(wall_segments, _CONSTS.pop, key, None)
+    elif hit[1] == wall_segments._version:
+        return hit[2]
+    consts = sensor_constants(wall_segments)
+    _CONSTS[key] = (weakref.ref(wall_segments), wall_segments._version, consts)
+    return consts
+
+
 def pairwise_sensors(pos, yaw, *, prox_range, robot_radius, rab_range,
                      alpha_rab, wall_segments):
     """Fused sensor pass. pos (E, N, 2), yaw (E, N), wall_segments (S, 4).
+    On the card the kernel reads the segments through their packed
+    constants (``cached_sensor_constants``).
 
     Returns prox (E, N, 8) — already max(wall, robot) per sensor —,
     ztilde (E, N), rab_proj (E, N, 4), rab_attr_x (E, N), rab_attr_y (E, N).
@@ -88,7 +110,7 @@ def pairwise_sensors(pos, yaw, *, prox_range, robot_radius, rab_range,
         raise ValueError(f"pairwise_sensors: the kernel takes N <= {MAX_AGENTS}"
                          f" robots and <= {MAX_SEGMENTS} segments, got N={N},"
                          f" S={S}")
-    consts = sensor_constants(wall_segments)
+    consts = cached_sensor_constants(wall_segments)
     prox = torch.empty((E, N, 8), dtype=torch.float32, device=pos.device)
     ztilde = torch.empty((E, N), dtype=torch.float32, device=pos.device)
     rab_proj = torch.empty((E, N, 4), dtype=torch.float32, device=pos.device)

@@ -204,7 +204,8 @@ def test_aggregate_and_collect_obs_match_jax():
 
 # ── plain versions of the kernels against the Pallas kernels ─────────
 
-@pytest.mark.parametrize("E,N,seed,radius", [(3, 20, 0, 1.1), (2, 32, 2, 0.5)])
+@pytest.mark.parametrize("E,N,seed,radius", [(3, 20, 0, 1.1), (5, 7, 1, 0.4),
+                                              (2, 32, 2, 0.5)])
 def test_plain_pairwise_sensors_matches_pallas(E, N, seed, radius):
     pos, yaw = _poses(E=E, N=N, seed=seed, radius=radius)
     c = CFG
@@ -233,6 +234,52 @@ def test_plain_robot_collisions_matches_pallas(E, N, seed):
                                               interpret=True)
     assert np.abs(got.numpy() - pos).max() > 1e-4, "no overlaps — weak test"
     _close(got, want, atol=2e-6)
+
+
+def test_angle_tables_are_made_once_per_device():
+    """The sensor angle tables are the float32 roundings of the angles'
+    cosines and sines, within one ulp of the JAX package's tables, and every
+    later call returns the same tensors, so no env step copies them to the
+    device again."""
+    from swarmacb_torch.env.geometry import EPUCK_SENSOR_ANGLES, RAB_PROJ_ANGLES
+    from swarmacb_tpu.env import sensors as jsens
+
+    dev = torch.device("cpu")
+    first = sensors.angle_tables(dev)
+    rounded = [f(a.astype(np.float64)).astype(np.float32)
+               for a in (EPUCK_SENSOR_ANGLES, RAB_PROJ_ANGLES) for f in (np.cos, np.sin)]
+    jax_tables = (jsens._COS_A, jsens._SIN_A, jsens._RAB_COS, jsens._RAB_SIN)
+    for got, want, jt in zip(first, rounded, jax_tables):
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+        ulps = np.abs(got.numpy().view(np.int32) - np.asarray(jt).view(np.int32))
+        assert ulps.max() <= 1
+    again = sensors.angle_tables(dev)
+    assert all(a is b for a, b in zip(first, again))
+
+
+def test_sensor_constants_are_built_once_per_segments():
+    """The sensor kernel's packed constants are built at a segments tensor's
+    first call and returned unchanged after: cos/sin of the sensor and RAB
+    angles, then (ax, ay, bx − ax, by − ay) per segment. Changing the
+    segments in place rebuilds them."""
+    from swarmacb_torch.ops import pairwise
+
+    seg = ENV.wall_segments.clone()
+    consts = pairwise.cached_sensor_constants(seg)
+    assert pairwise.cached_sensor_constants(seg) is consts
+    assert consts.shape == (24 + 4 * seg.shape[0],)
+    assert torch.equal(consts[:24], torch.cat(sensors.angle_tables(seg.device)))
+    packed = consts[24:].reshape(-1, 4)
+    assert torch.equal(packed[:, :2], seg[:, :2])
+    assert torch.equal(packed[:, 2:], seg[:, 2:] - seg[:, :2])
+    seg[0, 2] += 1.0
+    moved = pairwise.cached_sensor_constants(seg)
+    assert moved is not consts
+    assert torch.equal(moved, pairwise.sensor_constants(seg))
+    key = id(seg)
+    del seg
+    assert key not in pairwise._CONSTS
 
 
 def test_cpu_wrappers_launch_nothing():

@@ -22,7 +22,8 @@ PORT_FILES = (sorted((ROOT / "swarmacb_torch").rglob("*.py"))
                                                 "probe_torch_rsqrt.py",
                                                 "time_cf_backward.py",
                                                 "probe_tf32_rates.py",
-                                                "time_tail_backward.py")])
+                                                "time_tail_backward.py",
+                                                "time_env_kernels.py")])
 
 
 def _imported_modules(path):
