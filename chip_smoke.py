@@ -17,9 +17,12 @@ Phases, each of which must pass for the run to pass:
      over 25 runs after warm-up; and the least time the card could take
      (bound). Phase 2a also prints the launch floor (an empty kernel under
      the same timing) and ptxas's registers and spills for K1 and K2, and
-     holds K1 at bench.py's E = 32768 too, as phase 2g holds K4's daisy
-     form with observations: against the plain version, two calls giving
-     the same bits, the kernel alone timed beside its bound there. K3f
+     holds K1 and K2 at bench.py's E = 32768 too, as phase 2g holds K4's
+     daisy form with observations: against the plain version, two calls
+     giving the same bits, the kernel alone timed beside its bound there.
+     K2 is held on three kinds of positions (spread as the env spawns
+     them, packed so that most pairs overlap, and pairs placed on its skip
+     threshold), also at ragged shapes and with non-finite coordinates. K3f
      (``tail_forward.cu``, its product in 3xTF32 on the tensor cores) is
      also held at h = 128 and at a small ragged shape, two calls of it
      must give the same bits, and its time is printed
@@ -216,6 +219,70 @@ def _arena_poses(rng, cfg, E, N):
     return pos, yaw
 
 
+def _packed_poses(rng, cfg, E, N):
+    """Each arena's robots within a disc of radius 2r about a point of the
+    arena, so that most pairs (~59 %) overlap and K2 takes its full path."""
+    reach = 2 * cfg.robot_radius
+    c_r = np.sqrt(rng.uniform(0, 1, (E, 1))) * (cfg.inradius - 2 * reach)
+    c_th = rng.uniform(0, 2 * np.pi, (E, 1))
+    r = np.sqrt(rng.uniform(0, 1, (E, N))) * reach
+    th = rng.uniform(0, 2 * np.pi, (E, N))
+    pos = np.stack([c_r * np.cos(c_th) + r * np.cos(th),
+                    c_r * np.sin(c_th) + r * np.sin(th)], -1)
+    return pos.astype(np.float32)
+
+
+def _pair_d2(xi, yi, xj, yj):
+    """K2's squared distance of a pair, in float32 as the kernel rounds it."""
+    dx, dy = xi - xj, yi - yj
+    return (dx * dx + dy * dy) + np.float32(1e-8)
+
+
+def _tie_poses(rng, cfg, E, N):
+    """Robots 2k and 2k + 1 of each arena a pair whose squared distance
+    (``_pair_d2``) lies within ±8 float32 steps of K2's skip threshold,
+    above it and below, the pairs on a grid of pitch 0.12 about the arena's
+    centre (|x|, |y| < 0.25, where a float32 step of a coordinate moves the
+    squared distance by a few steps); an odd last robot stands alone at
+    (0, 0.6). Returns the positions and, per pair, its distance in steps."""
+    from swarmacb_torch.ops.pairwise import collision_skip_d2
+
+    f32 = np.float32
+    T = f32(collision_skip_d2(cfg.robot_radius))
+    P = N // 2
+    pos = np.zeros((E, N, 2), f32)
+    pos[:, 2 * P:] = (0.0, 0.6)
+    if P == 0:
+        return pos, np.zeros((E, 0), np.int64)
+    side = int(np.ceil(np.sqrt(P)))
+    k = np.arange(P)
+    centre = (np.stack([k % side, k // side], -1) - (side - 1) / 2) * 0.12
+    centre = centre[None] + rng.uniform(-0.01, 0.01, (E, P, 2))
+    th = rng.uniform(0, 2 * np.pi, (E, P))
+    want = rng.integers(-6, 7, (E, P))
+    target = (int(T.view(np.int32)) + want).astype(np.int32).view(f32)
+    half = np.sqrt(target.astype(np.float64) - float(f32(1e-8))) / 2
+    u = np.stack([np.cos(th), np.sin(th)], -1)
+    pi = (centre - half[..., None] * u).astype(f32)
+    pj = (centre + half[..., None] * u).astype(f32)
+    # move robot 2k + 1 by up to three float32 steps in x and y, onto the
+    # squared distance nearest the pair's target
+    steps = np.arange(-3, 4, dtype=np.float64)
+    cx = (pj[..., 0, None, None] + steps[:, None] * np.spacing(pj[..., 0])[..., None, None]
+          ).astype(f32)
+    cy = (pj[..., 1, None, None] + steps[None, :] * np.spacing(pj[..., 1])[..., None, None]
+          ).astype(f32)
+    cx, cy = np.broadcast_arrays(cx, cy)
+    q = _pair_d2(pi[..., 0, None, None], pi[..., 1, None, None], cx, cy)
+    miss = np.abs(q.view(np.int32).astype(np.int64) - target.view(np.int32)[..., None, None])
+    best = miss.reshape(E, P, -1).argmin(-1)
+    pj = np.stack([np.take_along_axis(c.reshape(E, P, -1), best[..., None], -1)[..., 0]
+                   for c in (cx, cy)], -1)
+    pos[:, 0:2 * P:2], pos[:, 1:2 * P:2] = pi, pj
+    q = _pair_d2(pi[..., 0], pi[..., 1], pj[..., 0], pj[..., 1])
+    return pos, q.view(np.int32).astype(np.int64) - int(T.view(np.int32))
+
+
 def _sensor_work(pos, yaw, cfg, walls):
     """Bytes and float32 operations of one pairwise_sensors call on these
     inputs, the least the function needs, with what depends on the data
@@ -271,6 +338,103 @@ def _sensor_work(pos, yaw, cfg, walls):
 PAIRWISE_KERNELS = ("pairwise_sensors_kernel", "robot_collisions_kernel")
 # (E, N) that leave K1's last block ragged, at 4, 4 and 2 arenas a block
 K1_RAGGED = ((37, 7), (999, 31), (45, 10))
+# and K2's, at 32, 32, 16 and 1 arenas a block (5 of 32 arenas, 7 of 32,
+# 13 of 16 in the last block; one arena a block at N = 32)
+K2_RAGGED = ((37, 7), (999, 31), (45, 10), (5, 32))
+
+
+def _collision_inputs(cfg, E, N):
+    """K2's three kinds of positions at (E, N), each from a seed of its own."""
+    return {"spread": _arena_poses(np.random.default_rng(SEED), cfg, E, N)[0],
+            "packed": _packed_poses(np.random.default_rng(SEED + 1), cfg, E, N),
+            "tie": _tie_poses(np.random.default_rng(SEED + 2), cfg, E, N)[0]}
+
+
+def drive_dandelion(torch, E, steps, policy, seed, on_k2_input, device=DEVICE):
+    """Drive ``steps`` composed dandelion env steps at E arenas from the
+    env's spawn and hand each step's K2 input, the (E, N, 2) positions
+    after integration and the wall push-outs, to ``on_k2_input(step,
+    pos)``. ``policy``: ``"random"``, wheel commands N(0, 1) each step, as
+    an untrained Gaussian actor (mean ~0, log-std 0) draws them, clamped
+    by the env; ``"gate"``, every robot turns towards the middle of the
+    gate and drives for it, the densest crowd the mission draws. Returns
+    the last state."""
+    from swarmacb_torch import ops
+    from swarmacb_torch.config import DirectionalGateEnvCfg
+    from swarmacb_torch.env import DirectionalGateEnv
+
+    env = DirectionalGateEnv(DirectionalGateEnvCfg(variant="dandelion", num_envs=E),
+                             device=device)
+    cfg = env.cfg
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    state, _ = env.reset(gen)
+    gate_y = 0.5 * (cfg.gate_south_y + cfg.corridor_south_y)
+    k2, step = ops.resolve_robot_collisions, 0
+
+    def record(pos, robot_radius):
+        on_k2_input(step, pos)
+        return k2(pos, robot_radius)
+
+    ops.resolve_robot_collisions = record
+    try:
+        for step in range(steps):
+            if policy == "random":
+                act = torch.randn((E, cfg.num_agents, 2), generator=gen, device=device)
+            else:
+                x, y = state.pos[..., 0], state.pos[..., 1]
+                err = torch.atan2(gate_y - y, -x) - state.yaw
+                turn = 2.0 * torch.atan2(torch.sin(err), torch.cos(err))
+                act = torch.stack([1.0 - turn, 1.0 + turn], -1)
+            state, _ = env.step(state, act)
+    finally:
+        ops.resolve_robot_collisions = k2
+    return state
+
+
+def near_pair_counts(torch, pos, skip_d2):
+    """What K2 does on these positions (E, N, 2): the share of ordered
+    pairs (i, j), i != j, whose squared distance fails the skip test (K2
+    evaluates them in full), and per warp of 32 robots in the kernel's
+    order, the most such pairs of one lane (the mask form's second loop)
+    and the count of j at which any lane has one (the full-path
+    iterations of one loop with the test inside), each as (mean, max)
+    over the warps."""
+    E, N = pos.shape[:2]
+    d = pos[:, :, None, :] - pos[:, None, :, :]
+    q = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + 1e-8
+    near = ~((q >= skip_d2) & (q <= float(np.finfo(np.float32).max)))
+    near &= ~torch.eye(N, dtype=torch.bool, device=pos.device)
+    # a block holds lcm(N, 32) robots from a multiple of it, so the warps
+    # are the runs of 32 in the flat robot order
+    rows = near.reshape(E * N, N)
+    pad = -(E * N) % 32
+    rows = torch.cat([rows, rows.new_zeros((pad, N))]).reshape(-1, 32, N)
+    lane_max = rows.sum(-1).amax(1).double()
+    union = rows.any(1).sum(-1).double()
+    return dict(share=float(near.sum()) / (E * N * max(N - 1, 1)),
+                lane_max=(float(lane_max.mean()), int(lane_max.max())),
+                union=(float(union.mean()), int(union.max())))
+
+
+def _collision_work(pos, robot_radius):
+    """Bytes and float32 operations of one resolve_robot_collisions call on
+    these positions, the least the function needs: each position read and
+    written once; per unordered pair, the offset, the squared distance and
+    its test against the skip threshold (7); per pair below the threshold,
+    the distance, overlap, normal and the half push taken into both robots'
+    sums (14); per robot, the two sums taken into the output (4)."""
+    from swarmacb_torch.ops.pairwise import collision_skip_d2
+
+    E, N = pos.shape[:2]
+    iu, ju = np.triu_indices(N, 1)
+    T, f32_max = np.float32(collision_skip_d2(robot_radius)), np.finfo(np.float32).max
+    n_near = 0
+    for e0 in range(0, E, 4096):
+        p = pos[e0:e0 + 4096]
+        q = _pair_d2(p[:, iu, 0], p[:, iu, 1], p[:, ju, 0], p[:, ju, 1])
+        n_near += int((~((q >= T) & (q <= f32_max))).sum())
+    return 2 * 4 * E * N * 2, 7 * E * len(iu) + 14 * n_near + 4 * E * N
 
 
 def _bench_keys(at_bench: dict) -> dict:
@@ -280,9 +444,8 @@ def _bench_keys(at_bench: dict) -> dict:
 
 def phase_pairwise(torch, ops, cfg, walls, cycles_per_ms):
     print("== phase 2a: K1 pairwise_sensors and K2 resolve_robot_collisions "
-          f"(E={E_MAIN} and, K1 alone, E={E_BENCH}; N={N_MAIN}; K1 also at (E, N) in "
-          f"{K1_RAGGED})", flush=True)
-    from swarmacb_torch.env import physics
+          f"(E={E_MAIN} and E={E_BENCH}; N={N_MAIN}; K1 also at (E, N) in {K1_RAGGED}, "
+          f"K2 at {K2_RAGGED})", flush=True)
     from swarmacb_torch.ops import _cuda, pairwise
 
     for name, info in ptxas_report(_cuda.build_log("pairwise"), PAIRWISE_KERNELS).items():
@@ -330,7 +493,6 @@ def phase_pairwise(torch, ops, cfg, walls, cycles_per_ms):
             print(f"  K1 E={E} kernel {ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})",
                   flush=True)
             continue
-        pos_main = pos
         # the constants built in every call, as before they were cached
         per_call = device_ms(torch, lambda: (pairwise.sensor_constants(walls), call()),
                              cycles_per_ms)
@@ -346,31 +508,88 @@ def phase_pairwise(torch, ops, cfg, walls, cycles_per_ms):
                  **{**k1[(E_MAIN, N_MAIN)],
                     "max_abs_err": max(v["max_abs_err"] for v in k1.values())},
                  **_bench_keys(k1[(E_BENCH, N_MAIN)]))]
-    pos = pos_main
+    return rows + [_phase_collisions(torch, ops, cfg, cycles_per_ms)]
 
-    # K2. Sums of at most N − 1 pushes of ≤ r each, in another order.
-    got = ops.resolve_robot_collisions(pos, cfg.robot_radius)
-    want = physics.resolve_robot_collisions(pos, cfg.robot_radius)
-    torch.cuda.synchronize()
-    err, ok = max_err(got, want, 1e-6, 0.0)
-    check(ok, f"K2 pos {tuple(got.shape)}: max|Δ| {err:.3e} (tolerance 1e-06)")
-    moved = float((got - pos).abs().max())
-    check(moved > 1e-4, f"K2 inputs overlap (largest push {moved:.3e})")
-    ms = device_ms(torch, lambda: ops.resolve_robot_collisions(pos, cfg.robot_radius),
-                   cycles_per_ms)
-    plain = device_ms(torch, lambda: physics.resolve_robot_collisions(
-        pos, cfg.robot_radius), cycles_per_ms)
-    # each unordered pair: offset, distance, overlap, normal, half push (21)
-    pairs = E_MAIN * N_MAIN * (N_MAIN - 1) // 2
-    b_ms, b_by = bound_ms(2 * 4 * E_MAIN * N_MAIN * 2, 21 * pairs + 4 * E_MAIN * N_MAIN)
-    rows.append(dict(name="resolve_robot_collisions", route="cuda",
-                     source="swarmacb_torch/ops/csrc/pairwise.cu",
-                     replaces="swarmacb_tpu/ops/pairwise.py:246",
-                     max_abs_err=err, ms=ms, plain_ms=plain,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    print(f"  K2 kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
-          f"({b_by})", flush=True)
-    return rows
+
+def _phase_collisions(torch, ops, cfg, cycles_per_ms):
+    """K2 against its plain version on spread, packed and tie inputs at the
+    main path's and bench.py's E and at ragged shapes, and on the positions
+    it receives at the end of a dandelion rollout of HORIZON steps with an
+    untrained actor's wheel commands at both E; two calls giving the same
+    bits; a NaN and infinite coordinates give NaN where the plain version
+    does; a position that is not 8-byte aligned is refused. Timed at E_MAIN
+    (beside the plain version) and E_BENCH, each beside its bound on these
+    inputs; the JSON row takes the rollout's times."""
+    from swarmacb_torch.env import physics
+    from swarmacb_torch.ops import pairwise
+
+    r = cfg.robot_radius
+    call = lambda p: ops.resolve_robot_collisions(p, r)  # noqa: E731
+    worst, k2 = 0.0, {}
+
+    def hold_and_time(E, N, kind, p, timed):
+        nonlocal worst
+        got, again = call(p), call(p)
+        want = physics.resolve_robot_collisions(p, r)
+        torch.cuda.synchronize()
+        # sums of up to N − 1 pushes of ≤ r each, in another order than the
+        # plain version's reductions
+        err, ok = max_err(got, want, 1e-6, 0.0)
+        worst = max(worst, err)
+        moved = float((got - p).abs().max())
+        check(ok and bool(torch.equal(got, again)) and moved > 1e-4,
+              f"K2 E={E} N={N} {kind}: max|Δ| {err:.3e} (tolerance 1e-06), two "
+              f"calls bit-identical, largest push {moved:.3e}")
+        if not timed:
+            return
+        b_ms, b_by = bound_ms(*_collision_work(p.cpu().numpy(), r))
+        ms = device_ms(torch, lambda: call(p), cycles_per_ms)
+        k2[(E, kind)] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+        plain = ""
+        if E == E_MAIN:   # the plain version is not timed at 32 times the size
+            k2[(E, kind)]["plain_ms"] = device_ms(
+                torch, lambda: physics.resolve_robot_collisions(p, r), cycles_per_ms)
+            plain = f", plain {k2[(E, kind)]['plain_ms']:.4f} ms"
+        print(f"  K2 E={E} {kind}: kernel {ms:.4f} ms{plain}, bound {b_ms:.6f} ms "
+              f"({b_by})", flush=True)
+
+    for E, N in ((E_MAIN, N_MAIN), (E_BENCH, N_MAIN), *K2_RAGGED):
+        for kind, p_np in _collision_inputs(cfg, E, N).items():
+            hold_and_time(E, N, kind, torch.from_numpy(p_np).to(DEVICE),
+                          N == N_MAIN and kind != "tie")
+    for E in (E_MAIN, E_BENCH):
+        last = {}
+        drive_dandelion(torch, E, HORIZON, "random", SEED + 5,
+                        lambda step, pos: last.update(pos=pos))
+        near = near_pair_counts(torch, last["pos"], pairwise.collision_skip_d2(r))
+        print(f"  K2 E={E} rollout (step {HORIZON}): {near['share']:.4%} of pairs "
+              f"evaluated, per warp the most of one lane {near['lane_max']}, "
+              f"j with any {near['union']} (mean, max)", flush=True)
+        hold_and_time(E, N_MAIN, "rollout", last.pop("pos"), True)
+    # a robot off the finite plane: NaN where the plain version has NaN
+    p_np = _collision_inputs(cfg, E_MAIN, N_MAIN)["tie"]
+    p_np[1, 0, 0], p_np[3, 2, 1], p_np[2, N_MAIN - 1, 0] = np.nan, np.inf, -np.inf
+    p = torch.from_numpy(p_np).to(DEVICE)
+    got, want = call(p), physics.resolve_robot_collisions(p, r)
+    same_nan = bool(torch.equal(got.isnan(), want.isnan()))
+    fin = ~want.isnan()
+    err, ok = max_err(got[fin], want[fin], 1e-6, 0.0)
+    check(same_nan and ok, f"K2 with a NaN and two infinite coordinates: NaN in the same "
+          f"{int(want.isnan().sum())} places as the plain version, elsewhere max|Δ| "
+          f"{err:.3e}")
+    # the kernel loads a robot as one float2
+    odd = torch.empty(2 * E_MAIN * N_MAIN + 1, device=DEVICE)[1:].view(E_MAIN, N_MAIN, 2)
+    try:
+        call(odd)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "K2 refuses positions that are not 8-byte aligned")
+    return dict(name="resolve_robot_collisions", route="cuda",
+                source="swarmacb_torch/ops/csrc/pairwise.cu",
+                replaces="swarmacb_tpu/ops/pairwise.py:246", library_ms=None,
+                max_abs_err=max(worst, err), **k2[(E_MAIN, "rollout")],
+                **_bench_keys(k2[(E_BENCH, "rollout")]))
 
 
 def _tail_inputs(torch, B, N, H, h, seed):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The env kernels K1 (``pairwise_sensors``) and K4 (``fused_env_step``)
-and the env step of one checkout, timed on one NVIDIA GPU, to set two
-versions of the port side by side.
+"""The env kernels K1 (``pairwise_sensors``), K2
+(``resolve_robot_collisions``) and K4 (``fused_env_step``) and the env
+step of one checkout, timed on one NVIDIA GPU, to set two versions of the
+port side by side.
 
     python3 scripts/time_env_kernels.py [--E 1024 32768] [--root DIR] [--label L]
 
@@ -15,6 +16,17 @@ card. For each E (daisy, N = 20):
   - K1 through its wrapper, as the env calls it, and
     ``pairwise.sensor_constants`` alone, the packed constants that a
     wrapper without a cache builds in every call;
+  - K2 through its wrapper on ``chip_smoke``'s spread and packed inputs
+    made from the seed, and on the positions it receives in two composed
+    dandelion rollouts from the spawn (``chip_smoke.drive_dandelion``):
+    an untrained actor's wheel commands for HORIZON steps, and every robot
+    driving for the gate for GATE_STEPS steps, timed on every STRIDE-th
+    step's positions; a SHA-256 of the outputs' bytes beside each, so that
+    two versions can be compared bit for bit. Where the package has
+    ``pairwise.collision_skip_d2``, it also counts, for every step of the
+    rollouts, the share of pairs that K2 evaluates in full and, per warp,
+    the most such pairs of one lane and the count of j at which any lane
+    has one (``chip_smoke.near_pair_counts``);
   - K4 on daisy tiles, with observations (the fused rollout's form) and
     without;
   - the device time of one fused ``step_lanes`` (draws included), and the
@@ -25,21 +37,40 @@ card. For each E (daisy, N = 20):
     the events by the host's launches; ``scripts/profile_torch_rollout.py``
     traces its device time.
 
-Prints the card's name and power limit, ptxas's registers and spills for
-both kernels, and a JSON line. ``chip_smoke.py`` holds the kernels against
+Prints the card's name and power limit, the launch floor (an empty
+kernel, ``torch.cuda._sleep(0)``, under the same timing), ptxas's
+registers and spills for the three kernels, and a JSON line. ``chip_smoke.py`` holds the kernels against
 their plain versions and times them beside their bounds.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
+import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
+
+
+GATE_STEPS = 300   # the gate crowd forms within ~100 steps and holds
+STRIDE = 20        # K2 is timed on every STRIDE-th step's positions
+
+
+def time_k2(torch, cs, ops, cyc, robot_radius, inputs):
+    """K2 through its wrapper on each of ``inputs``: device ms (one each)
+    and a SHA-256 of all the outputs' bytes."""
+    digest = hashlib.sha256()
+    times = []
+    for p in inputs:
+        k2 = lambda p=p: ops.resolve_robot_collisions(p, robot_radius)  # noqa: E731
+        digest.update(k2().cpu().numpy().tobytes())
+        times.append(cs.device_ms(torch, k2, cyc))
+    return dict(ms=times, sha256=digest.hexdigest()[:16])
 
 
 def main() -> int:
@@ -76,15 +107,18 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"{card}; timing {root} {args.label}", flush=True)
     _cuda.build(["pairwise", "fused_step"])
-    for name, kernels in (("pairwise", ("pairwise_sensors_kernel",)),
+    for name, kernels in (("pairwise", ("pairwise_sensors_kernel",
+                                         "robot_collisions_kernel")),
                           ("fused_step", ("fused_step_kernel",))):
         for k, info in cs.ptxas_report(_cuda.build_log(name), kernels).items():
             print(f"  ptxas {k}: {info}", flush=True)
     cyc = cs._sleep_cycles_per_ms(torch)
+    floor = cs.device_ms(torch, lambda: torch.cuda._sleep(0), cyc)
+    print(f"  launch floor: an empty kernel {floor:.4f} ms", flush=True)
 
     run, variant, pcfg, env_ov = load_config(HERE / "configs" / "DirGate_daisy.yaml")
     env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
-    out = dict(card=card, root=str(root), label=args.label, E={})
+    out = dict(card=card, root=str(root), label=args.label, floor_ms=floor, E={})
     for E in args.E:
         res = out["E"][E] = {}
         env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant, num_envs=E,
@@ -102,6 +136,49 @@ def main() -> int:
             torch, lambda: pairwise.sensor_constants(env.wall_segments), cyc)
         print(f"  E={E} K1 through its wrapper {res['k1_ms']:.4f} ms; the packed constants "
               f"alone {res['constants_ms']:.4f} ms", flush=True)
+
+        spread = cs._arena_poses(np.random.default_rng(cs.SEED), cfg, E, N)[0]
+        packed = cs._packed_poses(np.random.default_rng(cs.SEED + 1), cfg, E, N)
+        for kind, p_np in (("spread", spread), ("packed", packed)):
+            res[f"k2_{kind}"] = time_k2(torch, cs, ops, cyc, cfg.robot_radius,
+                                        [torch.from_numpy(p_np).cuda()])
+            print(f"  E={E} K2 through its wrapper, {kind} inputs: "
+                  f"{res[f'k2_{kind}']['ms'][0]:.4f} ms, output sha256 "
+                  f"{res[f'k2_{kind}']['sha256']}", flush=True)
+        skip_d2 = getattr(pairwise, "collision_skip_d2", None)   # not in older checkouts
+        for policy, steps in (("random", cs.HORIZON), ("gate", GATE_STEPS)):
+            kept, counts = [], []
+
+            def on_k2_input(step, pos):
+                if skip_d2 is not None:
+                    counts.append(cs.near_pair_counts(torch, pos, skip_d2(cfg.robot_radius)))
+                if (step + 1) % STRIDE == 0:
+                    kept.append(pos)
+
+            cs.drive_dandelion(torch, E, steps, policy, cs.SEED + 5, on_k2_input)
+            row = res[f"k2_rollout_{policy}"] = time_k2(torch, cs, ops, cyc,
+                                                        cfg.robot_radius, kept)
+            row["steps"] = list(range(STRIDE, steps + 1, STRIDE))
+            print(f"  E={E} K2 through its wrapper, {policy} rollout (dandelion, steps "
+                  f"{STRIDE}..{steps} by {STRIDE}): mean {statistics.mean(row['ms']):.4f} ms "
+                  f"[{', '.join(f'{ms:.4f}' for ms in row['ms'])}], output sha256 "
+                  f"{row['sha256']}", flush=True)
+            if counts:
+                row["near"] = [counts[k - 1] for k in row["steps"]]
+                share = [c["share"] for c in counts]
+                print(f"    pairs evaluated in full, over its {steps} steps: mean "
+                      f"{statistics.mean(share):.4%}, most {max(share):.4%}; per warp, "
+                      f"the most of one lane: mean "
+                      f"{statistics.mean(c['lane_max'][0] for c in counts):.3f}, most "
+                      f"{max(c['lane_max'][1] for c in counts)}; j with any lane's: mean "
+                      f"{statistics.mean(c['union'][0] for c in counts):.3f}, most "
+                      f"{max(c['union'][1] for c in counts)}", flush=True)
+                for k, c in zip(row["steps"], row["near"]):
+                    print(f"    step {k}: {c['share']:.4%} evaluated; the most of one lane "
+                          f"(mean, max over warps) {c['lane_max'][0]:.3f}, "
+                          f"{c['lane_max'][1]}; j with any lane's {c['union'][0]:.3f}, "
+                          f"{c['union'][1]}", flush=True)
+            del kept
 
         for want_obs in (True, False):
             kenv, k, tiles, acts, draws, spawn = cs._k4_state(torch, "daisy", E, N,

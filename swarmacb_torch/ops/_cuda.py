@@ -64,7 +64,7 @@ SIGNATURES = {
     "pairwise": {
         "pairwise_sensors_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
                                     _I, _I, _F, _F, _F, _F, _P],
-        "robot_collisions_launch": [_P, _P, _I, _I, _F, _P],
+        "robot_collisions_launch": [_P, _P, _I, _I, _F, _F, _P],
     },
     "baseline_tail": {
         "tail_bwd_rows_launch": [_P] * 12 + [_I, _I, _I, _I, _P],

@@ -35,8 +35,14 @@
 // contiguous 128-byte run; ztilde, the projections and the attraction
 // vector come from lanes 4, 0-3, 5 and 6.
 //
-// robot_collisions_kernel: one warp per arena, one thread per robot
-// (N <= 32), the arena's positions in shared memory, four arenas a block.
+// robot_collisions_kernel: one thread a robot, a block holding whole arenas
+// laid flat, as few as make whole warps (8 arenas, 160 threads, at N = 20),
+// their positions staged in shared memory by 16-byte loads. Each thread runs
+// one branch-free loop over all N neighbours, the same length in every lane,
+// that marks the pairs that can touch; the square root and the divisions
+// are taken only for those, in a second loop, since the push of any other
+// pair is exactly zero (proved below). On the main path's spread robots
+// that is nearly no pair. Each robot's result is one 8-byte store.
 //
 // Numerics: every formula mirrors the plain PyTorch version operation by
 // operation (swarmacb_torch/env/sensors.py, physics.py), with the same
@@ -47,12 +53,13 @@
 // order than PyTorch's reductions and may differ in the last bits.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kMaxN = 32;           // robots per arena
-constexpr int kArenasPerBlock = 4;  // collision pass: 4 warps per block
 constexpr int kMaxSeg = 64;         // wall segments
 constexpr int kSensors = 8;         // rays, and lanes per robot
 constexpr int kRabProj = 4;
@@ -200,57 +207,120 @@ __global__ void __launch_bounds__(1024) pairwise_sensors_kernel(
     attr_y[r] = a_y;
 }
 
+// Arenas per block of the collision pass: the fewest whole arenas whose
+// robot count is a multiple of 32, lcm(N, 32) / N, so that every lane of
+// every warp holds a robot (but in the last block of a ragged E).
+inline int collision_arenas_per_block(int N) {
+  int a = 32, b = N;
+  while (b != 0) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return 32 / a;  // 32 / gcd(N, 32)
+}
+
 // Single Jacobi pass of elastic push-out (physics.resolve_robot_collisions).
 // Thread i reads only pre-push positions and writes out of place:
 //   out_i = (x_i + sum_{j>i} half(i, j)) - sum_{j<i} half(j, i),
-//   half(a, b) = 0.5 * max(2r - d_ab, 0) * (x_a - x_b) / (d_ab + 1e-8).
-__global__ void robot_collisions_kernel(const float* __restrict__ pos,
-                                        float* __restrict__ out, int E, int N,
-                                        float min_dist) {
-  __shared__ float s_x[kArenasPerBlock][kMaxN];
-  __shared__ float s_y[kArenasPerBlock][kMaxN];
-  const int warp = threadIdx.x / 32;
-  const int i = threadIdx.x % 32;
-  const int e = blockIdx.x * kArenasPerBlock + warp;
-  const bool active = (e < E) && (i < N);
-  float xi = 0.f, yi = 0.f;
-  if (active) {
-    xi = pos[2 * (e * N + i)];
-    yi = pos[2 * (e * N + i) + 1];
-    s_x[warp][i] = xi;
-    s_y[warp][i] = yi;
-  }
+//   half(a, b) = 0.5 * max(2r - d_ab, 0) * (x_a - x_b) / (d_ab + 1e-8),
+//   d_ab = sqrt(|x_a - x_b|^2 + 1e-8).
+// Thread i computes t = half(i, j) from dx = x_i - x_j and adds it to `own`
+// where j > i, or takes it from `other` where j < i. Both give the bits of
+// the two sums above: (-dx)^2 = dx^2, so d_ij = d_ji; negation is exact, so
+// half(i, j) = -half(j, i) bit for bit; acc - (-h) = acc + h in IEEE
+// arithmetic; and each sum still takes its terms in ascending j.
+//
+// Two loops. The first runs over all j = 0..N-1, the same trip count in
+// every lane and no branch: it computes q = dx*dx + dy*dy + 1e-8 (rounded
+// as above) and sets bit j of `near` for each pair that must be evaluated
+// (bit i, set by the pair (i, i), is cleared after it).
+// The second takes the bits of `near` from the lowest up, so in ascending
+// j, and computes those pairs in full. A warp runs the second loop as often
+// as its lane with the most such pairs: at most twice in an untrained
+// rollout, ~6 times where all robots crowd at the gate. A single loop
+// with the test inside would take the full path at every j where any
+// lane has such a pair, which in that crowd is every j.
+//
+// The skip. Let m = fl32(2r) and skip_d2 the least float at or above m^2
+// (computed exactly by the wrapper). A pair whose q has
+// skip_d2 <= q <= FLT_MAX is not evaluated, nor is j = i. The test is one
+// unsigned comparison of bit patterns: q is positive or NaN (a sum of
+// squares and 1e-8), positive floats order as their bit patterns do, and
+// bits(q) - bits(skip_d2) lies in [0, bits(FLT_MAX) - bits(skip_d2)] exactly
+// where q does in [skip_d2, FLT_MAX] (below it the difference wraps; +inf
+// and NaN of either sign lie above). For the skipped pairs:
+//   - q >= skip_d2 >= m^2, so sqrt(q) >= m; sqrtf rounds correctly and
+//     monotonically and m is a float, so d = sqrtf(q) >= m and m - d is +0
+//     or negative (x - x is +0 in round-to-nearest), and the overlap
+//     fmaxf(m - d, 0) is +0;
+//   - q is finite, so dx and dy are, d + 1e-8 >= m > 0 and the normal
+//     dx / (d + 1e-8) is finite: the term (+0 * n) * 0.5 is +0 or -0;
+//   - an accumulator starts at +0 and is never -0 (in round-to-nearest a
+//     sum is -0 only when both addends are, a difference x - y only when x
+//     is -0 and y is +0), and adding or taking away a zero leaves such a
+//     value as it was.
+// So the skipped term changes no bit. A NaN q fails the test and takes the
+// full path, where NaN propagates as in the plain version; so does an
+// infinite q, where an infinite offset makes the normal inf / inf = NaN.
+// The pair j = i has a zero term but for a robot off the finite plane,
+// which is handled after the loops.
+__global__ void __launch_bounds__(1024) robot_collisions_kernel(
+    const float* __restrict__ pos, float* __restrict__ out, int E, int N,
+    int A, float min_dist, float skip_d2) {
+  __shared__ float2 s_p[1024];  // (x, y) of the block's robots
+  const int a = threadIdx.x / N;  // arena within the block
+  const int i = threadIdx.x - a * N;
+  const int e0 = blockIdx.x * A;
+  const int n_arenas = min(A, E - e0);
+  // the block's robots are one contiguous run of float2 (pos is 8-byte
+  // aligned, which the launcher checks), one coalesced load a thread
+  const float2* src = reinterpret_cast<const float2*>(pos) + static_cast<size_t>(e0) * N;
+  if (threadIdx.x < n_arenas * N) s_p[threadIdx.x] = src[threadIdx.x];
   __syncthreads();
-  if (!active) return;
+  if (a >= n_arenas) return;  // the idle lanes of a ragged last block
 
-  float hx_own = 0.f, hy_own = 0.f;  // pairs (i, j), j > i
-  for (int j = i + 1; j < N; ++j) {
-    const float dx = xi - s_x[warp][j];
-    const float dy = yi - s_y[warp][j];
-    const float dist = sqrtf(dx * dx + dy * dy + 1e-8f);
-    const float overlap = fmaxf(min_dist - dist, 0.f);
-    const float nx = dx / (dist + 1e-8f);
-    const float ny = dy / (dist + 1e-8f);
-    hx_own += overlap * nx * 0.5f;
-    hy_own += overlap * ny * 0.5f;
+  const float2* arena = s_p + a * N;
+  const float2 pi = arena[i];
+  const unsigned skip_bits = __float_as_uint(skip_d2);
+  const unsigned skip_span = 0x7f7fffffu - skip_bits;  // up to FLT_MAX's bits
+  unsigned near = 0;  // bit j: the pair (i, j) is evaluated
+#pragma unroll 4
+  for (int j = 0; j < N; ++j) {
+    const float2 pj = arena[j];
+    const float dx = pi.x - pj.x;
+    const float dy = pi.y - pj.y;
+    const float q = dx * dx + dy * dy + 1e-8f;
+    if (__float_as_uint(q) - skip_bits > skip_span) near |= 1u << j;
   }
+  near &= ~(1u << i);
+  float hx_own = 0.f, hy_own = 0.f;      // pairs (i, j), j > i
   float hx_other = 0.f, hy_other = 0.f;  // pairs (j, i), j < i
-  for (int j = 0; j < i; ++j) {
-    const float dx = s_x[warp][j] - xi;
-    const float dy = s_y[warp][j] - yi;
+  for (; near != 0; near &= near - 1) {
+    const int j = __ffs(near) - 1;
+    const float2 pj = arena[j];
+    const float dx = pi.x - pj.x;
+    const float dy = pi.y - pj.y;
     const float dist = sqrtf(dx * dx + dy * dy + 1e-8f);
     const float overlap = fmaxf(min_dist - dist, 0.f);
     const float nx = dx / (dist + 1e-8f);
     const float ny = dy / (dist + 1e-8f);
-    hx_other += overlap * nx * 0.5f;
-    hy_other += overlap * ny * 0.5f;
+    const float tx = overlap * nx * 0.5f;
+    const float ty = overlap * ny * 0.5f;
+    if (j > i) {
+      hx_own += tx;
+      hy_own += ty;
+    } else {
+      hx_other -= tx;
+      hy_other -= ty;
+    }
   }
-  out[2 * (e * N + i)] = (xi + hx_own) - hx_other;
-  out[2 * (e * N + i) + 1] = (yi + hy_own) - hy_other;
-}
-
-inline int blocks_for(int E) {
-  return (E + kArenasPerBlock - 1) / kArenasPerBlock;
+  // The pair (i, i), which the plain version's dense matrix holds with a
+  // zero weight: a zero term where x_i and y_i are finite, NaN in both
+  // coordinates where either is not (x_i - x_i is NaN there).
+  if (!(fabsf(pi.x) <= FLT_MAX && fabsf(pi.y) <= FLT_MAX)) hx_own = hy_own = NAN;
+  reinterpret_cast<float2*>(out)[static_cast<size_t>(e0 + a) * N + i] =
+      make_float2((pi.x + hx_own) - hx_other, (pi.y + hy_own) - hy_other);
 }
 
 }  // namespace
@@ -280,11 +350,15 @@ int pairwise_sensors_launch(const float* pos, const float* yaw,
 }
 
 int robot_collisions_launch(const float* pos, float* out, int E, int N,
-                            float min_dist, void* stream) {
-  if (N > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
-  robot_collisions_kernel<<<blocks_for(E), 32 * kArenasPerBlock, 0,
+                            float min_dist, float skip_d2, void* stream) {
+  if (N > kMaxN || N < 1 || E < 1 ||
+      reinterpret_cast<uintptr_t>(pos) % alignof(float2) != 0 ||
+      reinterpret_cast<uintptr_t>(out) % alignof(float2) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int A = collision_arenas_per_block(N);
+  robot_collisions_kernel<<<(E + A - 1) / A, A * N, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-      pos, out, E, N, min_dist);
+      pos, out, E, N, A, min_dist, skip_d2);
   return static_cast<int>(cudaGetLastError());
 }
 

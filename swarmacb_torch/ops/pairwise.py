@@ -6,7 +6,9 @@ Counterpart of ``swarmacb_tpu/ops/pairwise.py``. Two kernels in
   - ``pairwise_sensors``: the 8-ray wall raycast fused with the robot
     proximity cone test, the range-and-bearing neighbour count, its 4
     projections and the attraction vector — one read of the positions;
-  - ``resolve_robot_collisions``: the single Jacobi pass of elastic push-out.
+  - ``resolve_robot_collisions``: the single Jacobi pass of elastic push-out,
+    which skips, exactly, the pairs whose squared distance reaches
+    ``collision_skip_d2(robot_radius)``.
 
 Each wrapper dispatches by the device of its input: a CPU tensor goes to
 the plain PyTorch version (the env's own sensor and physics functions), a
@@ -16,8 +18,10 @@ from the card to the plain version.
 
 from __future__ import annotations
 
+import functools
 import weakref
 
+import numpy as np
 import torch
 
 from ..env import physics, sensors
@@ -128,6 +132,20 @@ def pairwise_sensors(pos, yaw, *, prox_range, robot_radius, rab_range,
     return prox, ztilde, rab_proj, attr_x, attr_y
 
 
+@functools.lru_cache(maxsize=None)
+def collision_skip_d2(robot_radius) -> float:
+    """The collision kernel's skip threshold: the least float32 at or above
+    (fl32(2r))². A pair whose float32 squared distance (ε included) reaches
+    it has sqrt ≥ fl32(2r), hence no overlap and a push of exactly zero
+    (the proof is in ``csrc/pairwise.cu``). The square of a float32 is exact
+    in float64, so the value is exact."""
+    m2 = float(np.float32(2.0 * robot_radius)) ** 2
+    t = np.float32(m2)
+    if float(t) < m2:
+        t = np.nextafter(t, np.float32(np.inf))
+    return float(t)
+
+
 def resolve_robot_collisions(pos, robot_radius):
     """Single-pass elastic push-out. pos (E, N, 2) → new (E, N, 2)."""
     if pos.device.type == "cpu":
@@ -137,11 +155,14 @@ def resolve_robot_collisions(pos, robot_radius):
     if pos.shape != (E, N, 2) or N > MAX_AGENTS:
         raise ValueError(f"resolve_robot_collisions: pos must be (E, N<="
                          f"{MAX_AGENTS}, 2), got {tuple(pos.shape)}")
+    if pos.data_ptr() % 8 != 0:
+        raise ValueError("resolve_robot_collisions: pos must be 8-byte aligned "
+                         "(the kernel loads each robot as one float2)")
     out = torch.empty_like(pos)
     lib = _cuda.library("pairwise")
     err = lib.robot_collisions_launch(
         pos.data_ptr(), out.data_ptr(), E, N, float(2.0 * robot_radius),
-        _cuda.stream_ptr(pos))
+        collision_skip_d2(robot_radius), _cuda.stream_ptr(pos))
     _cuda.check(err, "resolve_robot_collisions")
     _cuda.launches["resolve_robot_collisions"] += 1
     return out
