@@ -79,7 +79,18 @@ Phases, each of which must pass for the run to pass:
      full-width rollout and update (E = 4, T = 4, h = 512) is then held
      against the same rollout and update on the CPU, where every op takes
      its plain version: dandelion on both critic paths, daisy on both env
-     paths;
+     paths. Phase 3f drives the command lines through their ``main(argv)``
+     in a temporary directory: ``scripts/train_torch.py`` with
+     ``--hidden_dim 1024`` stops with the kernels' width message before it
+     builds the env; ``--config configs/DirGate_dandelion.yaml --num_envs
+     64`` trains one iteration at the YAML's T = 1000 (K1, K2, K3f and K3b
+     counted), saves ``poca_1280000`` and ``poca_final`` and writes its
+     summaries; ``--checkpoint latest`` resumes with the saved actor,
+     critic and Adam state bit for bit and trains one more iteration;
+     ``scripts/play_torch.py`` plays the final checkpoint (64 episodes of
+     99 steps, K1 and K2 counted); the checkpoint restores on the CPU bit
+     for bit; and the iteration's wall time, the save and restore times
+     and play's arena-steps/s are printed;
   4. a JSON line with every kernel's numbers, then the final status line.
 
 It exits non-zero, and prints no result, where there is no CUDA device or
@@ -89,12 +100,15 @@ where the port's package is not beside this script.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -1899,6 +1913,208 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
               "(tolerance 1e-03 + 1e-02·|CPU|)")
 
 
+# ── phase 3f: the command lines on the card ──────────────────────────────
+
+CLI_ENVS = 64                       # arenas of phase 3f's train and play runs
+# the tags every summary writes; the episode tags (cumulative reward,
+# episode length, group reward) follow only where an episode ended, and
+# no 1,200-step episode ends inside one 1,000-decision iteration
+SUMMARY_TAGS = ("Losses/Policy Loss", "Losses/Value Loss", "Losses/POCA/Baseline Loss",
+                "Policy/Entropy", "Policy/Learning Rate", "Policy/Epsilon", "Policy/Beta",
+                "Policy/Extrinsic Reward", "Policy/Extrinsic Value Estimate",
+                "Policy/Std dim0", "Policy/Std dim1", "Policy/Log Std Mean", "Extra/SPS",
+                "Extra/Mean Rollout Reward", "Extra/Rolling Avg Rollout Reward",
+                "Extra/Mean Abs Advantage")
+
+
+def _script(name):
+    """A script of ``scripts/`` as a module, to call its ``main(argv)``."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _equal_to_saved(torch, trainer, saved) -> bool:
+    """The trainer's actor, critic and Adam state equal a ``state.pt``'s,
+    bit for bit."""
+    for net in ("actor", "critic"):
+        cur = getattr(trainer, net).state_dict()
+        if cur.keys() != saved[net].keys() or not all(
+                torch.equal(cur[k].cpu(), v) for k, v in saved[net].items()):
+            return False
+    cur, want = trainer.optimizer.state_dict(), saved["optimizer"]
+    return (cur["param_groups"] == want["param_groups"]
+            and cur["state"].keys() == want["state"].keys()
+            and all(cur["state"][i].keys() == s.keys()
+                    and all(torch.equal(cur["state"][i][k].cpu(), v) for k, v in s.items())
+                    for i, s in want["state"].items()))
+
+
+def _summary_tags(trainer, log_dir: Path) -> list[str]:
+    """The tag of every record the run's writer wrote (the text one as
+    ``hyperparameters``): the JSONL writer's lines, or TensorBoard's event
+    files where ``make_writer`` found TensorBoard."""
+    from swarmacb_torch.utils import JsonlWriter
+
+    if isinstance(trainer.writer, JsonlWriter):
+        return [json.loads(line)["tag"]
+                for line in (log_dir / "scalars.jsonl").read_text().splitlines()]
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    events = EventAccumulator(str(log_dir))
+    events.Reload()
+    tags = events.Tags()
+    return ([t for t in tags["scalars"] for _ in events.Scalars(t)]
+            + [t.split("/")[0] for t in tags["tensors"] for _ in events.Tensors(t)])
+
+
+def phase_cli(torch, ops, card):
+    """``scripts/train_torch.py`` trains one dandelion iteration at full
+    width, saves, resumes from ``--checkpoint latest`` and trains one more;
+    ``scripts/play_torch.py`` evaluates the final checkpoint; each through
+    its ``main(argv)`` on the card."""
+    from swarmacb_torch.agents import Checkpointer
+
+    t_phase = time.perf_counter()
+    train_torch, play_torch = _script("train_torch"), _script("play_torch")
+    config = str(ROOT / "configs" / "DirGate_dandelion.yaml")
+    T = 1000                                     # the YAML's time_horizon
+    iteration = T * CLI_ENVS * N_MAIN
+    print(f"== phase 3f: the command lines on the card: train_torch.py --config "
+          f"{Path(config).name} --num_envs {CLI_ENVS} (one iteration = {iteration:,} "
+          f"decisions), resume, play_torch.py", flush=True)
+
+    # F1: a width the kernels refuse stops the run before the env is built
+    built = []
+    make_env = train_torch.make_env
+    train_torch.make_env = lambda *a, **k: built.append(1) or make_env(*a, **k)
+    try:
+        train_torch.main(["--config", config, "--hidden_dim", "1024"])
+        message = "(no exit)"
+    except SystemExit as exc:
+        message = str(exc)
+    finally:
+        train_torch.make_env = make_env
+    check("fused_tail: the kernels take" in message and not built,
+          f"train_torch.py --hidden_dim 1024 stops before the env: {message}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir, log_dir = Path(tmp) / "ckpt", Path(tmp) / "logs"
+        base = ["--config", config, "--num_envs", str(CLI_ENVS),
+                "--checkpoint_dir", str(ckpt_dir), "--log_dir", str(log_dir)]
+
+        # 1. train from scratch: counts from 0 just before, read just after
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_torch.main([*base, "--total_timesteps", str(iteration)])
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        passes = _chunk_passes(trainer)
+        check(trainer.device.type == DEVICE, f"train_torch.py ran on {trainer.device}")
+        expect = {"pairwise_sensors": 1 + T, "resolve_robot_collisions": T,
+                  "fused_env_step": 0, **_critic_launches(False, T + passes, passes)}
+        for name, n in expect.items():
+            check(launches[name] == n, f"train_torch.py launched {name} {launches[name]} "
+                                       f"times (expected {n})")
+        for name in (f"poca_{iteration}", "poca_final"):
+            check((ckpt_dir / name / "metadata.json").exists(), f"{name}/metadata.json written")
+        tags = _summary_tags(trainer, log_dir)
+        missing = [t for t in SUMMARY_TAGS if t not in tags]
+        check(bool(tags) and not missing and "hyperparameters" in tags,
+              f"the writer ({type(trainer.writer).__name__}) wrote hyperparameters and "
+              f"{len(SUMMARY_TAGS) - len(missing)} of the {len(SUMMARY_TAGS)} summary tags"
+              + (f"; missing {missing}" if missing else ""))
+        del trainer
+
+        # 2. resume from the newest checkpoint and train one more iteration
+        saved = torch.load(ckpt_dir / f"poca_{iteration}" / "state.pt", map_location="cpu",
+                           weights_only=True)
+        trainer, ckpt = train_torch.prepare(
+            [*base, "--checkpoint", "latest", "--total_timesteps", str(2 * iteration)])
+        check(_equal_to_saved(torch, trainer, saved),
+              f"the resumed actor, critic and Adam state equal poca_{iteration}/state.pt "
+              "bit for bit")
+        adam_steps = {float(s["step"]) for s in saved["optimizer"]["state"].values()}
+        iter_s = []
+        train_iteration = trainer.train_iteration
+
+        def timed_iteration(*args):
+            t_it = time.perf_counter()
+            out = train_iteration(*args)
+            torch.cuda.synchronize()
+            iter_s.append(time.perf_counter() - t_it)
+            return out
+
+        trainer.train_iteration = timed_iteration
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        trainer.train(checkpointer=ckpt)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        trainer.writer.close()
+        launches = dict(ops.launches)
+        check(all(launches[k] > 0 for k in ("pairwise_sensors", "resolve_robot_collisions",
+                                            "fused_tail", "fused_tail_bwd")),
+              "the resumed run launched K1 {pairwise_sensors}, K2 {resolve_robot_collisions}, "
+              "K3f {fused_tail}, K3b {fused_tail_bwd} times".format(**launches))
+        steps = {float(s["step"]) for s in trainer.optimizer.state_dict()["state"].values()}
+        moments = [s["exp_avg"] for s in trainer.optimizer.state_dict()["state"].values()]
+        check((trainer.global_step, trainer.update_count) == (2 * iteration, 2)
+              and len(adam_steps) == 1 and steps == {2 * s for s in adam_steps}
+              and all(m.device.type == DEVICE for m in moments),
+              f"resumed to step {trainer.global_step:,}, update {trainer.update_count}; "
+              f"Adam steps {sorted(steps)}, its moments on the card")
+        tags = _summary_tags(trainer, log_dir)
+        check(tags.count("Losses/Policy Loss") == 2, "the resumed run wrote its summaries")
+
+        # the checkpointer alone, on this trainer
+        t0 = time.perf_counter()
+        path = ckpt.save(trainer)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ckpt.restore(path, trainer)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+
+        # 3. play the final checkpoint: counts from 0 just before, read just after
+        final = ckpt_dir / "poca_final"
+        ops.reset_launches()
+        stats = play_torch.main(["--checkpoint", str(final), "--num_envs", str(CLI_ENVS),
+                                 "--num_episodes", str(CLI_ENVS), "--episode_length", "10",
+                                 "--deterministic"])
+        launches = dict(ops.launches)
+        n = stats["env_steps"]
+        expect = {"pairwise_sensors": 1 + n, "resolve_robot_collisions": n,
+                  "fused_tail": 0, "fused_tail_bwd": 0}
+        for name, want in expect.items():
+            check(launches[name] == want, f"play_torch.py launched {name} {launches[name]} "
+                                          f"times (expected {want})")
+        mean_len = float(stats["lengths"].mean())
+        check(mean_len == 99.0 and len(stats["returns"]) == CLI_ENVS
+              and bool(np.isfinite(stats["returns"]).all()),
+              f"play_torch.py: {len(stats['returns'])} episodes, mean len {mean_len:.1f} "
+              "(expected 99.0)")
+
+        # 4. the card's checkpoint restores on the CPU, bit for bit
+        on_cpu = Checkpointer.restore_params(final, device="cpu")
+        same = all(torch.equal(on_cpu[net][k], v.cpu())
+                   for net in ("actor", "critic")
+                   for k, v in getattr(trainer, net).state_dict().items())
+        check(same and all(v.device.type == "cpu" for sd in on_cpu.values()
+                           for v in sd.values()),
+              "restore_params(poca_final, device='cpu') equals the card's state dicts bit "
+              "for bit")
+    print(f"  on {card}: train_torch.py from scratch {wall1:.3f} s (build, one iteration, two "
+          f"saves); the resumed iteration {iter_s[0]:.3f} s, "
+          f"{iteration / iter_s[0]:,.0f} training agent-decisions/s; save "
+          f"{save_ms:.1f} ms, restore {restore_ms:.1f} ms; play_torch.py {n} env steps x "
+          f"{CLI_ENVS} arenas in {stats['seconds']:.3f} s, "
+          f"{n * CLI_ENVS / stats['seconds']:,.0f} arena-steps/s; resumed train() "
+          f"{wall2:.3f} s; phase 3f {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 # ── main ─────────────────────────────────────────────────────────────────
 
 def main() -> int:
@@ -1943,6 +2159,11 @@ def main() -> int:
         phase_small_reference(torch, fused_attention=fused)
     for fused_env_step in (False, True):
         phase_small_reference(torch, variant="daisy", fused_env_step=fused_env_step)
+    try:
+        phase_cli(torch, ops, card)
+    except (Exception, SystemExit) as exc:   # reported as this phase's failure
+        traceback.print_exc()
+        check(False, f"phase 3f raised {exc!r}")
 
     # each kernel's launches in the main-path run that exercises it
     path_of = {"fused_cf_attention": "fused_attention",

@@ -11,8 +11,10 @@ Package layout (mirrors swarmacb_tpu)
   config/    env + trainer configs, ML-Agents-schema YAML loader (copies)
   env/       batched Directional Gate env: geometry, physics, sensors
   models/    actor and attention-based POCA critic (nn.Modules)
-  agents/    rollout container, λ-returns, losses and the POCA trainer
+  agents/    rollout container, λ-returns, losses, the POCA trainer and
+             its checkpoints
   ops/       hand-written CUDA kernels (csrc/) with their plain versions
+  utils/     the summary writer (TensorBoard, else JSONL)
   convert    flax params → state_dicts
 """
 

@@ -40,6 +40,7 @@ time; its math is the path below, so it is not ported.
 from __future__ import annotations
 
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -87,7 +88,8 @@ class POCATrainer:
 
     STATE_DIM = 5  # critic consumes the 5-D polar state (poca_trainer.py:224-227)
 
-    def __init__(self, env: DirectionalGateEnv, cfg: Optional[POCAConfig] = None):
+    def __init__(self, env: DirectionalGateEnv, cfg: Optional[POCAConfig] = None,
+                 writer=None):
         self.env = env
         self.cfg = cfg or POCAConfig()
         c = self.cfg
@@ -154,6 +156,10 @@ class POCATrainer:
 
         self.global_step = 0
         self.update_count = 0
+        self.writer = writer
+        # set to a directory to trace iterations 2-4 with torch.profiler
+        # (scripts/train_torch.py --profile)
+        self.profile_dir: Optional[str] = None
 
         # host-side episode accounting (poca_trainer.py:322-330)
         self._episode_reward_acc = np.zeros(self.num_envs)
@@ -161,6 +167,8 @@ class POCATrainer:
         self.completed_episode_returns: list[float] = []
         self.completed_episode_lengths: list[float] = []
         self.completed_group_rewards: list[float] = []
+        self._rollout_reward_history: list[float] = []
+        self._max_history = 100
 
     # ──────────────────────────────────────────────────────────────
     #  helpers
@@ -511,20 +519,54 @@ class POCATrainer:
         host["mean_rollout_reward"] = float(rewards.sum(0).mean())
         host["mean_step_reward"] = float(rewards.mean())
         host["mean_team_value"] = float(rollout.team_values.mean())
+        self._rollout_reward_history.append(host["mean_rollout_reward"])
+        if len(self._rollout_reward_history) > self._max_history:
+            self._rollout_reward_history.pop(0)
         return env_state, obs, host
 
-    def train(self, progress=True):
-        """Training loop to ``total_timesteps`` (poca_trainer.py:811-975),
-        without checkpoints or summaries (ROADMAP.md §1 item 7). Returns
-        (env_state, obs) after the last iteration."""
+    def _profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=activities)
+
+    def _stop_profiler(self, prof, profile_dir):
+        prof.stop()
+        path = Path(profile_dir)
+        path.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(path / "trace.json"))
+        print(f"[POCA] profiler trace → {path / 'trace.json'}", flush=True)
+
+    def train(self, checkpointer=None, progress=True):
+        """Training loop to ``total_timesteps`` with summaries and
+        checkpoints (poca_trainer.py:811-975). Returns (env_state, obs)
+        after the last iteration.
+
+        The summary and checkpoint cadence continues from the trainer's
+        step, so a resumed run saves at the next multiple of the interval;
+        the JAX loop restarts both at one interval (ROADMAP.md §3, intended
+        divergences). On a fresh run both give the same steps."""
         c = self.cfg
         env_state, obs = self.env.reset(self.generator)
+        next_summary = (self.global_step // c.summary_freq + 1) * c.summary_freq
+        next_checkpoint = ((self.global_step // c.checkpoint_interval + 1)
+                           * c.checkpoint_interval)
         start = time.time()
         decisions = c.horizon * self.num_envs * self.num_agents
+        # optional trace of iterations 2-4 (skip the warm-up of the first)
+        profile_dir, prof = self.profile_dir, None
+        iteration = 0
         while self.global_step < c.total_timesteps:
+            if profile_dir is not None and iteration == 1:
+                prof = self._profiler()
+                prof.start()
             t_iter = time.time()
             env_state, obs, m = self.train_iteration(env_state, obs)
             iter_dt = time.time() - t_iter
+            iteration += 1
+            if prof is not None and iteration == 4:
+                self._stop_profiler(prof, profile_dir)
+                profile_dir = prof = None
             elapsed = time.time() - start
             sps = self.global_step / elapsed if elapsed > 0 else 0.0
             sps_inst = decisions / iter_dt if iter_dt > 0 else 0.0
@@ -538,6 +580,84 @@ class POCATrainer:
             bad = [k for k in ("policy_loss", "value_loss", "baseline_loss")
                    if not np.isfinite(m[k])]
             if bad:
-                raise FloatingPointError(
-                    f"non-finite {bad} at step {self.global_step:,} — diverged")
+                msg = f"non-finite {bad} at step {self.global_step:,} — diverged"
+                if checkpointer is not None:
+                    # kept for post-mortem, never resumed from
+                    path = checkpointer.save(self, quarantine=True)
+                    msg += (f"; diverged params quarantined at {path}, "
+                            "resume from the last periodic checkpoint")
+                if prof is not None:
+                    self._stop_profiler(prof, profile_dir)
+                raise FloatingPointError(msg)
+
+            if self.writer is not None and self.global_step >= next_summary:
+                next_summary += c.summary_freq
+                self._write_summaries(m, sps)
+
+            if checkpointer is not None and self.global_step >= next_checkpoint:
+                next_checkpoint += c.checkpoint_interval
+                checkpointer.save(self)
+
+        if prof is not None:
+            # the run ended before iteration 4: write what was traced
+            self._stop_profiler(prof, profile_dir)
+        if checkpointer is not None:
+            checkpointer.save(self, final=True)
+        if self.writer is not None:
+            self.writer.flush()
         return env_state, obs
+
+    def _write_summaries(self, m, sps):
+        """ML-Agents TensorBoard tags (poca_trainer.py:861-958), in the JAX
+        package's order."""
+        w, s = self.writer, self.global_step
+        w.add_scalar("Losses/Policy Loss", m["policy_loss"], s)
+        w.add_scalar("Losses/Value Loss", m["value_loss"], s)
+        w.add_scalar("Losses/POCA/Baseline Loss", m["baseline_loss"], s)
+        w.add_scalar("Policy/Entropy", m["entropy"], s)
+        w.add_scalar("Policy/Learning Rate", m["lr"], s)
+        w.add_scalar("Policy/Epsilon", m["eps"], s)
+        w.add_scalar("Policy/Beta", m["beta"], s)
+        w.add_scalar("Policy/Extrinsic Reward", m["mean_step_reward"], s)
+        w.add_scalar("Policy/Extrinsic Value Estimate", m["mean_team_value"], s)
+        if not self.discrete:
+            log_std = self.actor.log_std.detach().cpu().numpy()      # (1, act_dim)
+            for d in range(log_std.shape[-1]):
+                w.add_scalar(f"Policy/Std dim{d}", float(np.exp(log_std[0, d])), s)
+            w.add_scalar("Policy/Log Std Mean", float(log_std.mean()), s)
+        if self.completed_episode_returns:
+            ep = self.completed_episode_returns
+            w.add_scalar("Environment/Cumulative Reward", sum(ep) / len(ep), s)
+            self.completed_episode_returns.clear()
+        if self.completed_episode_lengths:
+            el = self.completed_episode_lengths
+            w.add_scalar("Environment/Episode Length", sum(el) / len(el), s)
+            self.completed_episode_lengths.clear()
+        w.add_scalar("Extra/SPS", sps, s)
+        w.add_scalar("Extra/Mean Rollout Reward", m["mean_rollout_reward"], s)
+        hist = self._rollout_reward_history
+        w.add_scalar("Extra/Rolling Avg Rollout Reward", sum(hist) / len(hist), s)
+        w.add_scalar("Extra/Mean Abs Advantage", m["mean_abs_advantage"], s)
+        if self.completed_group_rewards:
+            gr = self.completed_group_rewards
+            w.add_scalar("Extra/Group Reward Mean", sum(gr) / len(gr), s)
+            self.completed_group_rewards.clear()
+
+    # ── checkpoint metadata (play_torch.py rebuild contract,
+    #    poca_trainer.py:981-999) ─────────────────────────────────
+    def checkpoint_metadata(self) -> dict:
+        c = self.cfg
+        recurrent = bool(c.recurrent)
+        return {
+            "hidden_dim": c.hidden_dim,
+            "num_layers": c.num_layers,
+            "recurrent": recurrent,
+            "memory_size": c.memory_size if recurrent else 0,
+            "sequence_length": c.sequence_length if recurrent else 0,
+            "discrete": self.discrete,
+            "num_actions": self.num_actions if self.discrete else 0,
+            "act_dim": self.act_dim,
+            "state_dim": self.STATE_DIM,
+            "obs_dim": self.obs_dim,
+            "variant": self.env.cfg.variant,
+        }

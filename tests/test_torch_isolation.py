@@ -12,6 +12,7 @@ import torch
 from swarmacb_torch import ops
 from swarmacb_torch.config import DirectionalGateEnvCfg
 from swarmacb_torch.env import DirectionalGateEnv, make_env
+from torch_scripts import load_script
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "swarmacb_tpu")
@@ -23,7 +24,10 @@ PORT_FILES = (sorted((ROOT / "swarmacb_torch").rglob("*.py"))
                                                 "time_cf_backward.py",
                                                 "probe_tf32_rates.py",
                                                 "time_tail_backward.py",
-                                                "time_env_kernels.py")])
+                                                "time_env_kernels.py",
+                                                "train_torch.py",
+                                                "play_torch.py",
+                                                "eval_checkpoints_torch.py")])
 
 
 def _imported_modules(path):
@@ -48,7 +52,8 @@ def test_port_file_imports_nothing_of_jax(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, swarmacb_torch, swarmacb_torch.env, swarmacb_torch.agents,"
-            " swarmacb_torch.ops, swarmacb_torch.convert, swarmacb_torch.models\n"
+            " swarmacb_torch.ops, swarmacb_torch.convert, swarmacb_torch.models,"
+            " swarmacb_torch.utils\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -69,6 +74,35 @@ def test_entry_points_default_to_the_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             make_env("SwarmACB-DirectionalGate-v0", cfg)
     assert DirectionalGateEnv(cfg, device="cpu").device.type == "cpu"
+
+
+def test_scripts_default_to_the_card(tmp_path, monkeypatch):
+    """``--device`` of the train, play and eval scripts defaults to the card:
+    without a card, train and play raise before they build the env, and
+    eval passes no ``--device`` on to play unless it is given one."""
+    train, play, evaluate = (load_script(n) for n in ("train_torch", "play_torch",
+                                                  "eval_checkpoints_torch"))
+    assert train.build_parser().parse_args([]).device is None
+    assert play.build_parser().parse_args(["--checkpoint", "c"]).device is None
+    assert evaluate.build_parser().parse_args([]).device is None
+    cmds = []
+    monkeypatch.setattr(evaluate.subprocess, "run", lambda cmd, **kw: cmds.append(cmd)
+                        or subprocess.CompletedProcess(cmd, 1, "", ""))
+    evaluate.run_eval(tmp_path, 1, False, 0, None)
+    evaluate.run_eval(tmp_path, 1, True, 0, "cpu")
+    assert "--device" not in cmds[0] and cmds[1][cmds[1].index("--device") + 1] == "cpu"
+    if torch.cuda.is_available():
+        return
+    from swarmacb_torch.agents import Checkpointer, POCAConfig, POCATrainer
+
+    env = DirectionalGateEnv(DirectionalGateEnvCfg(num_envs=1), device="cpu")
+    ckpt = Checkpointer(tmp_path).save(POCATrainer(env, POCAConfig(hidden_dim=8)), final=True)
+    monkeypatch.setattr(train, "make_env", lambda *a, **k: pytest.fail("env built"))
+    monkeypatch.setattr(play, "make_env", lambda *a, **k: pytest.fail("env built"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--config", str(ROOT / "configs" / "DirGate_dandelion.yaml")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        play.main(["--checkpoint", str(ckpt)])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
