@@ -36,7 +36,10 @@ Phases, each of which must pass for the run to pass:
      d_attn_lhs) joined by a d_fc scratch: phase 2c holds that scratch
      against the staged plain version (``tail_backward_reference``),
      checks that two calls give the same bits, and times each stage alone
-     beside its bound and, for the two products, ``torch.bmm``. K5f runs
+     beside its bound and, for the two products, ``torch.bmm``, at h = 512
+     and again at tulip's and cyclamen's h = 128 (the JSON row is
+     h = 512's); phases 2d and 2e hold K5f's pooled rows and K5b's
+     cotangents at h = 128 too. K5f runs
      as two kernels (the base products, K5b's first stage; the rows)
      joined by scratch: phase 2d holds its pooled rows against
      ``cf_reference`` at score scales 3 and 12 (and at a small ragged
@@ -74,13 +77,20 @@ Phases, each of which must pass for the run to pass:
      composed env step (K1, K2, K3f), then one whole training iteration
      with ``fused_env_step=True`` (K4 once per env step, K2 never, K1 only
      for the reset's observations), then the env arena-steps/s of both env
-     paths at E = 1024 and at bench.py's E = 32768. Every kernel's launch
-     count must show that each path went through it, and each iteration's agent-decisions/s is printed. A small
-     full-width rollout and update (E = 4, T = 4, h = 512) is then held
-     against the same rollout and update on the CPU, where every op takes
-     its plain version: dandelion on both critic paths, daisy on both env
-     paths. Phase 3f drives the command lines through their ``main(argv)``
-     in a temporary directory: ``scripts/train_torch.py`` with
+     paths at E = 1024 and at bench.py's E = 32768. Phase 3g takes
+     ``configs/DirGate_cyclamen.yaml`` with the same cut: one whole
+     training iteration of the LSTM actor (BPTT over the YAML's 64-decision
+     windows, grouped by length: 64, 64, 64 and 8), its wall time split
+     between the rollout and the update, and its peak memory. Every
+     kernel's launch count must show that each path went through it, and
+     each iteration's agent-decisions/s is printed. A small full-width
+     rollout and update (E = 4, T = 4) is then held against the same
+     rollout and update on the CPU, where every op takes its plain
+     version: dandelion on both critic paths and daisy on both env paths
+     at h = 512, tulip at h = 128, and cyclamen on both env paths at
+     h = 128 with windows of 3 decisions (two window groups). Phase 3f
+     drives the command lines through their ``main(argv)`` in a temporary
+     directory: ``scripts/train_torch.py`` with
      ``--hidden_dim 1024`` stops with the kernels' width message before it
      builds the env; ``--config configs/DirGate_dandelion.yaml --num_envs
      64`` trains one iteration at the YAML's T = 1000 (K1, K2, K3f and K3b
@@ -785,7 +795,14 @@ def time_tail_backward_stages(torch, args, dout, N, cycles_per_ms):
 
 
 def phase_tail_backward(torch, ops, card, cycles_per_ms):
-    B, N, H, h = E_MAIN, N_MAIN, H_MAIN, HID_MAIN
+    """K3b at the main path's width and at tulip's and cyclamen's h = 128;
+    the JSON row is the main path's."""
+    _tail_backward_at(torch, ops, card, cycles_per_ms, 128)
+    return _tail_backward_at(torch, ops, card, cycles_per_ms, HID_MAIN)
+
+
+def _tail_backward_at(torch, ops, card, cycles_per_ms, h):
+    B, N, H = E_MAIN, N_MAIN, H_MAIN
     print(f"== phase 2c: K3b fused_tail backward (B={B}, N={N}, H={H}, h={h})",
           flush=True)
     from swarmacb_torch.ops import baseline_tail
@@ -818,7 +835,7 @@ def phase_tail_backward(torch, ops, card, cycles_per_ms):
     del want_fc, got_fc
     # Each cotangent is a float32 sum taken in another order than the plain
     # version's autograd (cuBLAS products without TF32, reductions over the
-    # LayerNorm rows): d_attn_lhs and d_attn_mI over h = 512 columns, d_wa
+    # LayerNorm rows): d_attn_lhs and d_attn_mI over h columns, d_wa
     # over N² = 400 rows, d_dws over N, d_xa over N, d_bias over B·N² rows.
     # The tolerance is relative to each cotangent's largest element.
     names = ("attn_lhs", "attn_mI", "wa", "dws", "x_a", "delta", "bias")
@@ -839,7 +856,7 @@ def phase_tail_backward(torch, ops, card, cycles_per_ms):
         plain_out, args, dout, retain_graph=True), cycles_per_ms)
     n_bytes, n_flops = _tail_backward_work(B, N, H, h)
     b_ms, b_by = bound_ms(n_bytes, n_flops)
-    print(f"  K3b kernel {ms:.4f} ms, plain backward {plain:.4f} ms, bound "
+    print(f"  K3b kernel at h={h} {ms:.4f} ms, plain backward {plain:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
           f"{n_flops / 1e9:.2f} GFLOP) on {card}; no single PyTorch call computes "
           "this function, so there is no library time", flush=True)
@@ -1055,9 +1072,11 @@ def phase_cf_forward(torch, ops, card, cycles_per_ms):
     # LayerNorm outputs are O(1); the kernel's partition Z_b - E_aa + E_as
     # rounds otherwise than a fresh softmax row sum (the JAX package holds
     # its kernel to its plain version at the same tolerance). At
-    # (6, 5, 4, 32) a group's last rows block holds one counterfactual of two.
+    # (6, 5, 4, 32) a group's last rows block holds one counterfactual of two;
+    # h = 128 is tulip's and cyclamen's width.
     worst = 0.0
-    for shape, scale in (((B, N, H, h), 3.0), ((B, N, H, h), 12.0), ((6, 5, 4, 32), 3.0)):
+    for shape, scale in (((B, N, H, h), 3.0), ((B, N, H, h), 12.0), ((B, N, H, 128), 3.0),
+                         ((6, 5, 4, 32), 3.0)):
         args = _cf_inputs(torch, *shape, SEED + 4, scale)
         with torch.no_grad():
             got = ops.fused_cf_attention(*args, shape[3] // shape[2])
@@ -1134,38 +1153,9 @@ def phase_cf_backward(torch, ops, card, cycles_per_ms):
     for name, info in ptxas_report(_cuda.build_log("cf_attention"),
                                    CF_BACKWARD_KERNELS).items():
         print(f"  K5b ptxas {name}: {info}", flush=True)
-    args = [a.requires_grad_() for a in _cf_inputs(torch, B, N, H, h, SEED + 5, 3.0)]
-    rng = np.random.default_rng(SEED + 6)
-    dout = torch.from_numpy(rng.normal(size=(B, N, h)).astype(np.float32)).to(DEVICE)
-    before = ops.launches["fused_cf_attention_bwd"]
-    got = torch.autograd.grad(ops.fused_cf_attention(*args, d), args, dout)
-    torch.cuda.synchronize()
-    check(ops.launches["fused_cf_attention_bwd"] == before + 1,
-          "autograd through ops.fused_cf_attention launched K5b once")
-    plain_out = cf_attention.cf_reference(*args, d)
-    want = torch.autograd.grad(plain_out, args, dout, retain_graph=True)
-    args64 = [a.detach().double().requires_grad_() for a in args]
-    truth = torch.autograd.grad(cf_attention.cf_reference(*args64, d), args64,
-                                dout.double())
-    torch.cuda.synchronize()
-    # The JAX package's rule for its kernel (tests/test_cf_attention.py):
-    # each cotangent's error against a float64 plain run is at most twice
-    # the float32 plain version's (2.5 times for wa, whose recompute adds
-    # the rounding of the incremental partition), or 4 ulp of the tensor's
-    # largest element, where both sit at float32 resolution.
-    worst = 0.0
-    for name, g, w, t in zip(cf_attention.NAMES, got, want, truth):
-        err_k = float((g.double() - t).abs().max())
-        err_p = float((w.double() - t).abs().max())
-        floor = 4 * float(np.spacing(np.float32(float(t.abs().max()))))
-        band = 2.5 if name == "wa" else 2.0
-        limit = max(band * err_p, floor)
-        worst = max(worst, float((g - w).abs().max()))
-        check(err_k <= limit and g.shape == w.shape,
-              f"K5b d_{name} {tuple(g.shape)} (stage {CF_STAGE_OF[name]}): error "
-              f"against float64 {err_k:.3e}, plain float32's {err_p:.3e} (tolerance "
-              f"max({band:g}x plain, 4 ulp {floor:.3e}) = {limit:.3e})")
-    del args64, truth
+    # tulip's and cyclamen's width first, its cotangents only
+    _cf_backward_cotangents(torch, ops, B, N, H, 128)
+    args, dout, got, plain_out, worst = _cf_backward_cotangents(torch, ops, B, N, H, h)
     saved = [a.detach() for a in args]
     # Each stage's output against the staged plain version, which rebuilds fc
     # from the same base products and takes the same dot products in another
@@ -1226,6 +1216,47 @@ def phase_cf_backward(torch, ops, card, cycles_per_ms):
                  replaces="swarmacb_tpu/ops/cf_attention.py:290",
                  max_abs_err=worst, ms=ms, plain_ms=plain,
                  bound_ms=b_ms, bound_by=b_by, route_bound_ms=r_ms, library_ms=None)]
+
+
+def _cf_backward_cotangents(torch, ops, B, N, H, h):
+    """K5b's nine cotangents through autograd at (B, N, H, h), each held
+    against a float64 plain run; returns (inputs, dout, the cotangents, the
+    plain output, max|kernel − plain|)."""
+    from swarmacb_torch.ops import cf_attention
+
+    d = h // H
+    args = [a.requires_grad_() for a in _cf_inputs(torch, B, N, H, h, SEED + 5, 3.0)]
+    rng = np.random.default_rng(SEED + 6)
+    dout = torch.from_numpy(rng.normal(size=(B, N, h)).astype(np.float32)).to(DEVICE)
+    before = ops.launches["fused_cf_attention_bwd"]
+    got = torch.autograd.grad(ops.fused_cf_attention(*args, d), args, dout)
+    torch.cuda.synchronize()
+    check(ops.launches["fused_cf_attention_bwd"] == before + 1,
+          "autograd through ops.fused_cf_attention launched K5b once")
+    plain_out = cf_attention.cf_reference(*args, d)
+    want = torch.autograd.grad(plain_out, args, dout, retain_graph=True)
+    args64 = [a.detach().double().requires_grad_() for a in args]
+    truth = torch.autograd.grad(cf_attention.cf_reference(*args64, d), args64,
+                                dout.double())
+    torch.cuda.synchronize()
+    # The JAX package's rule for its kernel (tests/test_cf_attention.py):
+    # each cotangent's error against a float64 plain run is at most twice
+    # the float32 plain version's (2.5 times for wa, whose recompute adds
+    # the rounding of the incremental partition), or 4 ulp of the tensor's
+    # largest element, where both sit at float32 resolution.
+    worst = 0.0
+    for name, g, w, t in zip(cf_attention.NAMES, got, want, truth):
+        err_k = float((g.double() - t).abs().max())
+        err_p = float((w.double() - t).abs().max())
+        floor = 4 * float(np.spacing(np.float32(float(t.abs().max()))))
+        band = 2.5 if name == "wa" else 2.0
+        limit = max(band * err_p, floor)
+        worst = max(worst, float((g - w).abs().max()))
+        check(err_k <= limit and g.shape == w.shape,
+              f"K5b d_{name} {tuple(g.shape)} (stage {CF_STAGE_OF[name]}): error "
+              f"against float64 {err_k:.3e}, plain float32's {err_p:.3e} (tolerance "
+              f"max({band:g}x plain, 4 ulp {floor:.3e}) = {limit:.3e})")
+    return args, dout, got, plain_out, worst
 
 
 def phase_critic_paths(torch, cycles_per_ms):
@@ -1548,7 +1579,7 @@ def phase_slice(torch, ops, card, fused_attention=False):
     # warm-up (cuBLAS handles, allocator pools): not counted
     gen.manual_seed(SEED + 100)
     st, obs = env.reset(gen)
-    trainer.rollout(st, obs, length=2)
+    trainer.rollout(st, obs, trainer.init_actor_carry(), length=2)
     torch.cuda.synchronize()
 
     # the main path: counts from 0 just before, read just after
@@ -1557,7 +1588,7 @@ def phase_slice(torch, ops, card, fused_attention=False):
     ops.reset_launches()
     t0 = time.perf_counter()
     st, obs = env.reset(gen)
-    st, obs, rollout, bootstrap, aux = trainer.rollout(st, obs)
+    st, obs, _, rollout, bootstrap, aux = trainer.rollout(st, obs, ())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
@@ -1587,14 +1618,26 @@ def phase_slice(torch, ops, card, fused_attention=False):
     return trainer
 
 
+def _minibatches(trainer) -> list[tuple[int, int]]:
+    """(rows, groups per row) of each minibatch of one epoch, in the
+    update's order: for the recurrent actor the windows of each length L
+    in sorted(L) order, else the T·E groups; the last of each the
+    remainder."""
+    E = trainer.num_envs
+    rows = ({L: len(s) * E for L, s in sorted(trainer._window_groups().items())}
+            if trainer.recurrent else {1: trainer.cfg.horizon * E})
+    out = []
+    for per_row, n in rows.items():
+        size = trainer._minibatch_rows(n, per_row)
+        out += [(size, per_row)] * (n // size) + ([(n % size, per_row)] if n % size else [])
+    return out
+
+
 def _chunk_passes(trainer):
     """Gradient passes (chunk forward + backward) of one update: per epoch,
     each minibatch's ``_grad_chunks``."""
-    c = trainer.cfg
-    T_E = c.horizon * trainer.num_envs
-    mb = min(trainer.group_mb, T_E)
-    sizes = [mb] * (T_E // mb) + ([T_E % mb] if T_E % mb else [])
-    return c.num_epochs * sum(trainer._grad_chunks(n) for n in sizes)
+    return trainer.cfg.num_epochs * sum(trainer._grad_chunks(n, per_row)
+                                        for n, per_row in _minibatches(trainer))
 
 
 def phase_train(torch, ops, card, trainer):
@@ -1618,7 +1661,7 @@ def phase_train(torch, ops, card, trainer):
     st, obs = env.reset(gen)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st, obs, metrics = trainer.train_iteration(st, obs)
+    st, obs, _, metrics = trainer.train_iteration(st, obs, ())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
@@ -1639,6 +1682,88 @@ def phase_train(torch, ops, card, trainer):
           f"(rollout, bootstrap, update): {wall:.3f} s, "
           f"{decisions / wall:,.0f} training agent-decisions/s on {card}; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print("  " + ", ".join(f"{k} {v:.5g}" for k, v in metrics.items()), flush=True)
+    return launches
+
+
+def phase_cyclamen(torch, ops, card):
+    """The recurrent slice: one cyclamen training iteration (the LSTM actor,
+    BPTT over windows of the YAML's 64 decisions) at the smoke cut, through
+    ``train_iteration``, with its wall time split between the rollout and
+    the update."""
+    from swarmacb_torch.agents import POCATrainer
+    from swarmacb_torch.config import DirectionalGateEnvCfg, load_config
+    from swarmacb_torch.env import DirectionalGateEnv
+
+    run, variant, pcfg, env_ov = load_config(ROOT / "configs" / "DirGate_cyclamen.yaml")
+    yaml_horizon = pcfg.horizon
+    pcfg = dataclasses.replace(pcfg, horizon=HORIZON, seed=SEED)
+    env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
+    env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant, num_envs=E_MAIN,
+                                                   **env_kw))
+    trainer = POCATrainer(env, pcfg)
+    E, N, T, dp = env.num_envs, env.num_agents, HORIZON, pcfg.decision_period
+    mbs = _minibatches(trainer)
+    passes, steps = _chunk_passes(trainer), pcfg.num_epochs * len(mbs)
+    groups = {L: len(s) * E for L, s in sorted(trainer._window_groups().items())}
+    print(f"== phase 3g: the recurrent slice, {run} ({variant}): cut from num_envs="
+          f"{env_ov.get('num_envs')}, time_horizon={yaml_horizon} to "
+          f"num_envs={E}, horizon={T}; hidden {pcfg.hidden_dim}x{pcfg.num_layers}, LSTM "
+          f"memory {pcfg.memory_size}, windows of {pcfg.sequence_length}: "
+          f"{groups} windows by length; minibatch {trainer.group_mb} groups, chunks of "
+          f"{pcfg.accum_chunk_groups} groups; minibatches (windows, length) {mbs}; "
+          f"{passes} chunk passes and {steps} Adam steps in {pcfg.num_epochs} epochs",
+          flush=True)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 100)
+    st, obs = env.reset(gen)
+    trainer.rollout(st, obs, trainer.init_actor_carry(), length=2)     # warm-up
+    torch.cuda.synchronize()
+    params = [*trainer.actor.parameters(), *trainer.critic.parameters()]
+    before = [p.detach().clone() for p in params]
+    rollout_s = []
+    collect = trainer.collect
+
+    def timed_collect(*args, **kwargs):
+        t_roll = time.perf_counter()
+        out = collect(*args, **kwargs)
+        torch.cuda.synchronize()
+        rollout_s.append(time.perf_counter() - t_roll)
+        return out
+
+    trainer.collect = timed_collect
+    gen.manual_seed(SEED + 1)
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts from 0 just before, read just after
+    ops.reset_launches()
+    st, obs = env.reset(gen)
+    carry = trainer.init_actor_carry()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, obs, carry, metrics = trainer.train_iteration(st, obs, carry)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    del trainer.collect
+    expect = {"pairwise_sensors": 1 + T * dp, "resolve_robot_collisions": T * dp,
+              "fused_env_step": 0, **_critic_launches(False, T + passes, passes)}
+    for name, n in expect.items():
+        check(launches[name] == n, f"{name} launched {launches[name]} times in the "
+                                   f"cyclamen training iteration (expected {n})")
+    for k, v in metrics.items():
+        check(bool(np.isfinite(v)), f"metric {k} = {v:.6g} is finite")
+    check(all(bool(torch.isfinite(p).all()) for p in params), "every parameter is finite")
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(params, before))
+    check(moved > 0, f"the update moved the parameters (largest change {moved:.3e})")
+    check(all(tuple(x.shape) == (E * N, pcfg.memory_size) and bool(torch.isfinite(x).all())
+              for x in carry), f"the LSTM carry goes on, {tuple(carry[0].shape)} x 2, finite")
+    _finite(torch, "final obs", obs)
+    update_s = wall - rollout_s[0]
+    print(f"  cyclamen training iteration of {T} decisions x {E} arenas x {N} robots: "
+          f"{wall:.3f} s ({T * E * N / wall:,.0f} training agent-decisions/s): rollout "
+          f"(with reset's bookkeeping and bootstrap) {rollout_s[0]:.3f} s, update "
+          f"{update_s:.3f} s ({update_s / passes * 1e3:.1f} ms a chunk pass) on {card}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print("  " + ", ".join(f"{k} {v:.5g}" for k, v in metrics.items()), flush=True)
     return launches
 
@@ -1696,13 +1821,13 @@ def phase_daisy(torch, ops, card):
     trainer = POCATrainer(env, pcfg)
     gen.manual_seed(SEED + 100)
     st, obs = env.reset(gen)
-    trainer.rollout(st, obs, length=2)
+    trainer.rollout(st, obs, trainer.init_actor_carry(), length=2)
     torch.cuda.synchronize()
     gen.manual_seed(SEED)
     ops.reset_launches()
     t0 = time.perf_counter()
     st, obs = env.reset(gen)
-    st, obs, rollout, bootstrap, _ = trainer.rollout(st, obs)
+    st, obs, _, rollout, bootstrap, _ = trainer.rollout(st, obs, ())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
@@ -1725,7 +1850,7 @@ def phase_daisy(torch, ops, card):
     trainer = POCATrainer(env, dataclasses.replace(pcfg, fused_env_step=True))
     gen.manual_seed(SEED + 100)
     st, obs = env.reset(gen)
-    trainer.rollout(st, obs, length=2)
+    trainer.rollout(st, obs, trainer.init_actor_carry(), length=2)
     torch.cuda.synchronize()
     passes = _chunk_passes(trainer)
     params = [*trainer.actor.parameters(), *trainer.critic.parameters()]
@@ -1739,7 +1864,7 @@ def phase_daisy(torch, ops, card):
     st, obs = env.reset(gen)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st, obs, metrics = trainer.train_iteration(st, obs)
+    st, obs, _, metrics = trainer.train_iteration(st, obs, ())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
@@ -1777,34 +1902,48 @@ def phase_daisy(torch, ops, card):
 
 def phase_small_reference(torch, fused_attention=False, variant="dandelion",
                           fused_env_step=False):
-    """A short rollout and update at the full width on the card against the
-    same rollout and update on the CPU, whose ops all take their plain
-    versions: same weights (drawn on the CPU from the seed), same action
-    noise (Gumbel draws for a discrete variant), same turn durations and
-    spawns, two arenas reaching the time limit inside the run. Both updates
-    start from the CPU's rollout and take the same epoch permutations; two
-    minibatches of 8 groups per epoch, each in chunks of 3, 3 and 2
-    groups."""
+    """A short rollout and update at a config's full width on the card
+    against the same rollout and update on the CPU, whose ops all take
+    their plain versions: same weights (drawn on the CPU from the seed),
+    same action noise (Gumbel draws for a discrete variant), same turn
+    durations and spawns, two arenas reaching the time limit inside the
+    run. Both updates start from the CPU's rollout and take the same epoch
+    permutations. Feedforward: two minibatches of 8 groups per epoch, each
+    in chunks of 3, 3 and 2 groups. Recurrent (cyclamen, memory 128,
+    windows of 3 decisions): the windows of 1 decision (4 a minibatch, in
+    chunks of 3 and 1), then two minibatches of 2 windows of 3 decisions
+    (chunks of one window); the LSTM's carry starts from zeros and is
+    stored and zeroed on both sides."""
     from swarmacb_torch.agents import POCAConfig, POCATrainer, buffer
     from swarmacb_torch.config import DirectionalGateEnvCfg
     from swarmacb_torch.env import DirectionalGateEnv
 
     E, N, T = 4, N_MAIN, 4
-    print(f"== phase 3b: card against CPU, {variant}, E={E}, T={T}, h={HID_MAIN}, "
+    recurrent = variant == "cyclamen"
+    # the variant's width, as scripts/train_torch.py defaults it
+    hidden, layers = (128, 1) if variant in ("tulip", "cyclamen") else (HID_MAIN, 2)
+    print(f"== phase 3b: card against CPU, {variant}, E={E}, T={T}, h={hidden}, "
           f"fused_attention={fused_attention}, fused_env_step={fused_env_step}",
           flush=True)
     rng = np.random.default_rng(SEED + 2)
     cfg = DirectionalGateEnvCfg(variant=variant, num_envs=E)
-    pcfg = POCAConfig(hidden_dim=HID_MAIN, horizon=T, seed=SEED, mini_batch_size=8,
-                      accum_chunk_groups=3, fused_attention=fused_attention,
-                      fused_env_step=fused_env_step)
+    pcfg = POCAConfig(hidden_dim=hidden, num_layers=layers,
+                      horizon=T, seed=SEED, mini_batch_size=8, accum_chunk_groups=3,
+                      fused_attention=fused_attention, fused_env_step=fused_env_step,
+                      recurrent=recurrent, memory_size=128, sequence_length=3)
     pos, yaw = _arena_poses(rng, cfg, E, N)
     if cfg.discrete_actions:
         noise = rng.gumbel(size=(T, E * N, cfg.num_actions)).astype(np.float32)
     else:
         noise = rng.normal(size=(T, E * N, 2)).astype(np.float32)
     spawn_pos, spawn_yaw = _arena_poses(rng, cfg, T * E, N)
-    perms = np.stack([rng.permutation(T * E) for _ in range(pcfg.num_epochs)])
+    if recurrent:
+        # one permutation per (epoch, window group): {3: [0], 1: [3]}, E each
+        perms = [{L: torch.from_numpy(rng.permutation(E)) for L in (1, 3)}
+                 for _ in range(pcfg.num_epochs)]
+    else:
+        perms = torch.from_numpy(np.stack([rng.permutation(T * E)
+                                           for _ in range(pcfg.num_epochs)]))
     durations = ({k: rng.integers(1, 5, (T, E, N)).astype(np.int32)
                   for k in ("explore", "photo", "antiphoto")}
                  if cfg.discrete_actions else None)
@@ -1829,53 +1968,76 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
                             step_count=step_count)
         obs = env._observations(st)
         dev = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-        res = trainer.rollout(
-            st, obs, injected_noise=dev(noise),
+        out[device] = trainer.rollout(
+            st, obs, trainer.init_actor_carry(), injected_noise=dev(noise),
             injected_durations=(None if durations is None else
                                 {k: dev(v) for k, v in durations.items()}),
             injected_spawn=(dev(spawn_pos.reshape(T, E, N, 2)),
                             dev(spawn_yaw.reshape(T, E, N))))
-        out[device] = res
-    cpu, gpu = out["cpu"], out[DEVICE]
-    # rewards, done flags and module ids exact; floats through the 512-wide
-    # networks differ by float32 rounding in other summation orders
+    (_, _, carry_c, cpu, boot_c, _), (_, _, carry_g, gpu, boot_g, _) = out["cpu"], out[DEVICE]
+    # rewards, done flags and module ids exact; floats through the networks
+    # differ by float32 rounding in other summation orders
     tol = {"obs": 1e-4, "critic_states": 1e-5,
            "actions": 0.0 if cfg.discrete_actions else 1e-4, "log_probs": 1e-4,
-           "rewards": 0.0, "dones": 0.0, "team_values": 1e-4, "baselines": 1e-4}
-    for (name, c), (_, g) in zip(cpu[2].items(), gpu[2].items()):
+           "rewards": 0.0, "dones": 0.0, "team_values": 1e-4, "baselines": 1e-4,
+           "memory_h": 1e-4, "memory_c": 1e-4}
+    for (name, c), (_, g) in zip(cpu.items(), gpu.items()):
         err, ok = max_err(g.cpu(), c, tol[name], tol[name])
         check(ok, f"card vs CPU rollout.{name}: max|Δ| {err:.3e} "
                   f"(tolerance {tol[name]:g} + {tol[name]:g}·|CPU|)")
-    err, ok = max_err(gpu[3].cpu(), cpu[3], 1e-4, 1e-4)
+    err, ok = max_err(boot_g.cpu(), boot_c, 1e-4, 1e-4)
     check(ok, f"card vs CPU bootstrap value: max|Δ| {err:.3e}")
-    check(int(cpu[2].dones.sum()) == 2, "the folded auto-reset fired in two arenas")
-    spread = float(cpu[2].baselines.std())
+    check(int(cpu.dones.sum()) == 2, "the folded auto-reset fired in two arenas")
+    spread = float(cpu.baselines.std())
     check(spread > 1e-2, f"the baselines vary (std {spread:.3e})")
+    if recurrent:
+        # arenas 1 and 0 end their episodes at decisions 0 and 1: their
+        # stored carry is zero at the next decision, and only theirs
+        zero = ~cpu.memory_h.reshape(T, E, -1).any(-1)
+        want = torch.zeros(T, E, dtype=torch.bool)
+        want[0] = want[1, 1] = want[2, 0] = True
+        check(torch.equal(zero, want) and torch.equal(~gpu.memory_h.cpu().reshape(
+            T, E, -1).any(-1), want), "the carry is zero at the start and after each "
+                                      "done, on both devices, and nowhere else")
+        err, ok = max_err(carry_g[0].cpu(), carry_c[0], 1e-4, 1e-4)
+        check(ok, f"card vs CPU final LSTM carry h: max|Δ| {err:.3e}")
 
     # the update, from the CPU's rollout on both sides
     first, after = {}, {}
     for device, trainer in trainers.items():
-        rollout = type(cpu[2])(**{k: v.to(device) for k, v in cpu[2].items()})
-        bootstrap = cpu[3].to(device)
+        rollout = type(cpu)(**{k: v.to(device) for k, v in cpu.items()})
+        bootstrap = boot_c.to(device)
         c = trainer.cfg
         returns, adv = buffer.compute_advantages(rollout, bootstrap, c.gamma, c.lam)
-        flat = trainer._flatten_buffer(rollout, returns,
-                                       buffer.normalize_advantages(adv))
-        idx = torch.from_numpy(perms[0][:trainer.group_mb]).to(device)
+        adv = buffer.normalize_advantages(adv)
+        if recurrent:
+            # the first minibatch of the epoch: the windows of 1 decision
+            source = trainer._window_batches(rollout, returns, adv)[1]
+            idx, loss_fn = perms[0][1].to(device), trainer._recurrent_loss
+        else:
+            source = trainer._flatten_buffer(rollout, returns, adv)
+            idx = perms[0][:trainer.group_mb].to(device)
+            loss_fn = trainer._feedforward_loss
         trainer.optimizer.zero_grad(set_to_none=True)
-        total, aux = trainer._accumulate_grads({k: v[idx] for k, v in flat.items()},
-                                               c.clip_eps, c.beta)
+        total, aux = trainer._accumulate_grads({k: v[idx] for k, v in source.items()},
+                                               c.clip_eps, c.beta, loss_fn)
         first[device] = ([float(total), *aux.tolist()],
                          {n: p.grad.cpu() for n, p in
                           [*trainer.actor.named_parameters(prefix="actor"),
                            *trainer.critic.named_parameters(prefix="critic")]})
         metrics = trainer._update(rollout, bootstrap, c.lr, c.clip_eps, c.beta,
-                                  injected_perms=torch.from_numpy(perms))
+                                  injected_perms=perms)
         after[device] = (metrics, {n: p.detach().cpu() for n, p in
                                    [*trainer.actor.named_parameters(prefix="actor"),
                                     *trainer.critic.named_parameters(prefix="critic")]})
-    check(trainers[DEVICE]._grad_chunks(trainers[DEVICE].group_mb) == 3,
-          "the first minibatch runs in three chunks, the last a tail")
+    gpu_trainer = trainers[DEVICE]
+    if recurrent:
+        check(gpu_trainer._grad_chunks(E, 1) == 2 and gpu_trainer._grad_chunks(2, 3) == 2,
+              "the first minibatch (4 windows of 1) runs in two chunks, the last a tail; "
+              "those of 2 windows of 3 in two")
+    else:
+        check(gpu_trainer._grad_chunks(gpu_trainer.group_mb) == 3,
+              "the first minibatch runs in three chunks, the last a tail")
     # the first minibatch before any step: float32 sums in other orders
     # (cuBLAS against the CPU's products, K3b or K5b against autograd)
     (loss_c, grads_c), (loss_g, grads_g) = first["cpu"], first[DEVICE]
@@ -1895,8 +2057,9 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
                               f"max|Δ| / max(max|CPU|, 1e-3) over the {len(ratio)} "
                               f"parameters {ratio[name]:.3e}, at {name} "
                               f"(tolerance {rel:g})")
-    # after 3 epochs x 2 Adam steps: a first Adam step moves a coordinate by
-    # ≈ lr·sign(g), and a gradient near 0 can take either sign on two devices
+    # after 3 epochs of 2 (3 recurrent) Adam steps: a first Adam step moves a
+    # coordinate by ≈ lr·sign(g), and a gradient near 0 can take either sign
+    # on two devices
     bound = 2.2 * pcfg.num_epochs * pcfg.lr
     params_c, params_g = after["cpu"][1], after[DEVICE][1]
     drift = max(float((params_g[n] - p).abs().max()) for n, p in params_c.items())
@@ -2155,10 +2318,14 @@ def main() -> int:
             torch, ops, card, trainer)
         del trainer
     launches["daisy_fused_env_step"] = phase_daisy(torch, ops, card)
+    launches["cyclamen"] = phase_cyclamen(torch, ops, card)
     for fused in (False, True):
         phase_small_reference(torch, fused_attention=fused)
     for fused_env_step in (False, True):
         phase_small_reference(torch, variant="daisy", fused_env_step=fused_env_step)
+    phase_small_reference(torch, variant="tulip")
+    for fused_env_step in (False, True):
+        phase_small_reference(torch, variant="cyclamen", fused_env_step=fused_env_step)
     try:
         phase_cli(torch, ops, card)
     except (Exception, SystemExit) as exc:   # reported as this phase's failure

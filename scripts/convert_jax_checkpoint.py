@@ -36,10 +36,11 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import torch  # noqa: E402
 
-from swarmacb_torch.agents.checkpoint import METADATA_FILE, STATE_FILE  # noqa: E402
+from swarmacb_torch.agents.checkpoint import (  # noqa: E402
+    METADATA_FILE, STATE_FILE, actor_from_metadata)
 from swarmacb_torch.config import DirectionalGateEnvCfg, POCAConfig  # noqa: E402
 from swarmacb_torch.convert import flax_to_state_dict  # noqa: E402
-from swarmacb_torch.models.networks import Actor, DiscreteActor, POCACritic  # noqa: E402
+from swarmacb_torch.models.networks import POCACritic  # noqa: E402
 
 
 def restore_tree(path: pathlib.Path) -> dict:
@@ -80,13 +81,8 @@ def port_modules(meta: dict):
     variant = meta.get("variant", "dandelion")
     num_agents = DirectionalGateEnvCfg(variant=variant).num_agents
     act_dim_critic = meta["num_actions"] if meta["discrete"] else meta["act_dim"]
+    actor = actor_from_metadata(meta)
     with torch.device("meta"):
-        if meta["discrete"]:
-            actor = DiscreteActor(meta["obs_dim"], meta["num_actions"],
-                                  hidden=meta["hidden_dim"], num_layers=meta["num_layers"])
-        else:
-            actor = Actor(meta["obs_dim"], meta["act_dim"], hidden=meta["hidden_dim"],
-                          num_layers=meta["num_layers"])
         critic = POCACritic(state_dim=meta["state_dim"], act_dim=act_dim_critic,
                             num_agents=num_agents, hidden=meta["hidden_dim"],
                             num_heads=POCAConfig().critic_num_heads,
@@ -101,9 +97,6 @@ def _state_dicts(tree) -> dict:
 def convert(src: str | pathlib.Path, dst: str | pathlib.Path) -> pathlib.Path:
     src, dst = pathlib.Path(src).absolute(), pathlib.Path(dst).absolute()
     meta = json.loads((src / METADATA_FILE).read_text())
-    if meta["recurrent"]:
-        raise SystemExit("[convert] recurrent checkpoint: the port has no LSTM "
-                         "actor yet (ROADMAP.md §1 item 9)")
     tree = restore_tree(src)
     count, mu, nu, hyper = adam_state(tree["opt_state"])
     print(f"[convert] {src}: opt_state restored as "

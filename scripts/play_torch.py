@@ -5,8 +5,9 @@ The port's counterpart of ``scripts/play.py``. It rebuilds the actor from
 the checkpoint's metadata alone (reference play.py:114-143), rolls out
 episodes on the composed env step with stochastic or deterministic actions
 (argmax for the discrete variants, the mean for dandelion), applies the
-same clamp(−3, 3)/3 wheel preprocessing (play.py:193), accounts episodes
-per env, and prints the returns' mean, std, min, max and median
+same clamp(−3, 3)/3 wheel preprocessing (play.py:193), carries the LSTM
+actor's state from step to step and zeroes an arena's once its episode
+ended (play.py:216-220), accounts episodes per env, and prints the returns' mean, std, min, max and median
 (play.py:215-223) in the block that ``scripts/eval_checkpoints_torch.py``
 parses.
 
@@ -29,6 +30,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from swarmacb_torch.agents import Checkpointer  # noqa: E402
+from swarmacb_torch.agents.checkpoint import actor_from_metadata  # noqa: E402
 from swarmacb_torch.device import resolve_device  # noqa: E402
 from swarmacb_torch.env import make_env  # noqa: E402
 from swarmacb_torch.models.networks import Actor, DiscreteActor  # noqa: E402
@@ -54,21 +56,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hz", type=float, default=10.0,
                    help="render frame rate (with --render)")
     return p
-
-
-def build_actor(meta: dict, actor_state: dict):
-    """The actor of the checkpoint's metadata, holding ``actor_state``'s
-    tensors (on their device)."""
-    with torch.device("meta"):
-        if meta["discrete"]:
-            actor = DiscreteActor(meta["obs_dim"], meta["num_actions"],
-                                  hidden=meta["hidden_dim"],
-                                  num_layers=meta["num_layers"])
-        else:
-            actor = Actor(meta["obs_dim"], meta["act_dim"],
-                          hidden=meta["hidden_dim"], num_layers=meta["num_layers"])
-    actor.load_state_dict(actor_state, assign=True)
-    return actor
 
 
 def make_viewer(env, variant, hz, status):
@@ -135,9 +122,6 @@ def main(argv=None) -> dict:
     taken and their wall seconds."""
     args = build_parser().parse_args(argv)
     meta = Checkpointer.load_metadata(args.checkpoint)
-    if meta["recurrent"]:
-        raise SystemExit("[play] recurrent checkpoint: the LSTM actor is not "
-                         "ported yet (ROADMAP.md §1 item 9)")
     device = resolve_device(args.device)
     variant = meta.get("variant", "dandelion")
     overrides = {}
@@ -148,24 +132,29 @@ def main(argv=None) -> dict:
     E, N = env.num_envs, env.num_agents
 
     params = Checkpointer.restore_params(args.checkpoint, device=device)
-    actor = build_actor(meta, params["actor"])
-    discrete = bool(meta["discrete"])
+    actor = actor_from_metadata(meta)
+    actor.load_state_dict(params["actor"], assign=True)
+    discrete, recurrent = bool(meta["discrete"]), bool(meta["recurrent"])
     print(f"[play] restored {args.checkpoint}  variant={variant} "
-          f"discrete={discrete} recurrent=False  device={device}")
+          f"discrete={discrete} recurrent={recurrent}  device={device}")
 
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
 
-    def policy(obs):
+    def policy(obs, carry):
+        """(env actions, the actor's next carry)."""
         flat = obs.reshape(E * N, meta["obs_dim"])
-        if discrete:
+        if recurrent:
+            logits, carry = actor.step(flat, carry)
+        elif discrete:
             logits = actor(flat)
+        if discrete:
             act = (torch.argmax(logits, dim=-1) if args.deterministic
                    else DiscreteActor.sample(logits, generator=gen))
-            return act.reshape(E, N).to(torch.int32)
+            return act.reshape(E, N).to(torch.int32), carry
         mu, std = actor(flat)
         a = mu if args.deterministic else Actor.sample(mu, std, generator=gen)
-        return (torch.clamp(a, -3.0, 3.0) / 3.0).reshape(E, N, -1)
+        return (torch.clamp(a, -3.0, 3.0) / 3.0).reshape(E, N, -1), carry
 
     returns: list[float] = []
     lengths: list[float] = []
@@ -175,13 +164,15 @@ def main(argv=None) -> dict:
                            lambda: f"episodes {len(returns)}/{args.num_episodes}")
 
     state, obs = env.reset(gen)
+    carry = actor.initial_state(E * N, device=device) if recurrent else ()
     ep_ret = np.zeros(E)
     ep_len = np.zeros(E)
     step_i = 0
     t0 = time.perf_counter()
     with torch.no_grad():
         while len(returns) < args.num_episodes:
-            state, ts = env.step(state, policy(obs))
+            actions, carry = policy(obs, carry)
+            state, ts = env.step(state, actions)
             obs = ts.obs
             ep_ret += ts.reward.cpu().numpy()
             ep_len += 1
@@ -194,6 +185,10 @@ def main(argv=None) -> dict:
                 lengths.extend(ep_len[done].tolist())
                 ep_ret[done] = 0.0
                 ep_len[done] = 0.0
+                if recurrent:
+                    keep = (~ts.done).to(torch.float32)[:, None].expand(E, N)
+                    keep = keep.reshape(E * N, 1)
+                    carry = (carry[0] * keep, carry[1] * keep)
                 print(f"[play] {len(returns)}/{args.num_episodes} episodes", flush=True)
     seconds = time.perf_counter() - t0
 

@@ -95,18 +95,19 @@ def main() -> int:
     gen = torch.Generator(device=env.device)
     gen.manual_seed(args.seed)
     state, obs = env.reset(gen)
-    state, obs, *_ = trainer.rollout(state, obs, length=5)        # warm-up
+    carry = trainer.init_actor_carry()
+    state, obs, carry, *_ = trainer.rollout(state, obs, carry, length=5)  # warm-up
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    state, obs, *_ = trainer.rollout(state, obs, length=args.decisions,
-                                     want_bootstrap=False)
+    state, obs, carry, *_ = trainer.rollout(state, obs, carry, length=args.decisions,
+                                            want_bootstrap=False)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.rollout(state, obs, length=args.decisions, want_bootstrap=False)
+        trainer.rollout(state, obs, carry, length=args.decisions, want_bootstrap=False)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
     if args.trace:

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time of the port's dandelion POCA update goes, on one NVIDIA GPU.
+"""Where the time of the port's POCA update goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_update.py [--num_envs 1024] [--horizon 200]
+    python3 scripts/profile_torch_update.py [--config configs/DirGate_dandelion.yaml]
+                                            [--num_envs 1024] [--horizon 200]
                                             [--minibatches 2]
                                             [--trace build/update_trace.json]
 
-Loads ``configs/DirGate_dandelion.yaml`` through the port's loader (hidden
+Loads ``--config`` through the port's loader (dandelion by default: hidden
 512x2, N = 20 robots, the YAML's buffer and batch sizes), cuts it to
 ``--num_envs`` arenas and a ``--horizon``-decision rollout as
 ``chip_smoke.py`` does, collects one rollout (timed), takes one warm-up
 minibatch step, then ``--minibatches`` minibatch steps with no tracing and
 one more under ``torch.profiler``. A minibatch step is the chunked
 gradient accumulation (``POCATrainer._accumulate_grads``, one forward and
-one backward per chunk) and one Adam step. Prints
+one backward per chunk) and one Adam step. For the recurrent actor
+(cyclamen) the minibatches are those of the longest BPTT windows, and the
+predicted iteration counts every chunk pass of the update at their rate,
+so it is an upper bound. Prints
 
   - the rollout's wall time, the wall time per minibatch step untraced and
     traced, and from them the iteration's predicted wall time and the
@@ -55,6 +59,7 @@ def _staged(torch, name, fn):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default="configs/DirGate_dandelion.yaml")
     ap.add_argument("--num_envs", type=int, default=1024)
     ap.add_argument("--horizon", type=int, default=200)
     ap.add_argument("--minibatches", type=int, default=2)
@@ -82,7 +87,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
 
-    _, variant, pcfg, env_ov = load_config(ROOT / "configs" / "DirGate_dandelion.yaml")
+    _, variant, pcfg, env_ov = load_config(ROOT / args.config)
     pcfg = dataclasses.replace(pcfg, horizon=args.horizon, seed=args.seed)
     env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
     env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant,
@@ -93,25 +98,43 @@ def main() -> int:
     gen = torch.Generator(device=env.device)
     gen.manual_seed(args.seed)
     state, obs = env.reset(gen)
-    trainer.rollout(state, obs, length=2)                       # warm-up
+    trainer.rollout(state, obs, trainer.init_actor_carry(), length=2)   # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, _, rollout, bootstrap, _ = trainer.rollout(state, obs)
+    _, _, _, rollout, bootstrap, _ = trainer.rollout(state, obs, trainer.init_actor_carry())
     torch.cuda.synchronize()
     rollout_s = time.perf_counter() - t0
 
     returns, adv = buffer.compute_advantages(rollout, bootstrap, c.gamma, c.lam)
-    flat = trainer._flatten_buffer(rollout, returns, buffer.normalize_advantages(adv))
-    T_E = c.horizon * env.num_envs
-    mb = min(trainer.group_mb, T_E)
-    per_epoch = -(-T_E // mb)
-    chunks = trainer._grad_chunks(mb)
-    perm = torch.randperm(T_E, generator=trainer.generator, device=env.device)
-    batches = [{k: v[perm[i * mb:(i + 1) * mb]] for k, v in flat.items()}
+    adv = buffer.normalize_advantages(adv)
+    if trainer.recurrent:
+        # {L: the windows of L decisions}; profiled: the longest
+        sources = trainer._window_batches(rollout, returns, adv)
+        per_row, loss = max(sources), "_recurrent_loss"
+    else:
+        sources = {1: trainer._flatten_buffer(rollout, returns, adv)}
+        per_row, loss = 1, "_feedforward_loss"
+    passes = 0
+    for L, w in sources.items():
+        n = w["obs"].shape[0]
+        size = trainer._minibatch_rows(n, L)
+        passes += sum(trainer._grad_chunks(r, L)
+                      for r in [size] * (n // size) + ([n % size] if n % size else []))
+    passes *= c.num_epochs
+    source = sources[per_row]
+    rows = source["obs"].shape[0]
+    mb = trainer._minibatch_rows(rows, per_row)
+    per_epoch = -(-rows // mb)
+    chunks = trainer._grad_chunks(mb, per_row)
+    perm = torch.randperm(rows, generator=trainer.generator, device=env.device)
+    batches = [{k: v[perm[i * mb:(i + 1) * mb]] for k, v in source.items()}
                for i in range(min(per_epoch, args.minibatches + 2))]
 
     def step(i):
-        trainer._sgd_step(batches[i % len(batches)], c.clip_eps, c.beta)
+        # the loss looked up at each call, so that the profiled step runs
+        # the staged one below
+        trainer._sgd_step(batches[i % len(batches)], c.clip_eps, c.beta,
+                          getattr(trainer, loss), per_row)
 
     step(0)                                                     # warm-up
     torch.cuda.synchronize()
@@ -121,8 +144,11 @@ def main() -> int:
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / args.minibatches
 
-    trainer._feedforward_loss = _staged(torch, "forward", trainer._feedforward_loss)
+    setattr(trainer, loss, _staged(torch, "forward", getattr(trainer, loss)))
     trainer._apply_actor = _staged(torch, "forward.actor", trainer._apply_actor)
+    actor = trainer.actor
+    if trainer.recurrent:
+        actor.forward_sequence = _staged(torch, "forward.actor", actor.forward_sequence)
     critic = trainer.critic
     critic.critic_pass = _staged(torch, "forward.critic_pass", critic.critic_pass)
     critic.all_baselines = _staged(torch, "forward.all_baselines",
@@ -157,13 +183,13 @@ def main() -> int:
             stages[stage] += us
     busy_us = sum(us for _, us in kernels.values())
 
-    n_steps = c.num_epochs * per_epoch
-    iteration_s = rollout_s + n_steps * step_s
+    update_s = passes * step_s / chunks
+    iteration_s = rollout_s + update_s
     print(f"rollout of {c.horizon} decisions x {env.num_envs} arenas: {rollout_s:.3f} s; "
-          f"minibatch step ({mb} groups, {chunks} chunks of "
-          f"{trainer._chunk_rows(mb)}): {step_s * 1e3:.1f} ms untraced, "
-          f"{traced_s * 1e3:.1f} ms traced; {n_steps} steps per update -> "
-          f"iteration {iteration_s:.2f} s, update {n_steps * step_s / iteration_s:.1%} "
+          f"minibatch step ({mb} rows of {per_row} groups, {chunks} chunks of "
+          f"{trainer._chunk_rows(mb, per_row)} rows): {step_s * 1e3:.1f} ms untraced, "
+          f"{traced_s * 1e3:.1f} ms traced; {passes} chunk passes per update -> "
+          f"iteration {iteration_s:.2f} s, update {update_s / iteration_s:.1%} "
           f"of it; device busy {busy_us / (traced_s * 1e6):.1%} of the traced step; "
           f"on {card}", flush=True)
     print("stage (device ms per minibatch step; \"forward\" is the forward's "
@@ -175,12 +201,13 @@ def main() -> int:
     for name, (count, us) in top:
         print(f"  {us / 1e3:>9.3f} ms {us / busy_us:>6.1%} x{count:<5d} {name[:100]}")
     print(json.dumps({
-        "card": card, "num_envs": env.num_envs, "horizon": c.horizon,
-        "minibatch_groups": mb, "chunks_per_minibatch": chunks,
-        "steps_per_update": n_steps, "rollout_s": rollout_s,
+        "card": card, "config": args.config, "num_envs": env.num_envs,
+        "horizon": c.horizon, "minibatch_rows": mb, "groups_per_row": per_row,
+        "chunks_per_minibatch": chunks, "chunk_passes_per_update": passes,
+        "rollout_s": rollout_s,
         "minibatch_step_ms": step_s * 1e3, "traced_step_ms": traced_s * 1e3,
         "iteration_s_predicted": iteration_s,
-        "update_share": n_steps * step_s / iteration_s,
+        "update_share": update_s / iteration_s,
         "device_busy_share_traced": busy_us / (traced_s * 1e6),
         "stage_device_ms": {k: v / 1e3 for k, v in stages.items()},
         "top_kernels_ms": {k[:100]: v[1] / 1e3 for k, v in top},

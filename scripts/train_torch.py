@@ -11,6 +11,9 @@ Options the port does not have yet stop the run before the env is built.
 Usage:
     python scripts/train_torch.py --config configs/DirGate_dandelion.yaml
 
+    # cyclamen: the LSTM actor, BPTT over 64-decision windows
+    python scripts/train_torch.py --config configs/DirGate_cyclamen.yaml
+
     # resume from the newest checkpoint in the config's checkpoint_dir
     python scripts/train_torch.py --config configs/DirGate_dandelion.yaml \
         --checkpoint latest
@@ -154,9 +157,6 @@ def prepare(argv=None) -> tuple[POCATrainer, Checkpointer]:
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     run_name, variant, cfg, env_overrides = resolve_config(args)
-    if cfg.recurrent:
-        raise SystemExit(f"[train] {variant}: the LSTM actor is not ported yet "
-                         "(ROADMAP.md §1 item 9)")
     print_config(run_name, variant, cfg, env_overrides)
 
     device = resolve_device(args.device)

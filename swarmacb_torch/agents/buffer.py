@@ -19,6 +19,7 @@ form.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -35,15 +36,23 @@ class Rollout:
     dones: torch.Tensor          # (T, E) float
     team_values: torch.Tensor    # (T, E)
     baselines: torch.Tensor      # (T, E, N)
+    # the recurrent actor's carry BEFORE each decision, (T, E, N, M); None
+    # for a feedforward actor
+    memory_h: Optional[torch.Tensor] = None
+    memory_c: Optional[torch.Tensor] = None
 
     @classmethod
     def stack(cls, steps: list[dict]) -> "Rollout":
-        """Stack per-decision dicts of (E, …) tensors along a new time axis."""
-        return cls(**{f.name: torch.stack([s[f.name] for s in steps])
+        """Stack per-decision dicts of (E, …) tensors along a new time axis;
+        a field that is missing or None in the steps stays None."""
+        return cls(**{f.name: (None if steps[0].get(f.name) is None
+                               else torch.stack([s[f.name] for s in steps]))
                       for f in dataclasses.fields(cls)})
 
     def items(self):
-        return ((f.name, getattr(self, f.name)) for f in dataclasses.fields(self))
+        """(name, tensor) of every field that is not None."""
+        return ((f.name, getattr(self, f.name)) for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None)
 
 
 def lambda_returns(rewards, dones, team_values, bootstrap_value, gamma: float,

@@ -3,7 +3,7 @@
 Counterpart of ``swarmacb_tpu/agents/checkpoint.py`` without orbax. A
 checkpoint is a directory: ``state.pt`` (``torch.save`` of the actor's and
 the critic's ``state_dict``, and the Adam state, every tensor on the CPU)
-and ``metadata.json`` (the architecture, so ``scripts/play_torch.py`` can
+and ``metadata.json`` (the architecture, so ``actor_from_metadata`` can
 rebuild the actor without a config, plus ``global_step`` and
 ``update_count``), written last. Names and policy follow the JAX package:
 
@@ -30,9 +30,28 @@ from pathlib import Path
 import torch
 
 from ..device import resolve_device
+from ..models.networks import Actor, DiscreteActor, RecurrentDiscreteActor
 
 STATE_FILE = "state.pt"
 METADATA_FILE = "metadata.json"
+
+
+def actor_from_metadata(meta: dict):
+    """The actor a checkpoint's metadata describes, as ``POCATrainer``
+    builds it (the LSTM actor, the categorical one or the Gaussian one), on
+    the meta device: its parameters have names, shapes and order but no
+    storage, to be filled with ``load_state_dict(..., assign=True)``."""
+    with torch.device("meta"):
+        if meta["recurrent"]:
+            return RecurrentDiscreteActor(meta["obs_dim"], meta["num_actions"],
+                                          hidden=meta["hidden_dim"],
+                                          num_layers=meta["num_layers"],
+                                          memory=meta["memory_size"])
+        if meta["discrete"]:
+            return DiscreteActor(meta["obs_dim"], meta["num_actions"],
+                                 hidden=meta["hidden_dim"], num_layers=meta["num_layers"])
+        return Actor(meta["obs_dim"], meta["act_dim"], hidden=meta["hidden_dim"],
+                     num_layers=meta["num_layers"])
 
 
 def _to_cpu(obj):

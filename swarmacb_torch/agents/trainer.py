@@ -1,5 +1,5 @@
 """POCA trainer — counterpart of ``swarmacb_tpu/agents/trainer.py``
-(feedforward, single device).
+(feedforward and recurrent actors, single device).
 
 Acting: one decision (``_rollout_fn`` in the JAX package, trainer.py:269-366)
 samples the actor (Gaussian wheels for dandelion, a categorical over the 6
@@ -12,6 +12,15 @@ of ``ops.fused_env_step`` (``_rollout_fn_lanes``, trainer.py:368-473).
 Learning: λ-returns, advantage normalisation, then ``num_epochs`` epochs of
 minibatch POCA updates with one Adam over actor and critic
 (``_update_fn`` / ``_update_feedforward``, trainer.py:677-752).
+
+The recurrent actor (cyclamen, ``cfg.recurrent``) threads an LSTM carry
+through the rollout, stores each decision's carry from before the step as
+``memory_h`` / ``memory_c`` and zeroes an arena's carry once its episode
+ended, and across iterations through ``train_iteration``. Its update is
+BPTT over fixed-stride windows of ``sequence_length`` decisions grouped by
+length, each starting from the stored carry, with the carry zeroed inside
+a window after a done (``_update_recurrent``, trainer.py:960-1054). A
+feedforward actor's carry is the empty tuple.
 Algorithm parity with ML-Agents POCA:
 
   - counterfactual baselines from the critic every step (poca_trainer.py:449-455)
@@ -49,7 +58,8 @@ import torch
 from ..config.poca_cfg import POCAConfig
 from ..env.directional_gate import DirectionalGateEnv
 from ..env import lanes as laneslib
-from ..models.networks import Actor, DiscreteActor, POCACritic
+from ..models.networks import (Actor, DiscreteActor, POCACritic,
+                               RecurrentDiscreteActor)
 from ..ops import baseline_tail, cf_attention
 from . import buffer as buf
 from . import losses
@@ -57,8 +67,6 @@ from .buffer import Rollout
 
 
 def _not_ported(cfg: POCAConfig) -> Optional[str]:
-    if cfg.recurrent:
-        return "recurrent=True (LSTM actor): ROADMAP.md §1 item 9"
     if cfg.mixed_precision:
         return "mixed_precision=True: ROADMAP.md §1 item 10"
     return None
@@ -103,6 +111,9 @@ class POCATrainer:
         self.obs_dim = env.obs_dim
         self.discrete = env.cfg.discrete_actions
         self.num_actions = env.cfg.num_actions
+        self.recurrent = bool(c.recurrent)
+        if self.recurrent and not self.discrete:
+            raise ValueError("Recurrent POCA actor is only implemented for discrete actions")
         if self.discrete:
             self.act_dim = 1                      # storage dim
             self.act_dim_critic = self.num_actions
@@ -113,7 +124,11 @@ class POCATrainer:
 
         # ── networks (built without drawing from the global RNG) ───
         with torch.device("meta"):
-            if self.discrete:
+            if self.recurrent:
+                self.actor = RecurrentDiscreteActor(
+                    self.obs_dim, self.num_actions, hidden=c.hidden_dim,
+                    num_layers=c.num_layers, memory=c.memory_size)
+            elif self.discrete:
                 self.actor = DiscreteActor(self.obs_dim, self.num_actions,
                                            hidden=c.hidden_dim,
                                            num_layers=c.num_layers)
@@ -193,44 +208,58 @@ class POCATrainer:
                 torch.float32)
         return actions
 
-    def _apply_actor(self, flat_obs):
-        """Feedforward actor: (mu, std), or the logits when discrete."""
-        return self.actor(flat_obs)
+    def init_actor_carry(self):
+        """The actor's carry at the start of a run: zeros ((E·N, M),
+        (E·N, M)) for the LSTM actor, () for a feedforward one."""
+        if not self.recurrent:
+            return ()
+        return self.actor.initial_state(self.num_envs * self.num_agents,
+                                        device=self.device)
 
-    def _act(self, obs, noise):
+    def _apply_actor(self, flat_obs, carry):
+        """(dist params, new carry): the LSTM's logits and carry, or a
+        feedforward actor's (mu, std) or logits with the carry unchanged."""
+        if self.recurrent:
+            return self.actor.step(flat_obs, carry)
+        return self.actor(flat_obs), carry
+
+    def _act(self, obs, carry, noise):
         """Sample one decision. Returns (actions (E, N, act_dim) as stored,
-        per-dim log-probs (E, N, act_dim), env actions): module ids (E, N)
-        int32 for the discrete variants, clamp(−3, 3)/3 wheels (E, N, 2)
-        for dandelion (ML-Agents env preprocessing; the rollout keeps RAW
-        actions, poca_trainer.py:457-467)."""
+        per-dim log-probs (E, N, act_dim), env actions, the actor's new
+        carry): module ids (E, N) int32 for the discrete variants,
+        clamp(−3, 3)/3 wheels (E, N, 2) for dandelion (ML-Agents env
+        preprocessing; the rollout keeps RAW actions,
+        poca_trainer.py:457-467)."""
         E, N = self.num_envs, self.num_agents
-        dist = self._apply_actor(obs.reshape(E * N, self.obs_dim))
+        dist, carry = self._apply_actor(obs.reshape(E * N, self.obs_dim), carry)
         if self.discrete:
             act_flat = DiscreteActor.sample(dist, noise=noise,
                                             generator=self.generator)
             logp_flat = DiscreteActor.log_prob(dist, act_flat)
             actions = act_flat.reshape(E, N, 1).to(torch.float32)
             return (actions, logp_flat.reshape(E, N, 1),
-                    act_flat.reshape(E, N).to(torch.int32))
+                    act_flat.reshape(E, N).to(torch.int32), carry)
         mu, std = dist
         act_flat = Actor.sample(mu, std, noise=noise, generator=self.generator)
         logp_flat = Actor.log_prob(mu, std, act_flat)
         actions = act_flat.reshape(E, N, self.act_dim)
         return (actions, logp_flat.reshape(E, N, self.act_dim),
-                torch.clamp(actions, -3.0, 3.0) / 3.0)
+                torch.clamp(actions, -3.0, 3.0) / 3.0, carry)
 
     # ──────────────────────────────────────────────────────────────
     #  rollout
     # ──────────────────────────────────────────────────────────────
 
     @torch.no_grad()
-    def rollout(self, env_state, obs, length: Optional[int] = None,
+    def rollout(self, env_state, obs, actor_carry, length: Optional[int] = None,
                 injected_noise=None, injected_durations=None,
                 injected_spawn=None, want_bootstrap=True):
         """Collect ``length`` (default horizon) decisions.
 
         Args:
             env_state, obs: the env's current state and observations.
+            actor_carry: the actor's carry (``init_actor_carry``; () for a
+                feedforward actor).
             injected_noise: optional (T, E·N, act_dim) standard-normal draws
                 (dandelion) or (T, E·N, num_actions) Gumbel draws (discrete)
                 replacing the actor's sampling noise.
@@ -240,18 +269,20 @@ class POCATrainer:
             injected_spawn: optional (pos (S, E, N, 2), yaw (S, E, N)), one
                 auto-reset spawn per env step.
 
-        Returns (env_state, obs, rollout, bootstrap_value or None, aux) with
-        aux = (step rewards, dones, completed_group_reward), each (T, E).
+        Returns (env_state, obs, actor_carry, rollout, bootstrap_value or
+        None, aux) with aux = (step rewards, dones, completed_group_reward),
+        each (T, E).
         """
         env = self.env
-        E = self.num_envs
+        E, N = self.num_envs, self.num_agents
         dp = self.cfg.decision_period
         T = self.cfg.horizon if length is None else length
         lanes = laneslib.state_to_lanes(env, env_state) if self.use_lanes else None
         steps, aux = [], []
         for t in range(T):
             noise = None if injected_noise is None else injected_noise[t]
-            actions, log_probs, env_actions = self._act(obs, noise)
+            actions, log_probs, env_actions, new_carry = self._act(
+                obs, actor_carry, noise)
             if lanes is not None:
                 lane_actions = laneslib.actions_to_lanes(env, env_actions)
                 critic_state = laneslib.critic_state_from_lanes(env, lanes)
@@ -294,36 +325,45 @@ class POCATrainer:
 
             if lanes is not None:
                 completed = laneslib.from_lanes(completed, E, squeeze=True)
-            steps.append(dict(
+            step = dict(
                 obs=obs, critic_states=critic_state, actions=actions,
                 log_probs=log_probs,
                 rewards=acc_reward * self.cfg.reward_strength,
-                dones=last_done, team_values=team_val, baselines=baselines))
+                dones=last_done, team_values=team_val, baselines=baselines)
+            if self.recurrent:
+                # the carry from before this decision; then an arena whose
+                # episode ended starts the next one from zeros
+                M = self.cfg.memory_size
+                step["memory_h"] = actor_carry[0].reshape(E, N, M)
+                step["memory_c"] = actor_carry[1].reshape(E, N, M)
+                keep = (1.0 - last_done)[:, None].expand(E, N).reshape(E * N, 1)
+                new_carry = (new_carry[0] * keep, new_carry[1] * keep)
+            steps.append(step)
             aux.append((acc_reward, last_done, completed))
-            obs = next_obs
+            obs, actor_carry = next_obs, new_carry
 
         if lanes is not None:
             env_state = laneslib.lanes_to_state(env, lanes)
         rollout = Rollout.stack(steps)
         aux = tuple(torch.stack(x) for x in zip(*aux))
         bootstrap = self._bootstrap_fn(env_state) if want_bootstrap else None
-        return env_state, obs, rollout, bootstrap, aux
+        return env_state, obs, actor_carry, rollout, bootstrap, aux
 
     @torch.no_grad()
     def _bootstrap_fn(self, env_state):
         """V(s_T) for the λ-return bootstrap (poca_trainer.py:528-530)."""
         return self.critic.critic_pass(self.env.critic_state(env_state))[:, 0]
 
-    def collect(self, env_state, obs, **kwargs):
+    def collect(self, env_state, obs, actor_carry, **kwargs):
         """``rollout`` plus the host-side bookkeeping of one iteration:
         episode statistics and the global decision count."""
-        env_state, obs, rollout, bootstrap, aux = self.rollout(
-            env_state, obs, **kwargs)
+        env_state, obs, actor_carry, rollout, bootstrap, aux = self.rollout(
+            env_state, obs, actor_carry, **kwargs)
         self._accumulate_episode_stats({"rewards": rollout.rewards,
                                         "dones": rollout.dones,
                                         "completed_group": aux[2]})
         self.global_step += rollout.rewards.shape[0] * self.num_envs * self.num_agents
-        return env_state, obs, rollout, bootstrap, aux
+        return env_state, obs, actor_carry, rollout, bootstrap, aux
 
     def _accumulate_episode_stats(self, stats):
         """Episode returns/lengths across auto-resets (poca_trainer.py:498-515)."""
@@ -349,12 +389,25 @@ class POCATrainer:
     #  losses
     # ──────────────────────────────────────────────────────────────
 
+    def _critic_losses(self, cs, actions, returns, old_tv, old_bl, eps):
+        """(value loss, baseline loss) of the critic on G groups: critic
+        states (G, N, 5), stored actions (G, N, act_dim), returns, old team
+        values (G,) and old baselines (G, N)."""
+        new_tv = self.critic.critic_pass(cs)[:, 0]
+        new_bl = self.critic.all_baselines(
+            cs, self._encode_actions_for_critic(actions))
+        value_loss = losses.trust_region_value_loss(new_tv, old_tv, returns, eps)
+        ret_exp = returns[:, None].expand(new_bl.shape)
+        baseline_loss = losses.trust_region_value_loss(
+            new_bl.reshape(-1), old_bl.reshape(-1), ret_exp.reshape(-1), eps)
+        return value_loss, baseline_loss
+
     def _feedforward_loss(self, batch, eps, beta):
         """poca_trainer.py:534-575. Returns (total, (policy, value,
         baseline, entropy))."""
         obs = batch["obs"]                  # (MB, N, obs)
         MB, N = obs.shape[:2]
-        dist = self._apply_actor(obs.reshape(MB * N, self.obs_dim))
+        dist, _ = self._apply_actor(obs.reshape(MB * N, self.obs_dim), ())
         actions = batch["actions"]
         if self.discrete:
             act_flat = actions.reshape(MB * N, 1)[:, 0]
@@ -368,17 +421,42 @@ class POCATrainer:
             batch["advantages"].reshape(-1, 1), logp,
             batch["old_log_probs"].reshape(MB * N, -1), eps)
         mean_entropy = ent.mean()
+        value_loss, baseline_loss = self._critic_losses(
+            batch["critic_states"], actions, batch["returns"],
+            batch["old_team_values"], batch["old_baselines"], eps)
+        total = losses.poca_total_loss(policy_loss, value_loss, baseline_loss,
+                                       mean_entropy, beta)
+        return total, (policy_loss, value_loss, baseline_loss, mean_entropy)
 
-        cs = batch["critic_states"]
-        new_tv = self.critic.critic_pass(cs)[:, 0]
-        new_bl = self.critic.all_baselines(
-            cs, self._encode_actions_for_critic(actions))
-        value_loss = losses.trust_region_value_loss(
-            new_tv, batch["old_team_values"], batch["returns"], eps)
-        ret_exp = batch["returns"][:, None].expand(new_bl.shape)
-        baseline_loss = losses.trust_region_value_loss(
-            new_bl.reshape(-1), batch["old_baselines"].reshape(-1),
-            ret_exp.reshape(-1), eps)
+    def _recurrent_loss(self, batch, eps, beta):
+        """poca_trainer.py:577-642: BPTT over B windows of L decisions
+        (batch tensors (B, L, …)), each from its stored carry, the carry
+        zeroed after a done. Returns (total, (policy, value, baseline,
+        entropy))."""
+        obs = batch["obs"]                  # (B, L, N, obs)
+        B, L, N = obs.shape[:3]
+        M = self.cfg.memory_size
+        obs_seq = obs.permute(0, 2, 1, 3).reshape(B * N, L, self.obs_dim)
+        act_seq = batch["actions"].permute(0, 2, 1, 3).reshape(B * N, L)
+        carry = (batch["memory_h"].reshape(B * N, M),
+                 batch["memory_c"].reshape(B * N, M))
+        dones_bn = batch["dones"][:, None, :].expand(B, N, L).reshape(B * N, L)
+        logits_seq, _ = self.actor.forward_sequence(obs_seq, carry, dones_bn)
+        logits = logits_seq.reshape(B * N * L, self.num_actions)
+        logp = DiscreteActor.log_prob(logits, act_seq.reshape(B * N * L))
+        ent = DiscreteActor.entropy(logits)
+        # back to the (B, L, N) layout of the advantages and old log-probs
+        new_logp = logp.reshape(B, N, L).permute(0, 2, 1)
+        policy_loss = losses.trust_region_policy_loss(
+            batch["advantages"].reshape(-1, 1), new_logp.reshape(-1, 1),
+            batch["old_log_probs"].reshape(-1, 1), eps)
+        mean_entropy = ent.mean()
+        # the critic over the B·L groups
+        value_loss, baseline_loss = self._critic_losses(
+            batch["critic_states"].reshape(B * L, N, self.STATE_DIM),
+            batch["actions"].reshape(B * L, N, self.act_dim),
+            batch["returns"].reshape(B * L), batch["old_team_values"].reshape(B * L),
+            batch["old_baselines"].reshape(B * L, N), eps)
         total = losses.poca_total_loss(policy_loss, value_loss, baseline_loss,
                                        mean_entropy, beta)
         return total, (policy_loss, value_loss, baseline_loss, mean_entropy)
@@ -387,25 +465,28 @@ class POCATrainer:
     #  update
     # ──────────────────────────────────────────────────────────────
 
-    def _chunk_rows(self, batch_rows: int) -> int:
+    def _chunk_rows(self, batch_rows: int, groups_per_row: int = 1) -> int:
         """Rows per gradient-accumulation chunk of a minibatch of
-        ``batch_rows`` groups (arena timesteps), capped at
-        ``accum_chunk_groups``; ``batch_rows`` (no chunking) when the whole
-        batch fits under the cap."""
+        ``batch_rows`` rows of ``groups_per_row`` arena timesteps each (1
+        for feedforward, the BPTT window length for a recurrent batch), so
+        that a chunk holds at most ``accum_chunk_groups`` groups;
+        ``batch_rows`` (no chunking) when the whole batch fits under the
+        cap."""
         cap = self.cfg.accum_chunk_groups
-        if cap <= 0 or batch_rows <= cap:
+        if cap <= 0 or batch_rows * groups_per_row <= cap:
             return batch_rows
-        return cap
+        return max(1, cap // groups_per_row)
 
-    def _grad_chunks(self, batch_rows: int) -> int:
+    def _grad_chunks(self, batch_rows: int, groups_per_row: int = 1) -> int:
         """Number of gradient-accumulation passes (incl. a possible
         shorter tail chunk) the minibatch will be split into."""
-        rows = self._chunk_rows(batch_rows)
+        rows = self._chunk_rows(batch_rows, groups_per_row)
         return -(-batch_rows // rows)
 
-    def _accumulate_grads(self, batch, eps, beta):
-        """Adds the minibatch loss's gradient to every parameter's ``.grad``
-        and returns (total loss, aux (4,)) of the whole minibatch.
+    def _accumulate_grads(self, batch, eps, beta, loss_fn, groups_per_row: int = 1):
+        """Adds the gradient of ``loss_fn`` (``_feedforward_loss`` or
+        ``_recurrent_loss``) over the minibatch to every parameter's
+        ``.grad`` and returns (total loss, aux (4,)) of the whole minibatch.
 
         Exact chunked accumulation: each chunk's loss is weighted by its
         share of rows (every loss term is a per-element mean with a fixed
@@ -415,29 +496,29 @@ class POCATrainer:
         bounded by one chunk; the tail chunk (B mod rows) gets its own
         weighted pass."""
         B = batch["obs"].shape[0]
-        rows = self._chunk_rows(B)
+        rows = self._chunk_rows(B, groups_per_row)
         n_full, rem = divmod(B, rows)
         total_sum = torch.zeros((), device=self.device)
         aux_sum = torch.zeros(4, device=self.device)
         for k in range(n_full):
             chunk = {n: v[k * rows:(k + 1) * rows] for n, v in batch.items()}
-            total, aux = self._feedforward_loss(chunk, eps, beta)
+            total, aux = loss_fn(chunk, eps, beta)
             (total * (rows / B)).backward()
             total_sum = total_sum + total.detach()
             aux_sum = aux_sum + torch.stack(aux).detach()
         total_v, aux_v = total_sum * (rows / B), aux_sum * (rows / B)
         if rem:
             tail = {n: v[n_full * rows:] for n, v in batch.items()}
-            total, aux = self._feedforward_loss(tail, eps, beta)
+            total, aux = loss_fn(tail, eps, beta)
             (total * (rem / B)).backward()
             total_v = total_v + total.detach() * (rem / B)
             aux_v = aux_v + torch.stack(aux).detach() * (rem / B)
         return total_v, aux_v
 
-    def _sgd_step(self, batch, eps, beta):
+    def _sgd_step(self, batch, eps, beta, loss_fn, groups_per_row: int = 1):
         """One Adam step on one minibatch; returns its aux (4,)."""
         self.optimizer.zero_grad(set_to_none=True)
-        _, aux = self._accumulate_grads(batch, eps, beta)
+        _, aux = self._accumulate_grads(batch, eps, beta, loss_fn, groups_per_row)
         self.optimizer.step()
         return aux
 
@@ -455,13 +536,79 @@ class POCATrainer:
             "old_baselines": buf.flatten_time_env(rollout.baselines),
         }
 
+    def _window_groups(self) -> dict[int, list[int]]:
+        """The BPTT window layout (poca_buffer.py:190-208): windows of
+        ``sequence_length`` decisions at a fixed stride from t = 0, the last
+        one shorter where the horizon is not a multiple, grouped by length:
+        {length: [start, …]}."""
+        T = self.cfg.horizon
+        L = max(1, min(self.cfg.sequence_length, T))
+        groups: dict[int, list[int]] = {}
+        for s in range(0, T, L):
+            groups.setdefault(min(L, T - s), []).append(s)
+        return groups
+
+    def _window_batches(self, rollout: Rollout, returns, advantages) -> dict:
+        """{L: batch} of the BPTT windows of each length
+        (poca_buffer.py:190-246): each tensor (n_starts·E, L, …), a window
+        per (start, arena), and the stored carry at each window's start as
+        its initial memory (n_starts·E, N, M)."""
+        def windows_for(starts, length):
+            def win(x):
+                # (T, E, …) → (n_s, L, E, …) → (n_s, E, L, …) → (n_s·E, L, …)
+                pieces = torch.stack([x[s:s + length] for s in starts])
+                return pieces.movedim(2, 1).reshape((-1, length) + tuple(x.shape[2:]))
+
+            return {
+                "obs": win(rollout.obs),
+                "critic_states": win(rollout.critic_states),
+                "actions": win(rollout.actions),
+                "old_log_probs": win(rollout.log_probs),
+                "advantages": win(advantages),
+                "dones": win(rollout.dones),
+                "returns": win(returns),
+                "old_team_values": win(rollout.team_values),
+                "old_baselines": win(rollout.baselines),
+                "memory_h": torch.cat([rollout.memory_h[s] for s in starts]),
+                "memory_c": torch.cat([rollout.memory_c[s] for s in starts]),
+            }
+
+        return {L: windows_for(starts, L)
+                for L, starts in self._window_groups().items()}
+
+    def _minibatch_steps(self, source: dict, perm, size: int, eps, beta,
+                         loss_fn, groups_per_row: int = 1):
+        """One Adam step per ``size`` rows of ``perm`` over ``source``, the
+        last minibatch the remainder; returns (aux sum (4,), steps)."""
+        aux_sum = torch.zeros(4, device=self.device)
+        n = perm.shape[0]
+        for lo in range(0, n, size):
+            idx = perm[lo:lo + size]
+            aux_sum = aux_sum + self._sgd_step(
+                {k: v[idx] for k, v in source.items()}, eps, beta, loss_fn,
+                groups_per_row)
+        return aux_sum, -(-n // size)
+
+    def _minibatch_rows(self, rows: int, groups_per_row: int = 1) -> int:
+        """Rows of a minibatch drawn from ``rows`` rows of ``groups_per_row``
+        groups each: ``group_mb`` groups' worth, at least one row
+        (trainer.py:1015-1016)."""
+        return min(max(1, self.group_mb // groups_per_row), rows)
+
+    def _permutation(self, n: int, injected):
+        if injected is None:
+            return torch.randperm(n, generator=self.generator, device=self.device)
+        return injected.to(self.device)
+
     def _update(self, rollout: Rollout, bootstrap, lr, eps, beta,
                 injected_perms=None):
         """``num_epochs`` POCA epochs over the buffer → metrics (tensors).
 
-        ``injected_perms``: optional (num_epochs, T·E) index tensor that
-        replaces the epochs' minibatch permutations (otherwise drawn with
-        ``torch.randperm`` from ``self.generator``)."""
+        ``injected_perms`` replaces the epochs' minibatch permutations
+        (otherwise drawn with ``torch.randperm`` from ``self.generator``):
+        for a feedforward actor a (num_epochs, T·E) index tensor; for the
+        recurrent actor one permutation of each window group's windows per
+        epoch, ``injected_perms[epoch][L]``."""
         c = self.cfg
         returns, advantages = buf.compute_advantages(rollout, bootstrap,
                                                      c.gamma, c.lam)
@@ -469,27 +616,29 @@ class POCATrainer:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
 
-        T, E = rollout.rewards.shape
-        T_E = T * E
-        flat = self._flatten_buffer(rollout, returns, advantages)
-        mb = min(self.group_mb, T_E)
-        n_full, rem = divmod(T_E, mb)
         aux_sum = torch.zeros(4, device=self.device)
         n_batches = 0
-        for epoch in range(c.num_epochs):
-            if injected_perms is None:
-                perm = torch.randperm(T_E, generator=self.generator,
-                                      device=self.device)
-            else:
-                perm = injected_perms[epoch].to(self.device)
-            bounds = [(k * mb, (k + 1) * mb) for k in range(n_full)]
-            if rem:
-                bounds.append((n_full * mb, T_E))
-            for lo, hi in bounds:
-                idx = perm[lo:hi]
-                aux_sum = aux_sum + self._sgd_step(
-                    {n: v[idx] for n, v in flat.items()}, eps, beta)
-                n_batches += 1
+        if self.recurrent:
+            group_batches = self._window_batches(rollout, returns, advantages)
+            for epoch in range(c.num_epochs):
+                # the groups in sorted(L) order, one permutation each
+                # (trainer.py:1013-1020)
+                for L, source in sorted(group_batches.items()):
+                    W = source["obs"].shape[0]
+                    perm = self._permutation(
+                        W, None if injected_perms is None else injected_perms[epoch][L])
+                    a, n = self._minibatch_steps(source, perm, self._minibatch_rows(W, L),
+                                                 eps, beta, self._recurrent_loss, L)
+                    aux_sum, n_batches = aux_sum + a, n_batches + n
+        else:
+            T_E = rollout.rewards.shape[0] * rollout.rewards.shape[1]
+            flat = self._flatten_buffer(rollout, returns, advantages)
+            for epoch in range(c.num_epochs):
+                perm = self._permutation(
+                    T_E, None if injected_perms is None else injected_perms[epoch])
+                a, n = self._minibatch_steps(flat, perm, self._minibatch_rows(T_E),
+                                             eps, beta, self._feedforward_loss)
+                aux_sum, n_batches = aux_sum + a, n_batches + n
         metrics = aux_sum / n_batches
         return {"policy_loss": metrics[0], "value_loss": metrics[1],
                 "baseline_loss": metrics[2], "entropy": metrics[3],
@@ -506,10 +655,12 @@ class POCATrainer:
         return (float(self.lr_schedule(s)), float(self.eps_schedule(s)),
                 float(self.beta_schedule(s)))
 
-    def train_iteration(self, env_state, obs):
-        """One rollout + update; returns (env_state, obs, host_metrics)."""
+    def train_iteration(self, env_state, obs, actor_carry):
+        """One rollout + update; returns (env_state, obs, actor_carry,
+        host_metrics)."""
         lr, eps, beta = self._schedules()
-        env_state, obs, rollout, bootstrap, _ = self.collect(env_state, obs)
+        env_state, obs, actor_carry, rollout, bootstrap, _ = self.collect(
+            env_state, obs, actor_carry)
         metrics = self._update(rollout, bootstrap, lr, eps, beta)
         self.update_count += 1
 
@@ -522,7 +673,7 @@ class POCATrainer:
         self._rollout_reward_history.append(host["mean_rollout_reward"])
         if len(self._rollout_reward_history) > self._max_history:
             self._rollout_reward_history.pop(0)
-        return env_state, obs, host
+        return env_state, obs, actor_carry, host
 
     def _profiler(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -548,6 +699,7 @@ class POCATrainer:
         divergences). On a fresh run both give the same steps."""
         c = self.cfg
         env_state, obs = self.env.reset(self.generator)
+        actor_carry = self.init_actor_carry()
         next_summary = (self.global_step // c.summary_freq + 1) * c.summary_freq
         next_checkpoint = ((self.global_step // c.checkpoint_interval + 1)
                            * c.checkpoint_interval)
@@ -561,7 +713,8 @@ class POCATrainer:
                 prof = self._profiler()
                 prof.start()
             t_iter = time.time()
-            env_state, obs, m = self.train_iteration(env_state, obs)
+            env_state, obs, actor_carry, m = self.train_iteration(
+                env_state, obs, actor_carry)
             iter_dt = time.time() - t_iter
             iteration += 1
             if prof is not None and iteration == 4:
@@ -647,7 +800,7 @@ class POCATrainer:
     #    poca_trainer.py:981-999) ─────────────────────────────────
     def checkpoint_metadata(self) -> dict:
         c = self.cfg
-        recurrent = bool(c.recurrent)
+        recurrent = self.recurrent
         return {
             "hidden_dim": c.hidden_dim,
             "num_layers": c.num_layers,

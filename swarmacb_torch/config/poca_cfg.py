@@ -2,8 +2,8 @@
 
 A copy of ``swarmacb_tpu.config.poca_cfg``. Field names and defaults match
 the reference ``POCAConfig`` (poca_trainer.py:43-105) so the YAML loader and
-CLI map one-to-one. ``recurrent=True`` is not ported yet and raises
-``NotImplementedError`` in the trainer (ROADMAP.md §1 item 9).
+CLI map one-to-one. ``recurrent=True`` (cyclamen) trains the LSTM actor
+with BPTT over windows of ``sequence_length`` decisions.
 """
 
 from __future__ import annotations

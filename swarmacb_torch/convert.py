@@ -7,7 +7,10 @@ mapping is mechanical:
   - ``dense_i`` (a LinearEncoder layer) → ``layers.i``;
   - ``kernel`` → ``weight``, transposed: flax ``Dense`` kernels are
     (in, out), ``nn.Linear.weight`` is (out, in);
-  - ``bias`` and ``log_std`` keep their names and layout.
+  - ``bias`` and ``log_std`` keep their names and layout, and so do the
+    recurrent actor's LSTM leaves ``lstm.w_ih`` (in, 4M), ``lstm.w_hh``
+    (M, 4M) and ``lstm.bias`` (4M): the port's ``LSTMCell`` stores them in
+    the flax layout, so none is transposed.
 
 ``fc_out`` is square (h × h), so a missing transpose would pass every shape
 check; the parity tests catch it. ``POCACritic.all_baselines`` rebuilds the
@@ -52,8 +55,9 @@ def flax_to_state_dict(params) -> dict[str, torch.Tensor]:
 
 def load_flax_params(trainer, params) -> None:
     """Copy ``{"actor": ..., "critic": ...}`` flax params (as the JAX
-    trainer's ``init_params_for_seed`` returns them) into a POCATrainer's
-    actor and critic. Every key must match both ways."""
+    trainer's ``init_params_for_seed`` returns them, the recurrent actor's
+    included) into a POCATrainer's actor and critic. Every key must match
+    both ways."""
     for name in ("actor", "critic"):
         module = getattr(trainer, name)
         sd = {k: v.to(next(module.parameters()).device)

@@ -1,12 +1,14 @@
-"""PyTorch networks: the Gaussian and categorical POCA actors and the
-attention critic."""
+"""PyTorch networks: the Gaussian, categorical and recurrent POCA actors
+and the attention critic."""
 
 from .networks import (
     Actor,
     DiscreteActor,
     EntityEmbedding,
     LinearEncoder,
+    LSTMCell,
     POCACritic,
+    RecurrentDiscreteActor,
     ResidualSelfAttention,
 )
 
@@ -15,6 +17,8 @@ __all__ = [
     "DiscreteActor",
     "EntityEmbedding",
     "LinearEncoder",
+    "LSTMCell",
     "POCACritic",
+    "RecurrentDiscreteActor",
     "ResidualSelfAttention",
 ]

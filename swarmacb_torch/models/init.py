@@ -17,7 +17,9 @@ kernel and bias.
 
 Each initializer fills an ``nn.Linear`` weight, (out, in) layout so
 fan_in = weight.shape[1], in place from an explicit ``torch.Generator``.
-The draws are not the JAX package's (different generators); the
+The LSTM's two initializers (init.py:79-100) fill the cell's stacked
+matrices in the flax layout instead: ``w_ih`` (in, 4M) and ``w_hh``
+(M, 4M). The draws are not the JAX package's (different generators); the
 distributions are.
 """
 
@@ -55,6 +57,23 @@ def torch_linear_default_(weight, bias, generator):
     bound = 1.0 / math.sqrt(weight.shape[1])
     weight.uniform_(-bound, bound, generator=generator)
     bias.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def lstm_xavier_ih_(w_ih, generator):
+    """torch LSTM ``weight_ih``: xavier_uniform over the stacked matrix,
+    U(±√(6/(in + 4M))) on the (in, 4M) layout (the bound is symmetric in
+    the two fans, so the transpose does not change it)."""
+    fan_in, four_m = w_ih.shape
+    bound = math.sqrt(6.0 / (fan_in + four_m))
+    return w_ih.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def lstm_orthogonal_hh_(w_hh, generator):
+    """torch ``orthogonal_`` on the stacked (M, 4M) recurrent matrix:
+    semi-orthogonal, with orthonormal rows (w_hh @ w_hhᵀ = I)."""
+    return torch.nn.init.orthogonal_(w_hh, generator=generator)
 
 
 KERNEL_INITS = {

@@ -8,6 +8,8 @@ reference's torch modules (poca_networks.py):
   EntityEmbedding          poca_networks.py:129-146  (1-layer, T-Fixup init)
   Actor (Gaussian)         poca_networks.py:153-209
   DiscreteActor            poca_networks.py:216-269
+  LSTMCell,                poca_networks.py:276-378  (one bias, gate order
+  RecurrentDiscreteActor                              [i, f, g, o])
   ResidualSelfAttention    poca_networks.py:381-454
   POCACritic               poca_networks.py:469-635
 
@@ -17,9 +19,9 @@ through ``ops.fused_tail``, or with ``fused_attention=True`` everything from
 the raw scores to the pooled rows goes through ``ops.fused_cf_attention``
 (networks.py:481-489) — the CUDA kernels on the card, the plain versions on
 the CPU. Submodule and parameter names follow the flax tree
-(``dense_i`` → ``layers.i``, ``kernel`` → ``weight``ᵀ), which
-``swarmacb_torch.convert`` relies on. The recurrent actor (cyclamen) is not
-ported yet (ROADMAP.md §1 item 9).
+(``dense_i`` → ``layers.i``, ``kernel`` → ``weight``ᵀ; the LSTM's
+``w_ih``, ``w_hh`` and ``bias`` keep the flax names and layout), which
+``swarmacb_torch.convert`` relies on.
 """
 
 from __future__ import annotations
@@ -166,6 +168,92 @@ class DiscreteActor(nn.Module):
                            device=logits.device, dtype=logits.dtype)
             noise = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
         return torch.argmax(logits + noise, dim=-1)
+
+
+class LSTMCell(nn.Module):
+    """LSTM cell in the JAX package's layout (networks.py:147-170): stacked
+    ``w_ih`` (in, 4M) and ``w_hh`` (M, 4M), ONE bias (4M), gate order
+    [i, f, g, o], gates = x @ w_ih + h @ w_hh + b summed in that order.
+
+    ``torch.nn.LSTMCell`` keeps two biases (an Adam step on the second
+    would drift from the JAX package's one) and ``nn.LSTM`` cannot zero the
+    carry inside a sequence, so neither fits."""
+
+    def __init__(self, input_size: int, memory: int):
+        super().__init__()
+        self.memory = memory
+        self.w_ih = nn.Parameter(torch.empty(input_size, 4 * memory))
+        self.w_hh = nn.Parameter(torch.empty(memory, 4 * memory))
+        self.bias = nn.Parameter(torch.empty(4 * memory))
+
+    def init_weights(self, generator: torch.Generator):
+        inits.lstm_xavier_ih_(self.w_ih, generator)
+        inits.lstm_orthogonal_hh_(self.w_hh, generator)
+        nn.init.zeros_(self.bias)
+
+    def cell(self, x_w, carry):
+        """One step from the input's product ``x_w`` = x @ w_ih:
+        → (h, c)."""
+        h, c = carry
+        gates = x_w + h @ self.w_hh + self.bias
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return h, c
+
+    def forward(self, carry, x):
+        """(carry, x) → (carry, h), flax's ``LSTMCell.__call__``."""
+        carry = self.cell(x @ self.w_ih, carry)
+        return carry, carry[0]
+
+
+class RecurrentDiscreteActor(nn.Module):
+    """Categorical actor with LSTM memory (cyclamen): Swish MLP body, the
+    cell, a logits head. Matches poca_networks.py:276-378 through the JAX
+    package's ``RecurrentDiscreteActor`` (networks.py:173-219)."""
+
+    def __init__(self, obs_dim: int, num_actions: int, hidden: int = 128,
+                 num_layers: int = 1, memory: int = 128):
+        super().__init__()
+        self.memory = memory
+        self.net = LinearEncoder(obs_dim, num_layers, hidden)
+        self.lstm = LSTMCell(hidden, memory)
+        self.logits_head = nn.Linear(memory, num_actions)
+
+    def init_weights(self, generator: torch.Generator):
+        self.net.init_weights(generator)
+        self.lstm.init_weights(generator)
+        inits.kaiming_normal_(self.logits_head.weight, generator, 0.2)
+        nn.init.zeros_(self.logits_head.bias)
+
+    def initial_state(self, batch: int, device=None):
+        z = torch.zeros(batch, self.memory, device=device)
+        return (z, z)
+
+    def step(self, obs, carry):
+        """One step: obs (B, obs_dim), carry ((B, M), (B, M)) →
+        (logits, carry)."""
+        carry, out = self.lstm(carry, self.net(obs))
+        return self.logits_head(out), carry
+
+    def forward_sequence(self, obs_seq, carry, dones=None):
+        """obs_seq (B, T, obs) → (logits (B, T, A), carry).
+
+        The carry is zeroed after every step whose done (B, T) is set, the
+        reference's done-masked BPTT (poca_trainer.py:599-608). The body,
+        the input products x @ w_ih and the head hold no state, so they run
+        once over all B·T rows; only the recurrent product and the gates
+        step through time, each step's sum in the cell's order."""
+        B, T = obs_seq.shape[:2]
+        x_w = (self.net(obs_seq) @ self.lstm.w_ih).unbind(1)
+        keep = None if dones is None else (1.0 - dones)[..., None].unbind(1)
+        outs = []
+        for t in range(T):
+            carry = self.lstm.cell(x_w[t], carry)
+            outs.append(carry[0])
+            if keep is not None:
+                carry = (carry[0] * keep[t], carry[1] * keep[t])
+        return self.logits_head(torch.stack(outs, 1)), carry
 
 
 # ──────────────────────────────────────────────────────────────────────

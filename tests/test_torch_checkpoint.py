@@ -271,7 +271,7 @@ class RecordingCheckpointer:
 CADENCE = dict(summary_freq=250, checkpoint_interval=400, total_timesteps=1600)
 
 
-def _fake_iterations(monkeypatch, trainer, jax_side):
+def _fake_iterations(monkeypatch, trainer):
     """train_iteration adds one iteration's decisions without computing."""
     decisions = T * E * N
     m = dict.fromkeys(("policy_loss", "value_loss", "baseline_loss", "entropy"), 0.0)
@@ -280,14 +280,9 @@ def _fake_iterations(monkeypatch, trainer, jax_side):
         trainer.global_step += decisions
         trainer.update_count += 1
 
-    if jax_side:
-        def fake(env_state, obs, carry):
-            step()
-            return env_state, obs, carry, m
-    else:
-        def fake(env_state, obs):
-            step()
-            return env_state, obs, m
+    def fake(env_state, obs, carry):
+        step()
+        return env_state, obs, carry, m
     monkeypatch.setattr(trainer, "train_iteration", fake)
     summaries = []
     monkeypatch.setattr(trainer, "_write_summaries",
@@ -295,13 +290,13 @@ def _fake_iterations(monkeypatch, trainer, jax_side):
     return summaries
 
 
-def _cadence(monkeypatch, trainer, jax_side, start=0):
+def _cadence(monkeypatch, trainer, start=0):
     for name, value in CADENCE.items():
         monkeypatch.setattr(trainer.cfg, name, value)
     for name, value in (("global_step", start), ("update_count", 0),
                         ("writer", RecordingWriter())):
         monkeypatch.setattr(trainer, name, value)
-    summaries = _fake_iterations(monkeypatch, trainer, jax_side)
+    summaries = _fake_iterations(monkeypatch, trainer)
     ck = RecordingCheckpointer()
     trainer.train(checkpointer=ck, progress=False)
     return summaries, ck.saves
@@ -309,8 +304,8 @@ def _cadence(monkeypatch, trainer, jax_side, start=0):
 
 def test_cadence_matches_jax_on_a_fresh_run(monkeypatch, jax_trainers):
     jtrainer = jax_trainers("dandelion")
-    want = _cadence(monkeypatch, jtrainer, jax_side=True)
-    got = _cadence(monkeypatch, tiny(), jax_side=False)
+    want = _cadence(monkeypatch, jtrainer)
+    got = _cadence(monkeypatch, tiny())
     assert got == want
     assert got == ([320, 640, 800, 1120, 1280, 1600],
                    [("periodic", 480), ("periodic", 800), ("periodic", 1280),
@@ -320,7 +315,7 @@ def test_cadence_matches_jax_on_a_fresh_run(monkeypatch, jax_trainers):
 def test_resumed_cadence_follows_the_restored_step(monkeypatch):
     """From step 800 the next summary is at 1000 and the next save at 1200
     (the JAX loop would restart both at one interval)."""
-    summaries, saves = _cadence(monkeypatch, tiny(), jax_side=False, start=800)
+    summaries, saves = _cadence(monkeypatch, tiny(), start=800)
     assert summaries == [1120, 1280, 1600]
     assert saves == [("periodic", 1280), ("periodic", 1600), ("final", 1600)]
 

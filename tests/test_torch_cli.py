@@ -6,11 +6,16 @@ width check (fault F1), which runs before the env is built.
 
 dandelion at ``--num_envs 2 --hidden_dim 16``, from its YAML with the
 horizon cut to 100 decisions and the summary and checkpoint intervals to
-one iteration (100 × 2 × 20 = 4,000 decisions). The writer is the JSONL
-one, so no TensorBoard import slows the run.
+one iteration (100 × 2 × 20 = 4,000 decisions). cyclamen (the LSTM actor)
+the same way from its YAML, with the horizon cut to 20 decisions and the
+BPTT windows to 8, so that its update has windows of 8, 8 and 4 decisions
+(two groups); its resume must restore the saved state bit for bit, and
+play carries the LSTM state. The writer is the JSONL one, so no
+TensorBoard import slows the run.
 """
 
 import contextlib
+import copy
 import io
 import json
 import pathlib
@@ -24,7 +29,9 @@ from torch_scripts import load_script
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DANDELION = str(ROOT / "configs" / "DirGate_dandelion.yaml")
+CYCLAMEN = str(ROOT / "configs" / "DirGate_cyclamen.yaml")
 ITER = 100 * 2 * 20
+CYC_ITER = 20 * 2 * 20
 SMALL = ["--config", DANDELION, "--device", "cpu", "--num_envs", "2", "--hidden_dim", "16"]
 TAGS = ["Losses/Policy Loss", "Losses/Value Loss", "Losses/POCA/Baseline Loss",
         "Policy/Entropy", "Policy/Learning Rate", "Policy/Epsilon", "Policy/Beta",
@@ -66,6 +73,97 @@ def trained(tmp_path_factory, train_torch):
     finally:
         mp.undo()
     return root / "ckpt", root / "logs", outputs
+
+
+@pytest.fixture(scope="module")
+def trained_cyclamen(tmp_path_factory, train_torch):
+    """cyclamen: one iteration from scratch, then ``prepare`` of the resume
+    (the state it restored) and one more iteration; returns (checkpoint
+    dir, the first run's output and trainer, the state the resume
+    restored, the resumed trainer)."""
+    root = tmp_path_factory.mktemp("cli_cyclamen")
+    cfg = yaml.safe_load(pathlib.Path(CYCLAMEN).read_text())
+    block = cfg["behaviors"]["DirGate_cyclamen"]
+    block.update(time_horizon=20, summary_freq=CYC_ITER, checkpoint_interval=CYC_ITER)
+    block["network_settings"]["memory"]["sequence_length"] = 8
+    (root / "cyclamen.yaml").write_text(yaml.safe_dump(cfg))
+    argv = ["--config", str(root / "cyclamen.yaml"), "--device", "cpu", "--num_envs", "2",
+            "--hidden_dim", "16", "--checkpoint", "latest", "--checkpoint_dir",
+            str(root / "ckpt"), "--log_dir", str(root / "logs")]
+    mp = pytest.MonkeyPatch()
+    mp.setattr(train_torch, "make_writer", JsonlWriter)
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            first = train_torch.main([*argv, "--total_timesteps", str(CYC_ITER)])
+            resumed, ckpt = train_torch.prepare([*argv, "--total_timesteps",
+                                                 str(2 * CYC_ITER)])
+            restored = {"actor": {k: v.clone() for k, v in resumed.actor.state_dict().items()},
+                        "optimizer": copy.deepcopy(resumed.optimizer.state_dict())}
+            resumed.train(checkpointer=ckpt)
+    finally:
+        mp.undo()
+    return root / "ckpt", buf.getvalue(), first, restored, resumed
+
+
+def test_cyclamen_trains_resumes_exactly_and_plays(trained_cyclamen, play_torch):
+    ckpt, out, first, restored, resumed = trained_cyclamen
+    assert first.recurrent and type(first.actor).__name__ == "RecurrentDiscreteActor"
+    assert (first.cfg.memory_size, first.cfg.sequence_length) == (128, 8)
+    assert first._window_groups() == {8: [0, 8], 4: [16]}
+    assert "upd=1" in out and "upd=2" in out
+    meta = json.loads((ckpt / "poca_final" / "metadata.json").read_text())
+    assert (meta["variant"], meta["recurrent"], meta["memory_size"],
+            meta["sequence_length"], meta["global_step"]) == ("cyclamen", True, 128, 8,
+                                                              2 * CYC_ITER)
+    saved = torch.load(ckpt / f"poca_{CYC_ITER}" / "state.pt", weights_only=True)
+    assert restored["actor"].keys() == saved["actor"].keys()
+    assert all(torch.equal(restored["actor"][k], v) for k, v in saved["actor"].items())
+    for i, s in saved["optimizer"]["state"].items():
+        assert all(torch.equal(restored["optimizer"]["state"][i][k], v) for k, v in s.items())
+    assert (resumed.global_step, resumed.update_count) == (2 * CYC_ITER, 2)
+    stats = play_torch.main(["--checkpoint", str(ckpt / "poca_final"), "--device", "cpu",
+                             "--num_envs", "2", "--num_episodes", "4", "--episode_length",
+                             "5"])
+    assert stats["env_steps"] == 98 and len(stats["returns"]) == 4
+    assert list(stats["lengths"]) == [49.0] * 4
+
+
+def test_cyclamen_variant_flag_builds_the_lstm_actor(train_torch, tmp_path):
+    """``--variant cyclamen`` on another variant's YAML switches on the LSTM
+    actor, as ``--config`` of cyclamen's YAML does."""
+    trainer, _ = train_torch.prepare([*SMALL, "--variant", "cyclamen", "--no-tensorboard",
+                                      "--checkpoint_dir", str(tmp_path)])
+    assert trainer.recurrent and trainer.env.cfg.variant == "cyclamen"
+    assert trainer.actor.lstm.w_hh.shape == (128, 512)
+
+
+def test_play_carries_and_zeroes_the_lstm_state(trained_cyclamen, play_torch, monkeypatch):
+    """play_torch.py steps the actor with the carry it returned, and zeroes
+    an arena's carry once its episode ended (scripts/play.py:216-220)."""
+    from swarmacb_torch.models import RecurrentDiscreteActor
+
+    seen = []
+    step = RecurrentDiscreteActor.step
+
+    def spy(self, obs, carry):
+        seen.append(carry[0].clone())
+        out = step(self, obs, carry)
+        seen.append(out[1][0].clone())
+        return out
+
+    monkeypatch.setattr(RecurrentDiscreteActor, "step", spy)
+    stats = play_torch.main(["--checkpoint", str(trained_cyclamen[0] / "poca_final"),
+                             "--device", "cpu", "--num_envs", "2", "--num_episodes", "4",
+                             "--episode_length", "1", "--deterministic"])
+    assert stats["env_steps"] == 18 and stats["lengths"].tolist() == [9.0] * 4
+    ins, outs = seen[0::2], seen[1::2]
+    assert not ins[0].any()                       # the first step starts from zeros
+    for t in range(1, 18):
+        if t == 9:                                # both episodes ended at step 9
+            assert outs[t - 1].any() and not ins[t].any()
+        else:                                     # otherwise the carry goes on
+            assert torch.equal(ins[t], outs[t - 1])
 
 
 def test_train_then_resume(trained):
@@ -124,8 +222,6 @@ def _no_env(*args, **kwargs):
     (["--seeds", "0-1"], "items 12 and 13"),
     (["--distributed"], "items 12 and 13"),
     (["--data_parallel", "4"], "items 12 and 13"),
-    (["--variant", "cyclamen"], "item 9"),
-    (["--config", str(ROOT / "configs" / "DirGate_cyclamen.yaml")], "item 9"),
 ])
 def test_unported_options_stop_before_the_env(train_torch, monkeypatch, flags, message):
     monkeypatch.setattr(train_torch, "make_env", _no_env)

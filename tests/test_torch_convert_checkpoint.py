@@ -10,6 +10,10 @@ equal optax's ``count``. A further update of both, on the same rollout and
 epoch permutations, must agree within 2.2·num_epochs·lr, the bound of
 ``tests/test_torch_update.py`` (a first Adam step moves a coordinate by
 ≈ lr·sign(g), and a gradient near 0 can take either sign on the two sides).
+
+A recurrent (cyclamen) checkpoint converts the same way: the LSTM's
+``w_ih``, ``w_hh`` and ``bias`` and their Adam moments keep the flax layout
+and must equal the JAX ones exactly.
 """
 
 import jax
@@ -142,3 +146,53 @@ def test_a_further_update_agrees_with_jax(converted):
         moved = max(moved, float(np.abs(w - before[name]).max()))
     assert moved > bound, "the update moved no parameter past the tolerance"
     assert all(step == 18.0 for step, _, _ in _port_moments(trainer).values())
+
+
+CYC_CFG = dict(CFG, num_layers=1, recurrent=True, memory_size=8, sequence_length=3)
+
+
+def _cyclamen_rollout(seed):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    data, bootstrap = _rollout(seed)
+    data.update(obs=rng.normal(size=(T, E, N, 4)).astype(f),
+                actions=rng.integers(0, 6, (T, E, N, 1)).astype(f),
+                log_probs=rng.uniform(-2.5, -1.0, size=(T, E, N, 1)).astype(f),
+                memory_h=(0.5 * rng.normal(size=(T, E, N, 8))).astype(f),
+                memory_c=rng.normal(size=(T, E, N, 8)).astype(f))
+    return data, bootstrap
+
+
+def test_recurrent_checkpoint_converts_exactly(tmp_path):
+    jtrainer = JaxTrainer(JaxEnv(JaxEnvCfg(variant="cyclamen", num_envs=E)),
+                          JaxPOCAConfig(**CYC_CFG, fused_tail=False))
+    data, bootstrap = _cyclamen_rollout(4)
+    c = jtrainer.cfg
+    jtrainer.train_state, _ = jtrainer._update_jit(
+        jtrainer.train_state, JaxRollout(**{k: jnp.asarray(v) for k, v in data.items()}),
+        jnp.asarray(bootstrap), jnp.float32(c.lr), jnp.float32(c.clip_eps),
+        jnp.float32(c.beta), jax.random.PRNGKey(23))
+    jtrainer.global_step, jtrainer.update_count = T * E * N, 1
+    src = JaxCheckpointer(tmp_path / "jax", keep=2).save(jtrainer, final=True)
+    dst = load_script("convert_jax_checkpoint").main([str(src), str(tmp_path / "torch" / "poca_final")])
+    trainer = POCATrainer(DirectionalGateEnv(DirectionalGateEnvCfg(variant="cyclamen",
+                                                                   num_envs=E), device="cpu"),
+                          POCAConfig(**{**CYC_CFG, "seed": 8}))
+    meta = Checkpointer(tmp_path / "torch").restore(dst, trainer)
+    assert meta["recurrent"] and meta["memory_size"] == 8
+    params = {f"{net}.{k}": v.numpy() for net in ("actor", "critic")
+              for k, v in getattr(trainer, net).state_dict().items()}
+    want = _flat(jtrainer.train_state.params)
+    assert params.keys() == want.keys()
+    assert {"actor.lstm.w_ih", "actor.lstm.w_hh", "actor.lstm.bias"} <= params.keys()
+    for name, w in want.items():
+        np.testing.assert_array_equal(params[name], w, err_msg=name)
+    adam = jtrainer.train_state.opt_state.inner_state[0]
+    mu, nu = _flat(adam.mu), _flat(adam.nu)
+    # three epochs of windows {3: [0], 1: [3]}, three windows each: one
+    # window a minibatch of length 3 (5 // 3), all three of length 1
+    for name, (step, m, v) in _port_moments(trainer).items():
+        assert step == int(adam.count) == 12, name
+        np.testing.assert_array_equal(m, mu[name], err_msg=f"exp_avg of {name}")
+        np.testing.assert_array_equal(v, nu[name], err_msg=f"exp_avg_sq of {name}")
+    assert np.abs(mu["actor.lstm.w_hh"]).max() > 0

@@ -149,7 +149,7 @@ def both_runs(request):
     obs = env._observations(state)
     T_ = torch.from_numpy
     result = trainer.collect(
-        state, obs, injected_noise=T_(gumbel),
+        state, obs, trainer.init_actor_carry(), injected_noise=T_(gumbel),
         injected_durations={k: T_(v) for k, v in dur.items()},
         injected_spawn=(T_(spawn_pos), T_(spawn_yaw)))
     return ref, trainer, result
@@ -166,7 +166,7 @@ def test_rollout_resets_and_switches_modules(both_runs):
     ("obs", 1e-4), ("critic_states", 2e-5), ("actions", 0), ("log_probs", 2e-5),
     ("rewards", 0), ("dones", 0), ("team_values", 2e-5), ("baselines", 2e-5)])
 def test_discrete_rollout_field_matches_jax(both_runs, field, atol):
-    ref, _, (_, _, rollout, _, _) = both_runs
+    ref, _, (_, _, _, rollout, _, _) = both_runs
     got = getattr(rollout, field).numpy()
     assert got.shape == ref[field].shape
     if atol == 0:
@@ -176,7 +176,7 @@ def test_discrete_rollout_field_matches_jax(both_runs, field, atol):
 
 
 def test_discrete_final_state_and_aux_match_jax(both_runs):
-    ref, trainer, (state, obs, _, bootstrap, aux) = both_runs
+    ref, trainer, (state, obs, _, _, bootstrap, aux) = both_runs
     np.testing.assert_allclose(bootstrap.numpy(), ref["bootstrap"], rtol=0, atol=2e-5)
     np.testing.assert_allclose(obs.numpy(), ref["final_obs"], rtol=0, atol=1e-4)
     np.testing.assert_allclose(state.pos.numpy(), ref["final_pos"], rtol=0, atol=1e-5)

@@ -111,7 +111,8 @@ def test_discrete_first_minibatch_loss_and_gradients_match_jax(update_pair):
     flat_t = trainer._flatten_buffer(ours, returns_t, buffer.normalize_advantages(adv_t))
     trainer.optimizer.zero_grad(set_to_none=True)
     total, aux_t = trainer._accumulate_grads(
-        {k: v[torch.from_numpy(idx)] for k, v in flat_t.items()}, c.clip_eps, c.beta)
+        {k: v[torch.from_numpy(idx)] for k, v in flat_t.items()}, c.clip_eps, c.beta,
+        trainer._feedforward_loss)
     try:
         np.testing.assert_allclose(float(total), float(loss), rtol=2e-6, atol=1e-7)
         np.testing.assert_allclose(aux_t.numpy(), np.array([float(a) for a in aux]),
@@ -168,7 +169,7 @@ def test_discrete_train_iteration_runs(variant, fused):
                                           fused_env_step=fused))
     before = trainer.actor.logits_head.weight.detach().clone()
     st, obs = env.reset(trainer.generator)
-    _, obs, m = trainer.train_iteration(st, obs)
+    _, obs, _, m = trainer.train_iteration(st, obs, ())
     assert all(np.isfinite(v) for v in m.values()), m
     assert obs.shape == (2, N, env.obs_dim)
     assert not torch.equal(before, trainer.actor.logits_head.weight)

@@ -162,8 +162,7 @@ def test_fused_tail_with_gradients_takes_the_kernel_path_off_the_cpu():
         ops.fused_tail(*_tail_args(device="meta"), 3)
 
 
-@pytest.mark.parametrize("override,item", [
-    (dict(recurrent=True), "item 9"), (dict(mixed_precision=True), "item 10")])
+@pytest.mark.parametrize("override,item", [(dict(mixed_precision=True), "item 10")])
 def test_unported_options_raise(override, item):
     from swarmacb_torch.agents import POCAConfig, POCATrainer
 
@@ -185,7 +184,7 @@ def test_fused_attention_trainer_takes_the_plain_path_on_the_cpu():
     assert not POCATrainer(env, POCAConfig(hidden_dim=8)).critic.fused_attention
     ops.reset_launches()
     st, obs = env.reset(trainer.generator)
-    _, _, rollout, _, _ = trainer.rollout(st, obs)
+    _, _, _, rollout, _, _ = trainer.rollout(st, obs, ())
     assert not any(ops.launches.values())
     assert rollout.baselines.shape == (2, 1, 20)
     assert bool(torch.isfinite(rollout.baselines).all())
@@ -205,10 +204,32 @@ def test_discrete_variants_build_on_the_cpu(variant):
     assert trainer.discrete and trainer.actor.logits_head.out_features == 6
     ops.reset_launches()
     st, obs = env.reset(trainer.generator)
-    _, obs, rollout, _, _ = trainer.rollout(st, obs)
+    _, obs, _, rollout, _, _ = trainer.rollout(st, obs, ())
     assert not any(ops.launches.values())
     assert rollout.actions.shape == (2, 1, 20, 1)
     assert obs.shape == (1, 20, env.obs_dim)
+
+
+@pytest.mark.parametrize("fused_env_step", [False, True])
+def test_recurrent_variant_builds_on_the_cpu(fused_env_step):
+    """cyclamen builds the LSTM actor, and its rollout on either env path
+    takes the plain versions on the CPU (no kernel launch), storing the
+    carry from before each decision."""
+    from swarmacb_torch.agents import POCAConfig, POCATrainer
+    from swarmacb_torch.models import RecurrentDiscreteActor
+
+    env = DirectionalGateEnv(DirectionalGateEnvCfg(variant="cyclamen", num_envs=1),
+                             device="cpu")
+    trainer = POCATrainer(env, POCAConfig(hidden_dim=8, horizon=2, recurrent=True,
+                                          memory_size=4, fused_env_step=fused_env_step))
+    assert isinstance(trainer.actor, RecurrentDiscreteActor)
+    ops.reset_launches()
+    st, obs = env.reset(trainer.generator)
+    _, _, carry, rollout, _, _ = trainer.rollout(st, obs, trainer.init_actor_carry())
+    assert not any(ops.launches.values())
+    assert rollout.memory_h.shape == rollout.memory_c.shape == (2, 1, 20, 4)
+    assert not rollout.memory_h[0].any() and rollout.memory_h[1].any()
+    assert carry[0].shape == (20, 4)
 
 
 def test_fused_env_step_refuses_a_tile_it_cannot_launch_on():

@@ -122,7 +122,7 @@ def both_runs():
     state.prev_ground = torch.from_numpy(prev)
     obs = env._observations(state)
     result = trainer.collect(
-        state, obs, injected_noise=torch.from_numpy(noise),
+        state, obs, trainer.init_actor_carry(), injected_noise=torch.from_numpy(noise),
         injected_spawn=(torch.from_numpy(spawn_pos), torch.from_numpy(spawn_yaw)))
     return ref, trainer, result
 
@@ -140,7 +140,7 @@ def test_rollout_resets_inside_the_run(both_runs):
     ("log_probs", 2e-5), ("rewards", 0), ("dones", 0), ("team_values", 2e-5),
     ("baselines", 2e-5)])
 def test_rollout_field_matches_jax(both_runs, field, atol):
-    ref, _, (_, _, rollout, _, _) = both_runs
+    ref, _, (_, _, _, rollout, _, _) = both_runs
     got = getattr(rollout, field).numpy()
     assert got.shape == ref[field].shape
     if atol == 0:
@@ -150,14 +150,14 @@ def test_rollout_field_matches_jax(both_runs, field, atol):
 
 
 def test_bootstrap_and_final_state_match_jax(both_runs):
-    ref, _, (state, obs, _, bootstrap, _) = both_runs
+    ref, _, (state, obs, _, _, bootstrap, _) = both_runs
     np.testing.assert_allclose(bootstrap.numpy(), ref["bootstrap"], rtol=0, atol=2e-5)
     np.testing.assert_allclose(obs.numpy(), ref["final_obs"], rtol=0, atol=1e-4)
     np.testing.assert_allclose(state.pos.numpy(), ref["final_pos"], rtol=0, atol=1e-5)
 
 
 def test_aux_and_episode_stats_match_jax(both_runs):
-    ref, trainer, (_, _, _, _, aux) = both_runs
+    ref, trainer, (_, _, _, _, _, aux) = both_runs
     rewards, dones, completed = (a.numpy() for a in aux)
     np.testing.assert_array_equal(rewards, ref["rewards"])
     np.testing.assert_array_equal(dones, ref["dones"])

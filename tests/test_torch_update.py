@@ -231,7 +231,8 @@ def test_first_minibatch_loss_and_gradients_match_jax(update_pair):
     flat_t = trainer._flatten_buffer(ours, returns_t, buffer.normalize_advantages(adv_t))
     trainer.optimizer.zero_grad(set_to_none=True)
     total, aux_t = trainer._accumulate_grads(
-        {k: v[torch.from_numpy(idx)] for k, v in flat_t.items()}, c.clip_eps, c.beta)
+        {k: v[torch.from_numpy(idx)] for k, v in flat_t.items()}, c.clip_eps, c.beta,
+        trainer._feedforward_loss)
     try:
         np.testing.assert_allclose(float(total), float(loss), rtol=2e-6, atol=1e-7)
         np.testing.assert_allclose(aux_t.numpy(), np.array([float(a) for a in aux]),
