@@ -100,7 +100,20 @@ Phases, each of which must pass for the run to pass:
      ``scripts/play_torch.py`` plays the final checkpoint (64 episodes of
      99 steps, K1 and K2 counted); the checkpoint restores on the CPU bit
      for bit; and the iteration's wall time, the save and restore times
-     and play's arena-steps/s are printed;
+     and play's arena-steps/s are printed. Phase 3h trains one dandelion
+     iteration at the smoke cut with ``mixed_precision=True`` at the stages
+     ``--mp_stages auto`` gives dandelion ("qkvo": bf16 operands for the
+     critic's q, k, v and output projections), on both critic paths, with
+     the float32 launch counts, its time beside phases 3c and 3d; then the
+     small reference above on both critic paths in bf16, each projection
+     bit-equal between the devices in at least 99.9 % of its elements and
+     the critic's outputs, losses and gradients within one bf16 step.
+     Phase 3i runs ``train_torch.py --seeds 0-3 --num_envs 16`` (T = 1000:
+     four lanes of one iteration each, each lane's launches counted), checks
+     the four ``_seed<s>`` checkpoint and log directories, holds lane 0
+     against a serial run of seed 0 at the lane's chunk cap, plays lane 2's
+     ``poca_final`` with ``play_torch.py``, and quarantines a lane poisoned
+     with NaN parameters (E = 4, T = 8) while the other trains on;
   4. a JSON line with every kernel's numbers, then the final status line.
 
 It exits non-zero, and prints no result, where there is no CUDA device or
@@ -213,10 +226,16 @@ def phase_card(torch, ops):
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products (phase 3h) sum in float32 and round once, as
+    # scripts/train_torch.py sets it under --mixed_precision
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"  torch {torch.__version__} (CUDA {torch.version.cuda}) on "
           f"{torch.cuda.get_device_name(0)}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"matmul.allow_bf16_reduced_precision_reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}",
+          flush=True)
     t0 = time.perf_counter()
     per_source = ops.build()
     print(f"  kernel build: {time.perf_counter() - t0:.2f} s wall "
@@ -1553,26 +1572,35 @@ def _critic_launches(fused_attention, forward, backward):
     return {on: forward, f"{on}_bwd": backward, off: 0, f"{off}_bwd": 0}
 
 
-def phase_slice(torch, ops, card, fused_attention=False):
+def dandelion_trainer(label, **overrides):
+    """``configs/DirGate_dandelion.yaml`` through the port's loader, cut to
+    E_MAIN arenas and a HORIZON-decision rollout, with ``overrides`` of its
+    POCAConfig; the env and the trainer on the card, their default."""
     from swarmacb_torch.agents import POCATrainer
     from swarmacb_torch.config import DirectionalGateEnvCfg, load_config
     from swarmacb_torch.env import DirectionalGateEnv
 
     run, variant, pcfg, env_ov = load_config(ROOT / "configs" / "DirGate_dandelion.yaml")
-    label = "3d" if fused_attention else "3"
-    print(f"== phase {label}: the slice, {run} ({variant}"
-          f"{', fused_attention' if fused_attention else ''}): cut from num_envs="
-          f"{env_ov.get('num_envs')}, time_horizon={pcfg.horizon} to num_envs="
-          f"{E_MAIN}, horizon={HORIZON}; hidden {pcfg.hidden_dim}x{pcfg.num_layers}",
+    options = ", ".join(f"{k}={v}" for k, v in overrides.items() if v)
+    print(f"== phase {label}: the slice, {run} ({variant}{', ' + options if options else ''}):"
+          f" cut from num_envs={env_ov.get('num_envs')}, time_horizon={pcfg.horizon} to "
+          f"num_envs={E_MAIN}, horizon={HORIZON}; hidden {pcfg.hidden_dim}x{pcfg.num_layers}",
           flush=True)
-    pcfg = dataclasses.replace(pcfg, horizon=HORIZON, seed=SEED,
-                               fused_attention=fused_attention)
+    pcfg = dataclasses.replace(pcfg, horizon=HORIZON, seed=SEED, **overrides)
     env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
     env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant, num_envs=E_MAIN,
                                                    **env_kw))
     trainer = POCATrainer(env, pcfg)
     check(env.device.type == DEVICE and trainer.device.type == DEVICE,
           f"entry points default to the card ({env.device})")
+    return trainer
+
+
+def phase_slice(torch, ops, card, fused_attention=False):
+    trainer = dandelion_trainer("3d" if fused_attention else "3",
+                                fused_attention=fused_attention)
+    env = trainer.env
+    pcfg = trainer.cfg
     E, N, T, dp = env.num_envs, env.num_agents, HORIZON, pcfg.decision_period
     gen = torch.Generator(device=DEVICE)
 
@@ -1640,14 +1668,17 @@ def _chunk_passes(trainer):
                                         for n, per_row in _minibatches(trainer))
 
 
-def phase_train(torch, ops, card, trainer):
-    """One training iteration on the main path: reset, rollout, update."""
+def phase_train(torch, ops, card, trainer, label=None):
+    """One training iteration on the main path: reset, rollout, update.
+    Returns (launches, wall seconds)."""
     env, c = trainer.env, trainer.cfg
     E, N, T, dp = env.num_envs, env.num_agents, c.horizon, c.decision_period
     passes = _chunk_passes(trainer)
     fused = trainer.critic.fused_attention
-    print(f"== phase {'3d' if fused else '3c'}: one training iteration"
-          f"{' with fused_attention' if fused else ''}, E={E}, T={T}: minibatch "
+    label = label or ("3d" if fused else "3c")
+    precision = (f", mixed_precision (bf16 {c.mp_stages})" if c.mixed_precision else "")
+    print(f"== phase {label}: one training iteration"
+          f"{' with fused_attention' if fused else ''}{precision}, E={E}, T={T}: minibatch "
           f"{trainer.group_mb} groups, chunks of {trainer._chunk_rows(trainer.group_mb)}"
           f" groups, {c.num_epochs} epochs = {passes} chunk passes", flush=True)
     gen = torch.Generator(device=DEVICE)
@@ -1683,7 +1714,7 @@ def phase_train(torch, ops, card, trainer):
           f"{decisions / wall:,.0f} training agent-decisions/s on {card}; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print("  " + ", ".join(f"{k} {v:.5g}" for k, v in metrics.items()), flush=True)
-    return launches
+    return launches, wall
 
 
 def phase_cyclamen(torch, ops, card):
@@ -1900,8 +1931,11 @@ def phase_daisy(torch, ops, card):
     return launches
 
 
+BF16_STEP = 2.0 ** -8               # one bfloat16 step: the bf16 reference's tolerance
+
+
 def phase_small_reference(torch, fused_attention=False, variant="dandelion",
-                          fused_env_step=False):
+                          fused_env_step=False, mixed_precision=False):
     """A short rollout and update at a config's full width on the card
     against the same rollout and update on the CPU, whose ops all take
     their plain versions: same weights (drawn on the CPU from the seed),
@@ -1913,7 +1947,12 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
     windows of 3 decisions): the windows of 1 decision (4 a minibatch, in
     chunks of 3 and 1), then two minibatches of 2 windows of 3 decisions
     (chunks of one window); the LSTM's carry starts from zeros and is
-    stored and zeroed on both sides."""
+    stored and zeroed on both sides. With ``mixed_precision`` (phase 3h) the
+    critic's q/k/v/o projections take bf16 on both devices: each projection
+    is held bit for bit in at least 99.9 % of its elements, and what the
+    critic's outputs reach (values, baselines, losses, gradients) within one
+    bf16 step, 2^-8, where a summation order that differs between the
+    devices flips a rounding."""
     from swarmacb_torch.agents import POCAConfig, POCATrainer, buffer
     from swarmacb_torch.config import DirectionalGateEnvCfg
     from swarmacb_torch.env import DirectionalGateEnv
@@ -1922,15 +1961,16 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
     recurrent = variant == "cyclamen"
     # the variant's width, as scripts/train_torch.py defaults it
     hidden, layers = (128, 1) if variant in ("tulip", "cyclamen") else (HID_MAIN, 2)
-    print(f"== phase 3b: card against CPU, {variant}, E={E}, T={T}, h={hidden}, "
-          f"fused_attention={fused_attention}, fused_env_step={fused_env_step}",
-          flush=True)
+    print(f"== phase {'3h' if mixed_precision else '3b'}: card against CPU, {variant}, "
+          f"E={E}, T={T}, h={hidden}, fused_attention={fused_attention}, "
+          f"fused_env_step={fused_env_step}, mixed_precision={mixed_precision}", flush=True)
     rng = np.random.default_rng(SEED + 2)
     cfg = DirectionalGateEnvCfg(variant=variant, num_envs=E)
     pcfg = POCAConfig(hidden_dim=hidden, num_layers=layers,
                       horizon=T, seed=SEED, mini_batch_size=8, accum_chunk_groups=3,
                       fused_attention=fused_attention, fused_env_step=fused_env_step,
-                      recurrent=recurrent, memory_size=128, sequence_length=3)
+                      recurrent=recurrent, memory_size=128, sequence_length=3,
+                      mixed_precision=mixed_precision)
     pos, yaw = _arena_poses(rng, cfg, E, N)
     if cfg.discrete_actions:
         noise = rng.gumbel(size=(T, E * N, cfg.num_actions)).astype(np.float32)
@@ -1977,16 +2017,20 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
     (_, _, carry_c, cpu, boot_c, _), (_, _, carry_g, gpu, boot_g, _) = out["cpu"], out[DEVICE]
     # rewards, done flags and module ids exact; floats through the networks
     # differ by float32 rounding in other summation orders
+    critic_tol = BF16_STEP if mixed_precision else 1e-4
     tol = {"obs": 1e-4, "critic_states": 1e-5,
            "actions": 0.0 if cfg.discrete_actions else 1e-4, "log_probs": 1e-4,
-           "rewards": 0.0, "dones": 0.0, "team_values": 1e-4, "baselines": 1e-4,
+           "rewards": 0.0, "dones": 0.0, "team_values": critic_tol, "baselines": critic_tol,
            "memory_h": 1e-4, "memory_c": 1e-4}
     for (name, c), (_, g) in zip(cpu.items(), gpu.items()):
         err, ok = max_err(g.cpu(), c, tol[name], tol[name])
         check(ok, f"card vs CPU rollout.{name}: max|Δ| {err:.3e} "
                   f"(tolerance {tol[name]:g} + {tol[name]:g}·|CPU|)")
-    err, ok = max_err(boot_g.cpu(), boot_c, 1e-4, 1e-4)
-    check(ok, f"card vs CPU bootstrap value: max|Δ| {err:.3e}")
+    err, ok = max_err(boot_g.cpu(), boot_c, critic_tol, critic_tol)
+    check(ok, f"card vs CPU bootstrap value: max|Δ| {err:.3e} (tolerance {critic_tol:g} + "
+              f"{critic_tol:g}·|CPU|)")
+    if mixed_precision:
+        _bf16_projections(torch, trainers, cpu.critic_states)
     check(int(cpu.dones.sum()) == 2, "the folded auto-reset fired in two arenas")
     spread = float(cpu.baselines.std())
     check(spread > 1e-2, f"the baselines vary (std {spread:.3e})")
@@ -2042,14 +2086,14 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
     # (cuBLAS against the CPU's products, K3b or K5b against autograd)
     (loss_c, grads_c), (loss_g, grads_g) = first["cpu"], first[DEVICE]
     names = ("total", "policy", "value", "baseline", "entropy")
+    rel = BF16_STEP if mixed_precision else 1e-5
     for name, a, b in zip(names, loss_g, loss_c):
-        ok = abs(a - b) <= 1e-5 + 1e-5 * abs(b)
+        ok = abs(a - b) <= rel + rel * abs(b)
         check(ok, f"card vs CPU first-minibatch {name} loss: {a:.7g} vs {b:.7g} "
-                  "(tolerance 1e-05 + 1e-05·|CPU|)")
+                  f"(tolerance {rel:g} + {rel:g}·|CPU|)")
     # each gradient against its largest element, floored at 1e-3: some are
     # zero in exact arithmetic (a key bias shifts every score of a softmax
     # row alike) and hold only rounding noise
-    rel = 1e-5
     ratio = {n: float((grads_g[n] - g).abs().max()) / max(float(g.abs().max()), 1e-3)
              for n, g in grads_c.items()}
     name = max(ratio, key=ratio.get)
@@ -2059,12 +2103,19 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
                               f"(tolerance {rel:g})")
     # after 3 epochs of 2 (3 recurrent) Adam steps: a first Adam step moves a
     # coordinate by ≈ lr·sign(g), and a gradient near 0 can take either sign
-    # on two devices
-    bound = 2.2 * pcfg.num_epochs * pcfg.lr
+    # on two devices. In bf16 a gradient near 0 is rounding noise at every
+    # step, so its sign may differ at each of them: 2.2·steps·lr
+    steps = pcfg.num_epochs * len(_minibatches(gpu_trainer))
+    factor, what = ((steps, "Adam steps") if mixed_precision else (pcfg.num_epochs, "epochs"))
+    bound = 2.2 * factor * pcfg.lr
     params_c, params_g = after["cpu"][1], after[DEVICE][1]
     drift = max(float((params_g[n] - p).abs().max()) for n, p in params_c.items())
+    past = sum(int(((params_g[n] - p).abs() > 2.2 * pcfg.num_epochs * pcfg.lr).sum())
+               for n, p in params_c.items())
+    total = sum(p.numel() for p in params_c.values())
     check(drift <= bound, f"card vs CPU parameters after the update: max|Δ| "
-                          f"{drift:.3e} (tolerance 2.2·epochs·lr = {bound:.3e})")
+                          f"{drift:.3e} (tolerance 2.2·{what}·lr = {bound:.3e}); "
+                          f"{past:,} of {total:,} coordinates past 2.2·epochs·lr")
     moved = max(float((p - torch.from_numpy(weights[n])).abs().max())
                 for n, p in params_c.items())
     check(moved > pcfg.lr, f"the update moved the parameters (largest change "
@@ -2074,6 +2125,27 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
         check(abs(a - b) <= 1e-3 + 1e-2 * abs(b),
               f"card vs CPU update metric {k}: {a:.6g} vs {b:.6g} "
               "(tolerance 1e-03 + 1e-02·|CPU|)")
+
+
+def _bf16_projections(torch, trainers, critic_states):
+    """Each bf16 projection of the critic (q, k, v from ``project_qkv``,
+    fc_out) on the card against the CPU, on the normalized embeddings of
+    the rollout's critic states: the share of bit-equal elements."""
+    from swarmacb_torch.models.networks import _project
+
+    out = {}
+    for device, trainer in trainers.items():
+        rsa = trainer.critic.self_attn
+        with torch.no_grad():
+            x = rsa.normalize(trainer.critic.obs_entity_enc(critic_states.to(device)))
+            projections = (*rsa.project_qkv(x), _project(rsa.fc_out, x, rsa.dtypes["o"]))
+        check(all(t.dtype == torch.bfloat16 for t in projections),
+              f"the {device} critic's q, k, v and fc_out products are bf16")
+        out[device] = [t.float().cpu() for t in projections]
+    for name, g, c in zip("qkvo", out[DEVICE], out["cpu"]):
+        share = float((g == c).double().mean())
+        check(share >= 0.999, f"card vs CPU bf16 projection {name}: {share:.4%} of "
+                              f"{g.numel():,} elements bit-equal (at least 99.9 %)")
 
 
 # ── phase 3f: the command lines on the card ──────────────────────────────
@@ -2278,6 +2350,191 @@ def phase_cli(torch, ops, card):
           f"{wall2:.3f} s; phase 3f {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ── phase 3h: mixed precision ────────────────────────────────────────────
+
+def phase_mixed_precision(torch, ops, card, f32_walls):
+    """One dandelion training iteration at the smoke cut with
+    ``mixed_precision=True`` at the stages ``--mp_stages auto`` gives
+    dandelion, on both critic paths, beside phases 3c and 3d of this run;
+    then the small reference on both paths."""
+    stages = _script("train_torch").VALIDATED_MP_STAGES["dandelion"]
+    check(stages == "qkvo", f"--mp_stages auto gives dandelion {stages!r}")
+    for fused in (False, True):
+        trainer = dandelion_trainer("3h", fused_attention=fused, mixed_precision=True,
+                                    mp_stages=stages)
+        check(trainer.critic.self_attn.dtypes == dict.fromkeys("qkvo", torch.bfloat16)
+              and all(p.dtype == torch.float32 for p in trainer.critic.parameters()),
+              "the critic's q/k/v/o projections take bf16; its parameters stay float32")
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(SEED + 100)
+        st, obs = trainer.env.reset(gen)
+        trainer.rollout(st, obs, (), length=2)                     # warm-up
+        torch.cuda.synchronize()
+        _, wall = phase_train(torch, ops, card, trainer, label="3h")
+        path = "fused_attention" if fused else "tail"
+        print(f"  mixed precision, {path} path: {wall:.3f} s an iteration against "
+              f"{f32_walls[path]:.3f} s in float32 (phase {'3d' if fused else '3c'}, this "
+              f"run): {f32_walls[path] / wall:.3f}x", flush=True)
+        del trainer
+    for fused in (False, True):
+        phase_small_reference(torch, fused_attention=fused, mixed_precision=True)
+
+
+# ── phase 3i: seed-parallel training ─────────────────────────────────────
+
+SEED_SPEC, SEED_ENVS = "0-3", 16    # the JAX package's seed-parallel operating point
+
+
+def phase_seeds(torch, ops, card):
+    """``scripts/train_torch.py --config configs/DirGate_dandelion.yaml
+    --seeds 0-3 --num_envs 16`` (T = 1000 kept): one iteration of each lane
+    through ``prepare`` and ``train`` (what its ``main`` runs), each lane's
+    launches counted; lane 0 against a serial run of seed 0 at the lane's
+    chunk cap; ``play_torch.py`` on lane 2's ``poca_final``; a lane poisoned
+    with NaN parameters (small size) quarantined while the other finishes."""
+    from swarmacb_torch.agents import (Checkpointer, POCAConfig, POCATrainer,
+                                       SeedParallelTrainer)
+    from swarmacb_torch.config import DirectionalGateEnvCfg
+    from swarmacb_torch.env import DirectionalGateEnv
+
+    t_phase = time.perf_counter()
+    train_torch, play_torch = _script("train_torch"), _script("play_torch")
+    config = str(ROOT / "configs" / "DirGate_dandelion.yaml")
+    seeds = train_torch._parse_seeds(SEED_SPEC)
+    T, E, N = train_torch.load_config(config)[2].horizon, SEED_ENVS, N_MAIN
+    iteration = T * E * N
+    print(f"== phase 3i: seed-parallel, train_torch.py --config {Path(config).name} "
+          f"--seeds {SEED_SPEC} --num_envs {E} (one iteration = {iteration:,} decisions a "
+          f"lane), play_torch.py, a poisoned lane", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, logs = Path(tmp) / "ckpt", Path(tmp) / "logs"
+        trainer, cks = train_torch.prepare(
+            ["--config", config, "--seeds", SEED_SPEC, "--num_envs", str(E),
+             "--total_timesteps", str(iteration), "--checkpoint_dir", str(ckpt),
+             "--log_dir", str(logs)])
+        S = len(seeds)
+        cap = trainer.cfg.accum_chunk_groups
+        check(isinstance(trainer, SeedParallelTrainer) and trainer.seeds == seeds
+              and all(lane.device.type == DEVICE for lane in trainer.lanes),
+              f"{S} lanes (seeds {trainer.seeds}) on the card")
+        check(cap == 1024 // S, f"each lane's chunk cap is {cap} groups (1024 // {S})")
+        # each lane's launches: counted around its own train_iteration
+        per_lane = []
+        for lane in trainer.lanes:
+            def counted(*args, _step=lane.train_iteration):
+                before = dict(ops.launches)
+                out = _step(*args)
+                torch.cuda.synchronize()
+                per_lane.append({k: ops.launches[k] - before[k] for k in before})
+                return out
+            lane.train_iteration = counted
+        iter_s = []
+        step = trainer.train_iteration
+
+        def timed(*args):
+            t_it = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            iter_s.append(time.perf_counter() - t_it)
+            return out
+
+        trainer.train_iteration = timed
+        # the main path: counts from 0 just before, read just after
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            trainer.train(checkpointers=cks)
+        finally:
+            for w in trainer.writers or ():
+                w.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        passes = _chunk_passes(trainer.lanes[0])
+        lane_expect = {"pairwise_sensors": T, "resolve_robot_collisions": T,
+                       "fused_env_step": 0, **_critic_launches(False, T + passes, passes)}
+        for i, counts in enumerate(per_lane):
+            bad = {k: counts[k] for k, n in lane_expect.items() if counts[k] != n}
+            check(not bad, f"lane {i} (seed {seeds[i]}) launched K1 {counts['pairwise_sensors']}, "
+                           f"K2 {counts['resolve_robot_collisions']}, K3f {counts['fused_tail']}, "
+                           f"K3b {counts['fused_tail_bwd']} times (expected {T}, {T}, "
+                           f"{T + passes}, {passes}: {passes} chunk passes)")
+        # the resets' observations: one K1 a lane, outside the iterations
+        expect = {k: S * n + (S if k == "pairwise_sensors" else 0)
+                  for k, n in lane_expect.items()}
+        for name, n in expect.items():
+            check(launches[name] == n, f"the seed-parallel run launched {name} "
+                                       f"{launches[name]} times (expected {n})")
+        check(len(per_lane) == S and trainer.alive.all()
+              and (trainer.global_step, trainer.update_count) == (iteration, 1),
+              f"every lane trained one iteration (step {trainer.global_step:,})")
+        for s, lane in zip(seeds, trainer.lanes):
+            d = Path(f"{ckpt}_seed{s}")
+            ok = all((d / n / "metadata.json").exists() for n in (f"poca_{iteration}",
+                                                                  "poca_final"))
+            tags = _summary_tags(lane, Path(f"{logs}_seed{s}"))
+            check(ok and "Losses/Policy Loss" in tags and "hyperparameters" in tags,
+                  f"seed {s}: {d.name}/poca_{iteration} and poca_final, {len(tags)} summary "
+                  f"records in logs_seed{s}")
+        check(not ckpt.exists() and not logs.exists(), "no directory without a seed suffix")
+
+        # lane 0 against the serial trainer of seed 0 at the lane's cap
+        serial = POCATrainer(trainer.env, dataclasses.replace(trainer.cfg, seed=seeds[0]))
+        t0 = time.perf_counter()
+        serial.train(progress=False)
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t0
+        lane0 = trainer.lanes[0]
+        diffs = [float((a - b).abs().max()) for net in ("actor", "critic")
+                 for a, b in zip(getattr(serial, net).state_dict().values(),
+                                 getattr(lane0, net).state_dict().values())]
+        same = max(diffs) == 0.0
+        check(same or max(diffs) <= 1e-5,
+              f"lane 0's parameters against a serial run of seed {seeds[0]} at chunk cap "
+              f"{cap}: {'bit for bit' if same else f'max|Δ| {max(diffs):.3e} (tolerance 1e-5)'}")
+        del serial
+
+        # play lane 2's final checkpoint: counts from 0 just before, read just after
+        final = Path(f"{ckpt}_seed{seeds[2]}") / "poca_final"
+        ops.reset_launches()
+        stats = play_torch.main(["--checkpoint", str(final), "--num_envs", str(E),
+                                 "--num_episodes", str(E), "--episode_length", "10",
+                                 "--deterministic"])
+        n = stats["env_steps"]
+        check(float(stats["lengths"].mean()) == 99.0
+              and ops.launches["pairwise_sensors"] == 1 + n
+              and ops.launches["resolve_robot_collisions"] == n,
+              f"play_torch.py restores seed {seeds[2]}'s poca_final and plays {E} episodes "
+              f"of mean length {float(stats['lengths'].mean()):.1f}, K1 "
+              f"{ops.launches['pairwise_sensors']}, K2 {ops.launches['resolve_robot_collisions']}")
+        del trainer
+
+        # a lane poisoned with NaN parameters, at a small size (E = 4, T = 8)
+        small = POCAConfig(horizon=8, total_timesteps=2 * 8 * 4 * N, mini_batch_size=16)
+        poisoned = SeedParallelTrainer(DirectionalGateEnv(DirectionalGateEnvCfg(num_envs=4)),
+                                       small, [0, 1])
+        with torch.no_grad():
+            for p in [*poisoned.lanes[0].actor.parameters(),
+                      *poisoned.lanes[0].critic.parameters()]:
+                p.fill_(float("nan"))
+        pcks = [Checkpointer(Path(tmp) / f"poisoned_seed{s}") for s in (0, 1)]
+        poisoned.train(checkpointers=pcks, progress=False)
+        check(list(poisoned.alive) == [False, True]
+              and [p.name for p in pcks[0].dir.iterdir()] == [f"poca_diverged_{8 * 4 * N}"]
+              and (pcks[1].dir / "poca_final" / "metadata.json").exists()
+              and poisoned.lanes[1].update_count == 2,
+              "the NaN lane is quarantined (poca_diverged_*) after its first iteration; the "
+              "other trains on to poca_final")
+    agg = S * iteration / iter_s[0]
+    print(f"  on {card}: the seed-parallel iteration ({S} lanes x {T} decisions x {E} arenas "
+          f"x {N} robots) {iter_s[0]:.3f} s, {agg:,.0f} aggregate training "
+          f"agent-decisions/s ({agg / S:,.0f} a seed); train() {wall:.3f} s with the saves; "
+          f"the serial seed-{seeds[0]} run {serial_s:.3f} s; play_torch.py {n} env steps x "
+          f"{E} arenas in {stats['seconds']:.3f} s; phase 3i "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 # ── main ─────────────────────────────────────────────────────────────────
 
 def main() -> int:
@@ -2311,11 +2568,11 @@ def main() -> int:
     phase_critic_paths(torch, cycles_per_ms)
     rows += phase_fused_step(torch, ops, cycles_per_ms)
     # each path with its counts set to 0 just before and read just after
-    launches = {}
+    launches, walls = {}, {}
     for fused in (False, True):
         trainer = phase_slice(torch, ops, card, fused_attention=fused)
-        launches["fused_attention" if fused else "tail"] = phase_train(
-            torch, ops, card, trainer)
+        path = "fused_attention" if fused else "tail"
+        launches[path], walls[path] = phase_train(torch, ops, card, trainer)
         del trainer
     launches["daisy_fused_env_step"] = phase_daisy(torch, ops, card)
     launches["cyclamen"] = phase_cyclamen(torch, ops, card)
@@ -2326,11 +2583,14 @@ def main() -> int:
     phase_small_reference(torch, variant="tulip")
     for fused_env_step in (False, True):
         phase_small_reference(torch, variant="cyclamen", fused_env_step=fused_env_step)
-    try:
-        phase_cli(torch, ops, card)
-    except (Exception, SystemExit) as exc:   # reported as this phase's failure
-        traceback.print_exc()
-        check(False, f"phase 3f raised {exc!r}")
+    for label, phase in (("3f", lambda: phase_cli(torch, ops, card)),
+                         ("3h", lambda: phase_mixed_precision(torch, ops, card, walls)),
+                         ("3i", lambda: phase_seeds(torch, ops, card))):
+        try:
+            phase()
+        except (Exception, SystemExit) as exc:   # reported as this phase's failure
+            traceback.print_exc()
+            check(False, f"phase {label} raised {exc!r}")
 
     # each kernel's launches in the main-path run that exercises it
     path_of = {"fused_cf_attention": "fused_attention",

@@ -4,12 +4,16 @@
     python3 scripts/profile_torch_update.py [--config configs/DirGate_dandelion.yaml]
                                             [--num_envs 1024] [--horizon 200]
                                             [--minibatches 2]
+                                            [--fused_attention]
+                                            [--mixed_precision [--mp_stages qkvo]]
                                             [--trace build/update_trace.json]
 
 Loads ``--config`` through the port's loader (dandelion by default: hidden
 512x2, N = 20 robots, the YAML's buffer and batch sizes), cuts it to
 ``--num_envs`` arenas and a ``--horizon``-decision rollout as
-``chip_smoke.py`` does, collects one rollout (timed), takes one warm-up
+``chip_smoke.py`` does (``--fused_attention`` takes the critic's fused
+branch; ``--mixed_precision`` gives the attention projections named in
+``--mp_stages`` bf16 operands), collects one rollout (timed), takes one warm-up
 minibatch step, then ``--minibatches`` minibatch steps with no tracing and
 one more under ``torch.profiler``. A minibatch step is the chunked
 gradient accumulation (``POCATrainer._accumulate_grads``, one forward and
@@ -26,6 +30,9 @@ so it is an upper bound. Prints
     counterfactual baselines, and the rest: losses and glue), and the
     backward with the Adam step (every kernel outside the forward's spans:
     autograd runs the backward on its own thread);
+  - the matrix products' share of the device time (cuBLAS's kernels, whose
+    names hold "gemm", "xmma" or "nvjet"), float32 and bf16 apart, and the
+    bf16 ones by name;
   - the kernels that took the most device time,
 
 with the card's name and power limit, and a JSON line of the same numbers.
@@ -37,6 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +56,17 @@ sys.path.insert(0, str(ROOT))
 
 STAGES = ("forward", "forward.actor", "forward.critic_pass",
           "forward.all_baselines")
+GEMM = re.compile(r"gemm|xmma|nvjet", re.IGNORECASE)
+
+
+def gemm_kind(name: str):
+    """"bf16" or "f32" for a matrix-product kernel of cuBLAS, else None.
+    cuBLAS's nvjet kernels run on the tensor cores, which, with TF32 off,
+    only the bf16 products reach."""
+    if not GEMM.search(name):
+        return None
+    lower = name.lower()
+    return "bf16" if "bf16" in lower or "nvjet" in lower else "f32"
 
 
 def _staged(torch, name, fn):
@@ -65,6 +84,12 @@ def main() -> int:
     ap.add_argument("--minibatches", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--fused_attention", action="store_true",
+                    help="the critic's fused counterfactual attention")
+    ap.add_argument("--mixed_precision", action="store_true",
+                    help="bf16 operands for the critic's attention projections")
+    ap.add_argument("--mp_stages", default="qkvo",
+                    help="the projections that take bf16: a subset of 'qkvo'")
     ap.add_argument("--trace", default=None,
                     help="write the profiler's chrome trace to this path")
     args = ap.parse_args()
@@ -82,13 +107,16 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
 
     _, variant, pcfg, env_ov = load_config(ROOT / args.config)
-    pcfg = dataclasses.replace(pcfg, horizon=args.horizon, seed=args.seed)
+    pcfg = dataclasses.replace(pcfg, horizon=args.horizon, seed=args.seed,
+                               fused_attention=args.fused_attention or pcfg.fused_attention,
+                               mixed_precision=args.mixed_precision, mp_stages=args.mp_stages)
     env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
     env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant,
                                                    num_envs=args.num_envs, **env_kw))
@@ -182,6 +210,11 @@ def main() -> int:
                          "backward and Adam")
             stages[stage] += us
     busy_us = sum(us for _, us in kernels.values())
+    gemm_us = {"f32": 0.0, "bf16": 0.0}
+    for name, (_, us) in kernels.items():
+        kind = gemm_kind(name)
+        if kind is not None:
+            gemm_us[kind] += us
 
     update_s = passes * step_s / chunks
     iteration_s = rollout_s + update_s
@@ -191,7 +224,13 @@ def main() -> int:
           f"{traced_s * 1e3:.1f} ms traced; {passes} chunk passes per update -> "
           f"iteration {iteration_s:.2f} s, update {update_s / iteration_s:.1%} "
           f"of it; device busy {busy_us / (traced_s * 1e6):.1%} of the traced step; "
-          f"on {card}", flush=True)
+          f"critic fused_attention={bool(c.fused_attention)}, mixed_precision="
+          f"{c.mixed_precision} (mp_stages {c.mp_stages!r}); on {card}", flush=True)
+    print("matrix products (cuBLAS) per minibatch step: " + ", ".join(
+        f"{k} {v / 1e3:.3f} ms ({v / busy_us:.1%} of device time)" for k, v in gemm_us.items()))
+    for name, (count, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1]):
+        if gemm_kind(name) == "bf16":
+            print(f"  bf16 {us / 1e3:>9.3f} ms x{count:<5d} {name[:100]}")
     print("stage (device ms per minibatch step; \"forward\" is the forward's "
           "kernels outside its forward.* parts)")
     for name in (*STAGES, "backward and Adam"):
@@ -202,6 +241,8 @@ def main() -> int:
         print(f"  {us / 1e3:>9.3f} ms {us / busy_us:>6.1%} x{count:<5d} {name[:100]}")
     print(json.dumps({
         "card": card, "config": args.config, "num_envs": env.num_envs,
+        "fused_attention": bool(c.fused_attention), "mixed_precision": c.mixed_precision,
+        "mp_stages": c.mp_stages,
         "horizon": c.horizon, "minibatch_rows": mb, "groups_per_row": per_row,
         "chunks_per_minibatch": chunks, "chunk_passes_per_update": passes,
         "rollout_s": rollout_s,
@@ -210,6 +251,8 @@ def main() -> int:
         "update_share": update_s / iteration_s,
         "device_busy_share_traced": busy_us / (traced_s * 1e6),
         "stage_device_ms": {k: v / 1e3 for k, v in stages.items()},
+        "gemm_device_ms": {k: v / 1e3 for k, v in gemm_us.items()},
+        "gemm_share": {k: v / busy_us for k, v in gemm_us.items()},
         "top_kernels_ms": {k[:100]: v[1] / 1e3 for k, v in top},
     }), flush=True)
     return 0

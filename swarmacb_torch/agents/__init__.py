@@ -1,9 +1,10 @@
-"""POCA stack: rollout container, λ-returns, losses, the trainer and its
-checkpoints."""
+"""POCA stack: rollout container, λ-returns, losses, the trainer, the
+seed-parallel trainer and their checkpoints."""
 
 from ..config.poca_cfg import POCAConfig
 from .buffer import Rollout
 from .checkpoint import Checkpointer
+from .seed_parallel import SeedParallelTrainer
 from .trainer import POCATrainer
 
-__all__ = ["Checkpointer", "POCAConfig", "POCATrainer", "Rollout"]
+__all__ = ["Checkpointer", "POCAConfig", "POCATrainer", "Rollout", "SeedParallelTrainer"]

@@ -21,6 +21,9 @@ BPTT over fixed-stride windows of ``sequence_length`` decisions grouped by
 length, each starting from the stored carry, with the carry zeroed inside
 a window after a done (``_update_recurrent``, trainer.py:960-1054). A
 feedforward actor's carry is the empty tuple.
+With ``mixed_precision`` the critic's attention projections named in
+``mp_stages`` take bfloat16 operands (JAX trainer.py:133-134); the
+parameters, the gradients and Adam stay float32.
 Algorithm parity with ML-Agents POCA:
 
   - counterfactual baselines from the critic every step (poca_trainer.py:449-455)
@@ -55,7 +58,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config.poca_cfg import POCAConfig
+from ..config.poca_cfg import POCAConfig, check_mp_stages
 from ..env.directional_gate import DirectionalGateEnv
 from ..env import lanes as laneslib
 from ..models.networks import (Actor, DiscreteActor, POCACritic,
@@ -64,12 +67,6 @@ from ..ops import baseline_tail, cf_attention
 from . import buffer as buf
 from . import losses
 from .buffer import Rollout
-
-
-def _not_ported(cfg: POCAConfig) -> Optional[str]:
-    if cfg.mixed_precision:
-        return "mixed_precision=True: ROADMAP.md §1 item 10"
-    return None
 
 
 def check_card_widths(device, num_agents: int, cfg: POCAConfig) -> None:
@@ -101,9 +98,7 @@ class POCATrainer:
         self.env = env
         self.cfg = cfg or POCAConfig()
         c = self.cfg
-        missing = _not_ported(c)
-        if missing is not None:
-            raise NotImplementedError(f"not ported yet — {missing}")
+        check_mp_stages(c.mp_stages)
         self.device = env.device
         check_card_widths(self.device, env.num_agents, c)
         self.num_envs = env.num_envs
@@ -141,6 +136,8 @@ class POCATrainer:
                 num_heads=c.critic_num_heads, num_layers=c.num_layers,
                 # None (auto) means off, as in the JAX trainer
                 fused_attention=bool(c.fused_attention),
+                compute_dtype=torch.bfloat16 if c.mixed_precision else None,
+                mp_stages=c.mp_stages,
             )
         self.init_params_for_seed(c.seed)
 
@@ -484,33 +481,45 @@ class POCATrainer:
         return -(-batch_rows // rows)
 
     def _accumulate_grads(self, batch, eps, beta, loss_fn, groups_per_row: int = 1):
-        """Adds the gradient of ``loss_fn`` (``_feedforward_loss`` or
-        ``_recurrent_loss``) over the minibatch to every parameter's
-        ``.grad`` and returns (total loss, aux (4,)) of the whole minibatch.
+        """Leaves the gradient of ``loss_fn`` (``_feedforward_loss`` or
+        ``_recurrent_loss``) over the minibatch in every parameter's
+        ``.grad``, which must be None or zero at the call, and returns
+        (total loss, aux (4,)) of the whole minibatch.
 
-        Exact chunked accumulation: each chunk's loss is weighted by its
-        share of rows (every loss term is a per-element mean with a fixed
-        element count per row, so Σᵢ wᵢ·meanᵢ with wᵢ = rowsᵢ/B equals the
-        full-batch mean, and likewise its gradient). Each chunk's backward
-        runs before the next chunk's forward, so activation memory is
-        bounded by one chunk; the tail chunk (B mod rows) gets its own
-        weighted pass."""
+        Exact chunked accumulation: the full chunks' gradients are summed,
+        then weighted by their share of rows, and the tail chunk's (B mod
+        rows) is added with its own weight (every loss term is a per-element
+        mean with a fixed element count per row, so Σᵢ wᵢ·meanᵢ with
+        wᵢ = rowsᵢ/B equals the full-batch mean, and likewise its gradient).
+        The weights apply after each backward, in the JAX package's order
+        (trainer.py ``_sgd_step``), so that a bf16 product's gradient rounds
+        as it does there. Each chunk's backward runs before the next chunk's
+        forward, so activation memory is bounded by one chunk."""
         B = batch["obs"].shape[0]
         rows = self._chunk_rows(B, groups_per_row)
         n_full, rem = divmod(B, rows)
+        params = list(self.optimizer.param_groups[0]["params"])
         total_sum = torch.zeros((), device=self.device)
         aux_sum = torch.zeros(4, device=self.device)
         for k in range(n_full):
             chunk = {n: v[k * rows:(k + 1) * rows] for n, v in batch.items()}
             total, aux = loss_fn(chunk, eps, beta)
-            (total * (rows / B)).backward()
+            total.backward()
             total_sum = total_sum + total.detach()
             aux_sum = aux_sum + torch.stack(aux).detach()
+        with torch.no_grad():
+            for p in params:
+                if p.grad is not None:
+                    p.grad.mul_(rows / B)
         total_v, aux_v = total_sum * (rows / B), aux_sum * (rows / B)
         if rem:
             tail = {n: v[n_full * rows:] for n, v in batch.items()}
             total, aux = loss_fn(tail, eps, beta)
-            (total * (rem / B)).backward()
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            with torch.no_grad():
+                for p, g in zip(params, grads):
+                    if g is not None:
+                        p.grad = g * (rem / B) if p.grad is None else p.grad + g * (rem / B)
             total_v = total_v + total.detach() * (rem / B)
             aux_v = aux_v + torch.stack(aux).detach() * (rem / B)
         return total_v, aux_v

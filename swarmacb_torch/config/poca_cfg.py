@@ -3,12 +3,26 @@
 A copy of ``swarmacb_tpu.config.poca_cfg``. Field names and defaults match
 the reference ``POCAConfig`` (poca_trainer.py:43-105) so the YAML loader and
 CLI map one-to-one. ``recurrent=True`` (cyclamen) trains the LSTM actor
-with BPTT over windows of ``sequence_length`` decisions.
+with BPTT over windows of ``sequence_length`` decisions;
+``mixed_precision=True`` gives the critic's attention projections named in
+``mp_stages`` bfloat16 operands.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+MP_STAGES = "qkvo"
+
+
+def check_mp_stages(stages: str) -> str:
+    """``stages`` if it is a subset of ``"qkvo"`` (the attention's q, k, v
+    and output projections), else ValueError."""
+    bad = sorted(set(stages) - set(MP_STAGES))
+    if bad:
+        raise ValueError(f"mp_stages must be a subset of {MP_STAGES!r}; "
+                         f"{stages!r} has {bad}")
+    return stages
 
 
 @dataclasses.dataclass
@@ -90,10 +104,18 @@ class POCAConfig:
     # means off, as in the JAX trainer.
     fused_env_step: "bool | None" = None
 
-    # Not ported yet: True raises NotImplementedError
-    # (ROADMAP.md §1 item 10 — mixed precision).
+    # Mixed precision: bfloat16 operands for the critic's attention
+    # projections named in ``mp_stages`` (q/k: the scores' path, v/o: the
+    # values' and output's), each product and its bias add rounded to
+    # bfloat16 as flax's Dense(dtype=bf16) rounds them; the scores, the
+    # value folds, the tail kernels, LayerNorm, softmax, the losses, the
+    # parameters and Adam stay float32 (models/networks.py). Off by default.
     mixed_precision: bool = False
-    mp_stages: str = "qkvo"
+    # a subset of "qkvo"; inert unless mixed_precision
+    mp_stages: str = MP_STAGES
 
     # RNG
     seed: int = 0
+
+    def __post_init__(self):
+        check_mp_stages(self.mp_stages)

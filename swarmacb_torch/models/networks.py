@@ -18,8 +18,12 @@ W_out-folded form (networks.py:443-517); its fc/LayerNorm/pool tail goes
 through ``ops.fused_tail``, or with ``fused_attention=True`` everything from
 the raw scores to the pooled rows goes through ``ops.fused_cf_attention``
 (networks.py:481-489) — the CUDA kernels on the card, the plain versions on
-the CPU. Submodule and parameter names follow the flax tree
-(``dense_i`` → ``layers.i``, ``kernel`` → ``weight``ᵀ; the LSTM's
+the CPU. With ``compute_dtype=torch.bfloat16`` (``POCAConfig.mixed_precision``)
+the attention projections named in ``mp_stages`` take bfloat16 operands and
+round where flax's ``Dense(dtype=bf16)`` rounds (``_project``); everything
+after them stays float32, as in the JAX package (networks.py:322-335).
+Submodule and parameter names follow the flax tree (``dense_i`` →
+``layers.i``, ``kernel`` → ``weight``ᵀ; the LSTM's
 ``w_ih``, ``w_hh`` and ``bias`` keep the flax names and layout), which
 ``swarmacb_torch.convert`` relies on.
 """
@@ -264,20 +268,45 @@ def _layer_norm(x):
     return F.layer_norm(x, (x.shape[-1],), eps=LN_EPS)
 
 
+def _project(layer: nn.Linear, x, dtype: Optional[torch.dtype] = None):
+    """``layer(x)``, or with ``dtype`` the counterpart of flax's
+    ``Dense(dtype=dtype)`` (JAX networks.py:38-41): x, the weight and the
+    bias cast to ``dtype``, the product rounded to it, then the bias added
+    in it — two roundings, as XLA rounds flax's dot and its bias add.
+    ``F.linear`` with the bias would fuse the add into the product and round
+    once, which misses flax's result in a quarter of the elements. The
+    product sums in float32 before its one rounding; on the card that needs
+    cuBLAS's reduced-precision reductions off
+    (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``),
+    which the entry points set. The parameters stay float32: autograd's
+    casts carry their gradients back to float32."""
+    if dtype is None:
+        return layer(x)
+    return torch.matmul(x.to(dtype), layer.weight.to(dtype).t()) + layer.bias.to(dtype)
+
+
 class ResidualSelfAttention(nn.Module):
     """Pre-norm residual MHA with masked average pooling over entities.
 
     Matches poca_networks.py:381-454: non-affine LayerNorms (eps 1e-5),
     Normal×T-Fixup projections, residual adds the NORMED input, pooled
-    output. Returns (B, embed)."""
+    output. Returns (B, embed).
+
+    ``compute_dtype`` (None: float32 throughout) is the operand dtype of the
+    projections named in ``mp_stages``, a subset of "qkvo" (JAX
+    networks.py:235-256); their outputs keep it, and every product that
+    uses them upcasts them to float32 first, as the JAX package's
+    ``preferred_element_type=float32`` products and dtype promotions do."""
 
     NEG_INF = -1e6
     EPSILON = 1e-7
 
-    def __init__(self, embed: int, num_heads: int = 4):
+    def __init__(self, embed: int, num_heads: int = 4,
+                 compute_dtype: Optional[torch.dtype] = None, mp_stages: str = "qkvo"):
         super().__init__()
         self.embed = embed
         self.num_heads = num_heads
+        self.dtypes = {s: compute_dtype if s in mp_stages else None for s in "qkvo"}
         self.fc_q = nn.Linear(embed, embed)
         self.fc_k = nn.Linear(embed, embed)
         self.fc_v = nn.Linear(embed, embed)
@@ -296,7 +325,9 @@ class ResidualSelfAttention(nn.Module):
 
     def project_qkv(self, x):
         """Q/K/V projections of normalized entities — also per entity."""
-        return self.fc_q(x), self.fc_k(x), self.fc_v(x)
+        dt = self.dtypes
+        return (_project(self.fc_q, x, dt["q"]), _project(self.fc_k, x, dt["k"]),
+                _project(self.fc_v, x, dt["v"]))
 
     def attend(self, x, q, k, v, key_mask: Optional[torch.Tensor] = None):
         """Attention + residual + pooled output from pre-normalized input
@@ -304,9 +335,9 @@ class ResidualSelfAttention(nn.Module):
         B, N, D = x.shape
         H = self.num_heads
         d = D // H
-        qh = q.reshape(B, N, H, d).transpose(1, 2)
-        kh = k.reshape(B, N, H, d).transpose(1, 2)
-        vh = v.reshape(B, N, H, d).transpose(1, 2)
+        qh = q.float().reshape(B, N, H, d).transpose(1, 2)
+        kh = k.float().reshape(B, N, H, d).transpose(1, 2)
+        vh = v.float().reshape(B, N, H, d).transpose(1, 2)
 
         attn = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(d)
         if key_mask is not None:
@@ -315,7 +346,8 @@ class ResidualSelfAttention(nn.Module):
         out = torch.matmul(attn, vh)
         out = out.transpose(1, 2).reshape(B, N, D)
 
-        output = _layer_norm(self.fc_out(out) + x)
+        # a bfloat16 fc_out output promotes to float32 in the residual add
+        output = _layer_norm(_project(self.fc_out, out, self.dtypes["o"]) + x)
         if key_mask is not None:
             valid = (1.0 - key_mask)[..., None]
             return (output * valid).sum(1) / (valid.sum(1) + self.EPSILON)
@@ -335,18 +367,21 @@ class POCACritic(nn.Module):
     count: 2n/max − 1 is 1.0 in every reference configuration.
     ``fused_attention`` selects the ``ops.fused_cf_attention`` branch of
     ``all_baselines``; both branches compute the same function with the same
-    parameters."""
+    parameters. ``compute_dtype`` and ``mp_stages`` are the attention's
+    (``ResidualSelfAttention``; JAX networks.py:322-353): the parameter tree
+    does not depend on them."""
 
     def __init__(self, state_dim: int, act_dim: int, num_agents: int,
                  hidden: int = 256, num_heads: int = 4, num_layers: int = 2,
-                 fused_attention: bool = False):
+                 fused_attention: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None, mp_stages: str = "qkvo"):
         super().__init__()
         self.num_agents = num_agents
         self.hidden = hidden
         self.fused_attention = fused_attention
         self.obs_entity_enc = EntityEmbedding(state_dim, hidden)
         self.obs_act_entity_enc = EntityEmbedding(state_dim + act_dim, hidden)
-        self.self_attn = ResidualSelfAttention(hidden, num_heads)
+        self.self_attn = ResidualSelfAttention(hidden, num_heads, compute_dtype, mp_stages)
         self.linear_encoder = LinearEncoder(hidden, num_layers, hidden,
                                             "kaiming_normal",
                                             (0.125 / hidden) ** 0.5)
@@ -427,16 +462,22 @@ class POCACritic(nn.Module):
         qs, ks, vs = heads(q_s), heads(k_s), heads(v_s)
         qa, ka, va = heads(q_a), heads(k_a), heads(v_a)
 
-        S_aa = torch.matmul(qa, ka.transpose(-1, -2))                   # (B,H,n,m)
-        S_sa = torch.matmul(qs, ka.transpose(-1, -2))
-        S_as = torch.matmul(qa, ks.transpose(-1, -2))
-        S_ss = (qs * ks).sum(-1)                                        # (B,H,N)
+        # under mixed precision q, k and v may be bfloat16: the scores are
+        # float32 products of the upcast operands (JAX networks.py:464-467)
+        qs32, ks32, qa32, ka32 = qs.float(), ks.float(), qa.float(), ka.float()
+        S_aa = torch.matmul(qa32, ka32.transpose(-1, -2))               # (B,H,n,m)
+        S_sa = torch.matmul(qs32, ka32.transpose(-1, -2))
+        S_as = torch.matmul(qa32, ks32.transpose(-1, -2))
+        S_ss = (qs32 * ks32).sum(-1)                                    # (B,H,N)
 
         # fold W_out into the per-head values: w[b,h,m,o] = v_h[m]·W_out[h],
-        # with W_out in flax layout (in, out) = weightᵀ, split (H, d, h)
+        # with W_out in flax layout (in, out) = weightᵀ, split (H, d, h),
+        # float32 (the fold uses the parameter, not fc_out's product); v_s − v_a
+        # is taken in v's dtype, then upcast, as the JAX package subtracts
+        # two bfloat16 values (networks.py:474-478)
         Wh = rsa.fc_out.weight.t().reshape(H, d, h)
-        wa = torch.einsum("bhmd,hdo->bhmo", va, Wh)
-        dws = torch.einsum("bhmd,hdo->bhmo", vs - va, Wh)               # (B,H,I,h)
+        wa = torch.einsum("bhmd,hdo->bhmo", va.float(), Wh)
+        dws = torch.einsum("bhmd,hdo->bhmo", (vs - va).float(), Wh)     # (B,H,I,h)
 
         if self.fused_attention:
             # raw scores to pooled rows in one kernel: the (B, I, H, n, m)
@@ -461,6 +502,10 @@ class POCACritic(nn.Module):
                              torch.where(n_idx == I_idx, diag_I, col_I), scores)
         attn = torch.softmax(scores / math.sqrt(d), dim=-1)    # (B,I,H,n,m)
 
+        # the tail is ops.fused_tail in float32 on every device (K3 on the
+        # card), the JAX fused_tail=True branch: mp_stages' "v" never reaches
+        # the attn×values contraction there (tile_dtype, JAX
+        # networks.py:470-472, 519-528, belongs to its XLA tail)
         lhs = attn.permute(0, 1, 3, 2, 4).reshape(B, N * N, H * N)
         # attn[b, I, h, n, m=I], head-major (B, H, I, n)
         attn_mI = attn.diagonal(dim1=1, dim2=4).permute(0, 1, 3, 2).contiguous()

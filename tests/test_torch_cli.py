@@ -1,8 +1,9 @@
 """The port's command lines on the CPU, in process: ``train_torch.py``
 (train one iteration, then resume with ``--checkpoint latest``),
 ``play_torch.py`` (with and without ``--render``),
-``eval_checkpoints_torch.py``, the options the port refuses, and the card
-width check (fault F1), which runs before the env is built.
+``eval_checkpoints_torch.py``, the mixed-precision and seed-parallel
+options, the options the port refuses, and the card width check (fault
+F1), which runs before the env is built.
 
 dandelion at ``--num_envs 2 --hidden_dim 16``, from its YAML with the
 horizon cut to 100 decisions and the summary and checkpoint intervals to
@@ -24,8 +25,10 @@ import pytest
 import torch
 import yaml
 
+from swarmacb_torch.agents import SeedParallelTrainer
 from swarmacb_torch.utils import JsonlWriter
 from torch_scripts import load_script
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DANDELION = str(ROOT / "configs" / "DirGate_dandelion.yaml")
@@ -217,13 +220,68 @@ def _no_env(*args, **kwargs):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--mixed_precision"], "item 10"),
-    (["--mp_stages", "qk"], "item 10"),
-    (["--seeds", "0-1"], "items 12 and 13"),
-    (["--distributed"], "items 12 and 13"),
-    (["--data_parallel", "4"], "items 12 and 13"),
+    (["--distributed"], "item 13"),
+    (["--data_parallel", "4"], "item 13"),
 ])
 def test_unported_options_stop_before_the_env(train_torch, monkeypatch, flags, message):
+    monkeypatch.setattr(train_torch, "make_env", _no_env)
+    with pytest.raises(SystemExit, match=message):
+        train_torch.main([*SMALL, *flags])
+
+
+@pytest.mark.parametrize("flags,mixed,stages,seeds", [
+    (["--mixed_precision"], True, "qkvo", None),
+    (["--mp_stages", "qk"], False, "qk", None),
+    (["--mixed_precision", "--mp_stages", "auto"], True, "qkvo", None),
+    (["--seeds", "0-1"], False, "qkvo", [0, 1]),
+])
+def test_ported_options_are_taken(train_torch, tmp_path, capsys, flags, mixed, stages, seeds):
+    """``--mixed_precision``, ``--mp_stages`` (a subset of "qkvo", or the
+    variant's validated stages with ``auto``) and ``--seeds`` build, and one
+    iteration of 10 decisions trains with finite losses; ``--seeds`` gives
+    each seed its ``_seed<s>`` directories."""
+    cfg = yaml.safe_load(pathlib.Path(DANDELION).read_text())
+    cfg["behaviors"]["DirGate_dandelion"].update(time_horizon=10)
+    (tmp_path / "dandelion.yaml").write_text(yaml.safe_dump(cfg))
+    ckpt = tmp_path / "ckpt"
+    trainer = train_torch.main([*SMALL, "--config", str(tmp_path / "dandelion.yaml"),
+                                "--total_timesteps", str(10 * 2 * 20), "--no-tensorboard",
+                                "--checkpoint_dir", str(ckpt), "--log_dir",
+                                str(tmp_path / "logs"), *flags])
+    line = [l for l in capsys.readouterr().out.splitlines() if l.startswith("[POCA] step=")]
+    assert len(line) == 1 and "upd=1" in line[0]
+    assert "nan" not in line[0] and "inf" not in line[0]
+    assert (trainer.cfg.mixed_precision, trainer.cfg.mp_stages) == (mixed, stages)
+    lanes = trainer.lanes if seeds else [trainer]
+    dtype = torch.bfloat16 if mixed else None
+    for lane in lanes:
+        assert lane.critic.self_attn.dtypes == {s: dtype if s in stages else None
+                                                for s in "qkvo"}
+        assert all(bool(torch.isfinite(p).all()) for p in lane.critic.parameters())
+    if seeds:
+        assert isinstance(trainer, SeedParallelTrainer) and trainer.seeds == seeds
+        assert trainer.alive.all()
+        for s in seeds:
+            assert (tmp_path / f"ckpt_seed{s}" / "poca_final" / "metadata.json").exists()
+        assert not ckpt.exists()
+    else:
+        assert (ckpt / "poca_final" / "metadata.json").exists()
+
+
+def test_mp_stages_auto_refuses_a_variant_outside_its_table(train_torch, monkeypatch):
+    monkeypatch.setattr(train_torch, "VALIDATED_MP_STAGES", {"lily": "qk"})
+    monkeypatch.setattr(train_torch, "make_env", _no_env)
+    with pytest.raises(SystemExit, match="no validated bf16 stages for 'dandelion'"):
+        train_torch.main([*SMALL, "--mixed_precision", "--mp_stages", "auto"])
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--mp_stages", "qkx"], "subset of 'qkvo'"),
+    (["--seeds", "9-0"], "reversed range"),
+    (["--seeds", "0-1", "--checkpoint", "some/dir"], "only via --checkpoint latest"),
+])
+def test_bad_precision_and_seed_options_stop_before_the_env(train_torch, monkeypatch, flags,
+                                                             message):
     monkeypatch.setattr(train_torch, "make_env", _no_env)
     with pytest.raises(SystemExit, match=message):
         train_torch.main([*SMALL, *flags])

@@ -6,6 +6,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,6 +26,7 @@ PORT_FILES = (sorted((ROOT / "swarmacb_torch").rglob("*.py"))
                                                 "probe_tf32_rates.py",
                                                 "time_tail_backward.py",
                                                 "time_env_kernels.py",
+                                                "time_train_iteration.py",
                                                 "train_torch.py",
                                                 "play_torch.py",
                                                 "eval_checkpoints_torch.py")])
@@ -162,13 +164,24 @@ def test_fused_tail_with_gradients_takes_the_kernel_path_off_the_cpu():
         ops.fused_tail(*_tail_args(device="meta"), 3)
 
 
-@pytest.mark.parametrize("override,item", [(dict(mixed_precision=True), "item 10")])
-def test_unported_options_raise(override, item):
+def test_mixed_precision_trainer_trains_on_the_cpu():
+    """``mixed_precision=True`` builds a trainer whose critic projections
+    take bf16 and whose parameters stay float32; on the CPU its kernels take
+    their plain versions (no launch), and one iteration gives finite
+    losses."""
     from swarmacb_torch.agents import POCAConfig, POCATrainer
 
     env = DirectionalGateEnv(DirectionalGateEnvCfg(num_envs=1), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        POCATrainer(env, POCAConfig(hidden_dim=8, **override))
+    trainer = POCATrainer(env, POCAConfig(hidden_dim=8, horizon=2, mini_batch_size=2,
+                                          mixed_precision=True))
+    assert trainer.critic.self_attn.dtypes == dict.fromkeys("qkvo", torch.bfloat16)
+    ops.reset_launches()
+    st, obs = env.reset(trainer.generator)
+    _, _, _, metrics = trainer.train_iteration(st, obs, ())
+    assert not any(ops.launches.values())
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+               for p in trainer.critic.parameters())
 
 
 def test_fused_attention_trainer_takes_the_plain_path_on_the_cpu():
