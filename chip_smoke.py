@@ -113,7 +113,15 @@ Phases, each of which must pass for the run to pass:
      the four ``_seed<s>`` checkpoint and log directories, holds lane 0
      against a serial run of seed 0 at the lane's chunk cap, plays lane 2's
      ``poca_final`` with ``play_torch.py``, and quarantines a lane poisoned
-     with NaN parameters (E = 4, T = 8) while the other trains on;
+     with NaN parameters (E = 4, T = 8) while the other trains on. Phase
+     3j trains data-parallel: ``train_torch.py --distributed`` under
+     ``torchrun`` (NCCL at world = 1, phase 3f's cut) must save the plain
+     command's ``poca_final`` bit for bit; then two gloo ranks that share
+     the card (``parallel.make_mesh(backend="gloo")``), 512 arenas each,
+     train one iteration at the smoke cut with each rank's launches
+     counted, end with bit-identical parameters, make the all-reduces
+     ``scripts/comm_account_torch.py`` counts (their time printed), and
+     roll out 20 decisions equal to one process of 1,024 arenas;
   4. a JSON line with every kernel's numbers, then the final status line.
 
 It exits non-zero, and prints no result, where there is no CUDA device or
@@ -2535,6 +2543,246 @@ def phase_seeds(torch, ops, card):
     return launches
 
 
+# ── phase 3j: data-parallel training ─────────────────────────────────────
+
+DP_WORLD = 2                        # gloo ranks that share the card in 3j (b)
+DP_ROLLOUT_T = 20                   # 3j (b)'s rollout, held against one process
+# 3j (b)'s rollout fields held exactly, and those whose arenas lie on axis 0
+DP_EXACT = ("rewards", "dones")
+DP_ARENA_FIRST = ("bootstrap", "final_obs")
+
+
+def _dp_trainer(mesh, num_envs, horizon):
+    """``configs/DirGate_dandelion.yaml`` cut to ``num_envs`` arenas and
+    ``horizon`` decisions: one process on the card, or the rank ``mesh``
+    of a data-parallel run over them."""
+    from swarmacb_torch.agents import POCATrainer
+    from swarmacb_torch.config import DirectionalGateEnvCfg, load_config
+    from swarmacb_torch.env import DirectionalGateEnv
+
+    _, variant, pcfg, env_ov = load_config(ROOT / "configs" / "DirGate_dandelion.yaml")
+    pcfg = dataclasses.replace(pcfg, horizon=horizon, seed=SEED)
+    env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
+    lo, hi = (0, num_envs) if mesh is None else mesh.shard_range(num_envs)
+    env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant, num_envs=hi - lo, **env_kw),
+                             device=DEVICE if mesh is None else mesh.device,
+                             shard=None if mesh is None else (lo, num_envs))
+    return POCATrainer(env, pcfg, mesh=mesh)
+
+
+def _dp_rollout(trainer) -> dict:
+    """A rollout of the trainer's horizon from a reset on its generator:
+    its fields, the bootstrap and the final observations, on the CPU."""
+    st, obs = trainer.env.reset(trainer.generator)
+    st, obs, _, rollout, bootstrap, _ = trainer.rollout(st, obs, ())
+    out = {k: v.cpu() for k, v in rollout.items()}
+    out.update(bootstrap=bootstrap.cpu(), final_obs=obs.cpu())
+    return out
+
+
+def _dp_rank(rank, init_method, out_dir, device, num_envs, horizon, rollout_t):
+    """One gloo rank of phase 3j (b) on ``device`` (``cuda:0``): one
+    training iteration of its E / 2 arenas (launches, all-reduces and wall
+    time counted), its parameter digest, then a short rollout of a fresh
+    trainer."""
+    import torch
+    from swarmacb_torch import ops
+    from swarmacb_torch.parallel import digest, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(world=DP_WORLD, rank=rank, device=device, backend="gloo",
+                     init_method=init_method)
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    try:
+        trainer = _dp_trainer(mesh, num_envs, horizon)
+        st, obs = trainer.env.reset(trainer.generator)
+        trainer.rollout(st, obs, (), length=2)                     # warm-up
+        sync()
+        out = {"passes": _chunk_passes(trainer), "shard": trainer.env.shard,
+               "backend": mesh.backend, "group_mb": trainer.group_mb,
+               "rows": trainer._minibatch_rows(trainer.cfg.horizon * trainer.num_envs)}
+        # the main path: counts from 0 just before, read just after
+        mesh.timed = True
+        mesh.comm.update(calls=0, bytes=0, seconds=0.0)
+        ops.reset_launches()
+        st, obs = trainer.env.reset(trainer.generator)
+        sync()
+        t0 = time.perf_counter()
+        st, obs, _, metrics = trainer.train_iteration(st, obs, ())
+        sync()
+        out.update(wall=time.perf_counter() - t0, launches=dict(ops.launches),
+                   comm=dict(mesh.comm), metrics=metrics,
+                   digest=digest([*trainer.actor.parameters(), *trainer.critic.parameters()]))
+        mesh.timed = False
+        del trainer
+        out["rollout"] = _dp_rollout(_dp_trainer(mesh, num_envs, rollout_t))
+    finally:
+        mesh.close()
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+
+
+def _dp_state_equal(torch, a: dict, b: dict) -> float:
+    """max |Δ| between two ``state.pt``s (actor, critic, Adam), 0.0 when
+    they are equal bit for bit; inf when their keys differ."""
+    worst = 0.0
+    pairs = [(a[net], b[net]) for net in ("actor", "critic")]
+    pairs += [(s, b["optimizer"]["state"].get(i, {}))
+              for i, s in a["optimizer"]["state"].items()]
+    for x, y in pairs:
+        if x.keys() != y.keys():
+            return float("inf")
+        for k, v in x.items():
+            if not torch.equal(v, y[k]):
+                worst = max(worst, float((v.double() - y[k].double()).abs().max()))
+    return worst
+
+
+def phase_data_parallel(torch, ops, card):
+    """(a) ``train_torch.py --distributed`` under ``torchrun`` over NCCL at
+    world = 1 against the plain command (one iteration at phase 3f's cut,
+    E = 64, T = 1000): their ``poca_final`` equal bit for bit; (b) two
+    gloo ranks that share the card (``parallel.make_mesh(backend="gloo",
+    device="cuda:0")``), 512 arenas each at the smoke cut: one training
+    iteration, each rank's launches, the ranks' parameters bit for bit,
+    the all-reduces beside ``scripts/comm_account_torch.py``, and a
+    20-decision rollout of both ranks against one process of 1,024 arenas."""
+    t_phase = time.perf_counter()
+    print(f"== phase 3j: data-parallel training: (a) train_torch.py --distributed under "
+          f"torchrun (NCCL, world 1) against the plain command, --num_envs {CLI_ENVS}, one "
+          f"iteration; (b) {DP_WORLD} gloo ranks sharing the card, E={E_MAIN}, T={HORIZON}",
+          flush=True)
+    wall_a = _torchrun_world_one(torch)
+    wall_b = _gloo_ranks(torch, card)
+    print(f"  (a) {wall_a:.1f} s, (b) {wall_b:.1f} s; phase 3j "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _torchrun_world_one(torch) -> float:
+    """Phase 3j (a); returns its wall seconds."""
+    config = str(ROOT / "configs" / "DirGate_dandelion.yaml")
+    T = 1000                                     # the YAML's time_horizon
+    iteration = T * CLI_ENVS * N_MAIN
+    with tempfile.TemporaryDirectory() as tmp:
+        base = [str(ROOT / "scripts" / "train_torch.py"), "--config", config, "--num_envs",
+                str(CLI_ENVS), "--total_timesteps", str(iteration), "--no-tensorboard",
+                "--device", DEVICE]
+        cmds = {"torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc_per_node", "1", *base, "--distributed"],
+                "plain": [sys.executable, *base]}
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [*cmd, "--checkpoint_dir", f"{tmp}/{name}/ckpt", "--log_dir", f"{tmp}/{name}/logs"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, cmd in cmds.items()}
+        outs = {}
+        for name, proc in procs.items():
+            try:
+                outs[name] = proc.communicate(timeout=300)[0]
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                outs[name] = proc.communicate()[0]
+            for line in outs[name].splitlines():
+                if line.startswith(("[train] data-parallel", "[train] rank", "[POCA] step")):
+                    print(f"  {name}: {line}", flush=True)
+            check(proc.returncode == 0, f"{name}: {' '.join(cmds[name][:6])} ... exited with "
+                                        f"{proc.returncode}" + ("" if proc.returncode == 0
+                                                                else f"\n{outs[name][-3000:]}"))
+        wall_a = time.perf_counter() - t0
+        check("[train] data-parallel over 1 rank(s) (nccl)" in outs["torchrun"],
+              "torchrun's rank reports the nccl backend")
+        states = [torch.load(Path(tmp) / name / "ckpt" / "poca_final" / "state.pt",
+                             map_location="cpu", weights_only=True) for name in cmds]
+        worst = _dp_state_equal(torch, *states)
+        check(worst == 0.0, "the NCCL world-1 run's poca_final equals the plain run's "
+                            + ("bit for bit" if worst == 0.0 else f"(max |Δ| {worst:.3e})"))
+    return wall_a
+
+
+def _gloo_ranks(torch, card) -> float:
+    """Phase 3j (b); returns its wall seconds."""
+    passes_expected = 300
+    print(f"  (b) expected a rank: K1 {1 + HORIZON}, K2 {HORIZON}, K3f "
+          f"{HORIZON + passes_expected}, K3b {passes_expected}, K4 0, K5 0 "
+          f"({passes_expected} chunk passes: 3 epochs x 10 minibatches of 10,240 groups in "
+          "chunks of 1,024)", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = torch.multiprocessing.start_processes(
+            _dp_rank, nprocs=DP_WORLD, join=False, start_method="spawn",
+            args=(f"file://{tmp}/rendezvous", tmp, "cuda:0" if DEVICE == "cuda" else DEVICE,
+                  E_MAIN, HORIZON, DP_ROLLOUT_T))
+        deadline = time.monotonic() + 400
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError("the gloo ranks did not finish within 400 s")
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(DP_WORLD)]
+    wall_b = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        n = out["passes"]
+        expect = {"pairwise_sensors": 1 + HORIZON, "resolve_robot_collisions": HORIZON,
+                  "fused_env_step": 0, **_critic_launches(False, HORIZON + n, n)}
+        got = {k: out["launches"][k] for k in expect}
+        lo, total = out["shard"]
+        check(got == expect and n == passes_expected and out["backend"] == "gloo",
+              f"rank {r} ({out['backend']}, arenas {lo}..{lo + E_MAIN // DP_WORLD} of "
+              f"{total}, minibatches of {out['rows']} rows) "
+              f"launched K1 {got['pairwise_sensors']}, K2 {got['resolve_robot_collisions']}, "
+              f"K3f {got['fused_tail']}, K3b {got['fused_tail_bwd']}, K4 "
+              f"{got['fused_env_step']}, K5 {got['fused_cf_attention']} (expected "
+              f"{list(expect.values())})")
+        for k in ("policy_loss", "value_loss", "baseline_loss", "entropy"):
+            check(bool(np.isfinite(out["metrics"][k])), f"rank {r} {k} = "
+                                                        f"{out['metrics'][k]:.6g} is finite")
+    check(ranks[0]["digest"] == ranks[1]["digest"],
+          f"the ranks' parameters are bit-identical after the iteration "
+          f"(digest {ranks[0]['digest'][:16]}...)")
+    check(all(ranks[0]["metrics"][k] == ranks[1]["metrics"][k]
+              for k in ("policy_loss", "value_loss", "baseline_loss", "entropy",
+                        "mean_abs_advantage", "mean_team_value")),
+          "the ranks report the same losses and averaged statistics")
+
+    acct = _script("comm_account_torch").account("dandelion", E_MAIN, horizon=HORIZON)
+    comm = ranks[0]["comm"]
+    steps = acct[f"ranks_{DP_WORLD}"]["sgd_steps"]
+    wire = acct[f"ranks_{DP_WORLD}"]["wire_MB_per_update"] * 2**20
+    check(comm["calls"] == acct[f"ranks_{DP_WORLD}"]["allreduce_calls"]
+          and abs(comm["bytes"] * 2 * (DP_WORLD - 1) / DP_WORLD - wire) <= 1e-9 * wire,
+          f"rank 0 made {comm['calls']} all-reduces of {comm['bytes'] / 2**20:.3f} MB in the "
+          f"update; comm_account_torch.py: {steps} SGD steps + 4 scalars, "
+          f"{acct['params']:,} parameters, {wire / 2**20:.3f} MB on the wire per GPU "
+          f"at p = {DP_WORLD}")
+
+    single = _dp_rollout(_dp_trainer(None, E_MAIN, DP_ROLLOUT_T))
+    for name, want in single.items():
+        got = torch.cat([out["rollout"][name] for out in ranks],
+                        dim=0 if name in DP_ARENA_FIRST else 1)
+        diff = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        tol = (0.0 if name in DP_EXACT else
+               1e-5 if name in ("obs", "final_obs", "baselines", "team_values", "bootstrap")
+               else 1e-6)
+        check(got.shape == want.shape and diff <= tol,
+              f"rollout.{name} of the two ranks against one process of {E_MAIN} arenas, "
+              f"T = {DP_ROLLOUT_T}: max |Δ| {diff:.3e} (tolerance {tol:g})")
+    seconds = [out["comm"]["seconds"] for out in ranks]
+    walls = [out["wall"] for out in ranks]
+    print(f"  on {card}: (b) the iteration "
+          f"{walls[0]:.3f} s and {walls[1]:.3f} s on ranks 0 and 1 ({DP_WORLD} ranks sharing "
+          f"the card, {HORIZON * E_MAIN * N_MAIN / max(walls):,.0f} training agent-decisions/s "
+          f"together); all-reduce per update: {comm['calls']} calls, "
+          f"{comm['bytes'] / 2**20:.3f} MB a rank, {seconds[0]:.3f} s and {seconds[1]:.3f} s in "
+          f"all_reduce on ranks 0 and 1 (gloo through the host, "
+          f"{comm['bytes'] / max(seconds[0], 1e-9) / 1e9:.3f} GB/s a rank)", flush=True)
+    return wall_b
+
+
 # ── main ─────────────────────────────────────────────────────────────────
 
 def main() -> int:
@@ -2585,7 +2833,8 @@ def main() -> int:
         phase_small_reference(torch, variant="cyclamen", fused_env_step=fused_env_step)
     for label, phase in (("3f", lambda: phase_cli(torch, ops, card)),
                          ("3h", lambda: phase_mixed_precision(torch, ops, card, walls)),
-                         ("3i", lambda: phase_seeds(torch, ops, card))):
+                         ("3i", lambda: phase_seeds(torch, ops, card)),
+                         ("3j", lambda: phase_data_parallel(torch, ops, card))):
         try:
             phase()
         except (Exception, SystemExit) as exc:   # reported as this phase's failure

@@ -1,5 +1,7 @@
-"""POCA stack: rollout container, λ-returns, losses, the trainer, the
-seed-parallel trainer and their checkpoints."""
+"""POCA stack: rollout container, λ-returns, losses, the trainer (one
+device, or a rank of a data-parallel run over ``swarmacb_torch.parallel``),
+the seed-parallel trainer (one device or a seed mesh) and their
+checkpoints."""
 
 from ..config.poca_cfg import POCAConfig
 from .buffer import Rollout

@@ -1,4 +1,5 @@
-"""Seed-parallel POCA training: several seeds in one process on one card.
+"""Seed-parallel POCA training: several seeds in one process, on one card
+or spread over the devices of that process.
 
 Counterpart of ``swarmacb_tpu/agents/seed_parallel.py``, the reference's
 10-seed SLURM array run (``#SBATCH --array=0-9``) as one program.
@@ -22,6 +23,12 @@ read them), per-seed episode accounting (each lane's), and a per-seed
 divergence guard: a lane with a non-finite loss is quarantined and no
 longer stepped while the others train on.
 
+A seed mesh (``mesh=``, a list of devices) spreads the lanes over the
+devices of this one process, S / devices lanes a device, each lane with an
+env of its own on its device; the lanes share nothing, so no collective
+runs (JAX seed_parallel.py:70-93). A lane's cap then counts the lanes of
+its device, the JAX ``lanes_per_dev`` rule.
+
 Intended divergences from the JAX trainer (ROADMAP.md §3): the summary and
 checkpoint cadence resumes from the restored step, and ``try_resume``
 falls back to a ``poca_final`` step all seeds share (``ADVICE.md``); the
@@ -36,8 +43,10 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch.distributed as dist
 
 from ..config.poca_cfg import POCAConfig
+from ..device import resolve_device
 from ..env.directional_gate import DirectionalGateEnv
 from .checkpoint import METADATA_FILE
 from .trainer import POCATrainer
@@ -63,11 +72,10 @@ class SeedParallelTrainer:
     def __init__(self, env: DirectionalGateEnv, cfg: Optional[POCAConfig],
                  seeds: Sequence[int], writers: Optional[Sequence] = None, mesh=None):
         """``writers``: one summary writer per seed (an entry may be None),
-        or None. ``mesh``: a seed axis over several devices, not ported
-        (ROADMAP.md §1 item 13); anything but None raises."""
-        if mesh is not None:
-            raise NotImplementedError("a seed mesh over several devices is not "
-                                      "ported yet (ROADMAP.md §1 item 13)")
+        or None. ``mesh``: a list of devices of this process to spread the
+        lanes over (lane i on device i // (S / devices)); S % devices ≠ 0,
+        and a run of more than one process, are refused (JAX
+        seed_parallel.py:70-78)."""
         cfg = cfg or POCAConfig()
         self.seeds = [int(s) for s in seeds]
         if not self.seeds:
@@ -78,9 +86,23 @@ class SeedParallelTrainer:
         self.writers = list(writers) if writers is not None else None
         if self.writers is not None and len(self.writers) != self.S:
             raise ValueError("need one writer per seed (or None)")
-        chunk = lane_chunk_cap(cfg.accum_chunk_groups, self.S)
+        devices = [env.device] if mesh is None else [resolve_device(d) for d in mesh]
+        if mesh is not None:
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                raise ValueError("a seed mesh is one process over its devices; this run "
+                                 f"has {dist.get_world_size()} processes")
+            if not devices or self.S % len(devices):
+                raise ValueError(f"{self.S} seeds not divisible over {len(devices)} devices")
+        self.devices = devices
+        per_device = self.S // len(devices)
+        envs = {}                      # one env a device: the env carries its device
+        for d in devices:
+            envs.setdefault(d, env if env.device == d else
+                            DirectionalGateEnv(env.cfg, device=d))
+        chunk = lane_chunk_cap(cfg.accum_chunk_groups, per_device)
         self.lanes = [
-            POCATrainer(env, dataclasses.replace(cfg, seed=s, accum_chunk_groups=chunk),
+            POCATrainer(envs[devices[i // per_device]],
+                        dataclasses.replace(cfg, seed=s, accum_chunk_groups=chunk),
                         writer=None if self.writers is None else self.writers[i])
             for i, s in enumerate(self.seeds)]
         base = self.lanes[0]
@@ -133,7 +155,7 @@ class SeedParallelTrainer:
     def _reset_all(self):
         """Each lane's env reset from its own generator and its actor's
         initial carry, as ``POCATrainer.train`` starts: lists of S."""
-        env_states, obs = zip(*(self.env.reset(lane.generator) for lane in self.lanes))
+        env_states, obs = zip(*(lane.env.reset(lane.generator) for lane in self.lanes))
         carries = [lane.init_actor_carry() for lane in self.lanes]
         return list(env_states), list(obs), carries
 

@@ -1,5 +1,5 @@
 """POCA trainer — counterpart of ``swarmacb_tpu/agents/trainer.py``
-(feedforward and recurrent actors, single device).
+(feedforward and recurrent actors, one device or data-parallel ranks).
 
 Acting: one decision (``_rollout_fn`` in the JAX package, trainer.py:269-366)
 samples the actor (Gaussian wheels for dandelion, a categorical over the 6
@@ -24,6 +24,19 @@ feedforward actor's carry is the empty tuple.
 With ``mixed_precision`` the critic's attention projections named in
 ``mp_stages`` take bfloat16 operands (JAX trainer.py:133-134); the
 parameters, the gradients and Adam stay float32.
+
+With a ``mesh`` (``swarmacb_torch.parallel``) the trainer is one rank of a
+data-parallel run, the JAX mesh program's semantics (trainer.py:651-683,
+721-722, 756-784, 1168-1191): its env is a shard of E / world arenas that
+draws its columns of the global draws, so the ranks' rollout is the
+one-process rollout; every rank holds the same weights (checked once), the
+advantage moments are taken over all ranks, each minibatch's gradient and
+losses are averaged over the ranks before Adam steps (one all-reduce of
+one flat buffer), each rank takes ``group_mb // world`` groups of its own
+permutation (the ``world`` permutations drawn in step from the shared
+generator, rank r keeping the r-th), and the schedules and ``global_step``
+count all ranks' decisions. Episode statistics stay on each rank; rank 0
+alone writes summaries and checkpoints.
 Algorithm parity with ML-Agents POCA:
 
   - counterfactual baselines from the critic every step (poca_trainer.py:449-455)
@@ -94,14 +107,29 @@ class POCATrainer:
     STATE_DIM = 5  # critic consumes the 5-D polar state (poca_trainer.py:224-227)
 
     def __init__(self, env: DirectionalGateEnv, cfg: Optional[POCAConfig] = None,
-                 writer=None):
+                 writer=None, mesh=None):
+        """``mesh``: a ``parallel.Mesh`` whose rank this trainer is; ``env``
+        must then be the rank's shard (``mesh.shard_range``)."""
         self.env = env
         self.cfg = cfg or POCAConfig()
         c = self.cfg
         check_mp_stages(c.mp_stages)
         self.device = env.device
         check_card_widths(self.device, env.num_agents, c)
-        self.num_envs = env.num_envs
+        self.mesh = mesh
+        self.world = 1 if mesh is None else mesh.world
+        self.rank = 0 if mesh is None else mesh.rank
+        self.is_main = self.rank == 0
+        self.num_envs = env.num_envs                  # this rank's arenas
+        self.num_envs_global = env.shard[1]
+        if mesh is not None and (env.shard[0], env.shard[0] + env.num_envs) != \
+                mesh.shard_range(self.num_envs_global):
+            raise ValueError(f"the env holds arenas {env.shard[0]}.."
+                             f"{env.shard[0] + env.num_envs} of {self.num_envs_global}; "
+                             f"rank {mesh.rank} of {mesh.world} holds "
+                             f"{mesh.shard_range(self.num_envs_global)}")
+        if mesh is None and self.num_envs_global != self.num_envs:
+            raise ValueError("an env that is one rank's shard needs the mesh")
         self.num_agents = env.num_agents
         self.obs_dim = env.obs_dim
         self.discrete = env.cfg.discrete_actions
@@ -140,6 +168,9 @@ class POCATrainer:
                 mp_stages=c.mp_stages,
             )
         self.init_params_for_seed(c.seed)
+        if mesh is not None:
+            mesh.check_replicated([*self.actor.parameters(), *self.critic.parameters()],
+                                  "the initial weights")
 
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(c.seed)
@@ -158,8 +189,8 @@ class POCATrainer:
         self.beta_schedule = losses.make_schedule(c.beta_schedule, c.beta,
                                                   losses.BETA_MIN, c.total_timesteps)
 
-        # minibatch derivation (poca_trainer.py:663-674)
-        T_E = c.horizon * self.num_envs
+        # minibatch derivation (poca_trainer.py:663-674), over all ranks
+        T_E = c.horizon * self.num_envs_global
         if c.buffer_size_hint > 0 and c.mini_batch_size > 0:
             bpe = max(1, c.buffer_size_hint // c.mini_batch_size)
             self.group_mb = max(1, T_E // bpe)
@@ -229,15 +260,23 @@ class POCATrainer:
         poca_trainer.py:457-467)."""
         E, N = self.num_envs, self.num_agents
         dist, carry = self._apply_actor(obs.reshape(E * N, self.obs_dim), carry)
+        gen, dev = self.generator, self.device
         if self.discrete:
-            act_flat = DiscreteActor.sample(dist, noise=noise,
-                                            generator=self.generator)
+            if noise is None:
+                noise = DiscreteActor.gumbel(self.env.draw(
+                    lambda s: torch.rand(s, generator=gen, device=dev, dtype=dist.dtype),
+                    dist.shape, dim=0, per=N))
+            act_flat = DiscreteActor.sample(dist, noise=noise)
             logp_flat = DiscreteActor.log_prob(dist, act_flat)
             actions = act_flat.reshape(E, N, 1).to(torch.float32)
             return (actions, logp_flat.reshape(E, N, 1),
                     act_flat.reshape(E, N).to(torch.int32), carry)
         mu, std = dist
-        act_flat = Actor.sample(mu, std, noise=noise, generator=self.generator)
+        if noise is None:
+            noise = self.env.draw(
+                lambda s: torch.randn(s, generator=gen, device=dev, dtype=mu.dtype),
+                mu.shape, dim=0, per=N)
+        act_flat = Actor.sample(mu, std, noise=noise)
         logp_flat = Actor.log_prob(mu, std, act_flat)
         actions = act_flat.reshape(E, N, self.act_dim)
         return (actions, logp_flat.reshape(E, N, self.act_dim),
@@ -359,7 +398,8 @@ class POCATrainer:
         self._accumulate_episode_stats({"rewards": rollout.rewards,
                                         "dones": rollout.dones,
                                         "completed_group": aux[2]})
-        self.global_step += rollout.rewards.shape[0] * self.num_envs * self.num_agents
+        self.global_step += (rollout.rewards.shape[0] * self.num_envs_global
+                             * self.num_agents)
         return env_state, obs, actor_carry, rollout, bootstrap, aux
 
     def _accumulate_episode_stats(self, stats):
@@ -525,11 +565,39 @@ class POCATrainer:
         return total_v, aux_v
 
     def _sgd_step(self, batch, eps, beta, loss_fn, groups_per_row: int = 1):
-        """One Adam step on one minibatch; returns its aux (4,)."""
+        """One Adam step on one minibatch; returns its aux (4,). Under a
+        mesh the gradients and the aux are first averaged over the ranks
+        (JAX ``_sgd_step``'s ``pmean``): each rank's loss is the mean over
+        its share of the minibatch, so the mean is the global minibatch's
+        gradient."""
         self.optimizer.zero_grad(set_to_none=True)
         _, aux = self._accumulate_grads(batch, eps, beta, loss_fn, groups_per_row)
+        if self.mesh is not None:
+            grads = [p.grad for p in self.optimizer.param_groups[0]["params"]
+                     if p.grad is not None]
+            self.mesh.all_reduce_mean_([*grads, aux])
         self.optimizer.step()
         return aux
+
+    def _pmean(self, x):
+        """A tensor's mean over the ranks (itself without a mesh)."""
+        if self.mesh is not None:
+            x = x.clone()
+            self.mesh.all_reduce_mean_([x])
+        return x
+
+    def _normalize_advantages(self, advantages):
+        """Mean 0 and std 1 over the whole buffer with Bessel's correction
+        (``buffer.normalize_advantages``); over several ranks the moments
+        are taken over all of them (JAX trainer.py:664-675): the mean, then
+        the squared sum, var = sq·world / (n_global − 1)."""
+        if self.world == 1:
+            return buf.normalize_advantages(advantages)
+        n_global = advantages.numel() * self.world
+        mean = self._pmean(advantages.mean())
+        sq = self._pmean(((advantages - mean) ** 2).sum())
+        var = sq * self.world / (n_global - 1)
+        return (advantages - mean) / (torch.sqrt(var) + 1e-10)
 
     @staticmethod
     def _flatten_buffer(rollout: Rollout, returns, advantages) -> dict:
@@ -600,14 +668,19 @@ class POCATrainer:
 
     def _minibatch_rows(self, rows: int, groups_per_row: int = 1) -> int:
         """Rows of a minibatch drawn from ``rows`` rows of ``groups_per_row``
-        groups each: ``group_mb`` groups' worth, at least one row
-        (trainer.py:1015-1016)."""
-        return min(max(1, self.group_mb // groups_per_row), rows)
+        groups each: this rank's share of ``group_mb`` groups, at least one
+        row (trainer.py:721-722, 1015-1016)."""
+        return min(max(1, (self.group_mb // self.world) // groups_per_row), rows)
 
     def _permutation(self, n: int, injected):
-        if injected is None:
-            return torch.randperm(n, generator=self.generator, device=self.device)
-        return injected.to(self.device)
+        """This rank's permutation of ``n`` rows: ``world`` permutations
+        drawn from the shared generator, which stays in step on every rank,
+        and the rank's own kept (one rank draws one)."""
+        if injected is not None:
+            return injected.to(self.device)
+        perms = [torch.randperm(n, generator=self.generator, device=self.device)
+                 for _ in range(self.world)]
+        return perms[self.rank]
 
     def _update(self, rollout: Rollout, bootstrap, lr, eps, beta,
                 injected_perms=None):
@@ -621,7 +694,7 @@ class POCATrainer:
         c = self.cfg
         returns, advantages = buf.compute_advantages(rollout, bootstrap,
                                                      c.gamma, c.lam)
-        advantages = buf.normalize_advantages(advantages)
+        advantages = self._normalize_advantages(advantages)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
 
@@ -651,7 +724,7 @@ class POCATrainer:
         metrics = aux_sum / n_batches
         return {"policy_loss": metrics[0], "value_loss": metrics[1],
                 "baseline_loss": metrics[2], "entropy": metrics[3],
-                "mean_abs_advantage": advantages.abs().mean()}
+                "mean_abs_advantage": self._pmean(advantages.abs().mean())}
 
     # ──────────────────────────────────────────────────────────────
     #  outer loop
@@ -660,7 +733,7 @@ class POCATrainer:
     def _schedules(self):
         # the reference evaluates schedules AFTER the rollout advanced
         # global_step (poca_trainer.py:372-382,525)
-        s = self.global_step + self.cfg.horizon * self.num_envs * self.num_agents
+        s = self.global_step + self.cfg.horizon * self.num_envs_global * self.num_agents
         return (float(self.lr_schedule(s)), float(self.eps_schedule(s)),
                 float(self.beta_schedule(s)))
 
@@ -678,7 +751,7 @@ class POCATrainer:
         rewards = rollout.rewards.cpu().numpy()
         host["mean_rollout_reward"] = float(rewards.sum(0).mean())
         host["mean_step_reward"] = float(rewards.mean())
-        host["mean_team_value"] = float(rollout.team_values.mean())
+        host["mean_team_value"] = float(self._pmean(rollout.team_values.mean()))
         self._rollout_reward_history.append(host["mean_rollout_reward"])
         if len(self._rollout_reward_history) > self._max_history:
             self._rollout_reward_history.pop(0)
@@ -705,7 +778,10 @@ class POCATrainer:
         The summary and checkpoint cadence continues from the trainer's
         step, so a resumed run saves at the next multiple of the interval;
         the JAX loop restarts both at one interval (ROADMAP.md §3, intended
-        divergences). On a fresh run both give the same steps."""
+        divergences). On a fresh run both give the same steps. Under a mesh
+        only rank 0 writes summaries and checkpoints; the losses are
+        averaged over the ranks, so every rank stops at the same non-finite
+        one, and no rank waits for another there."""
         c = self.cfg
         env_state, obs = self.env.reset(self.generator)
         actor_carry = self.init_actor_carry()
@@ -713,7 +789,7 @@ class POCATrainer:
         next_checkpoint = ((self.global_step // c.checkpoint_interval + 1)
                            * c.checkpoint_interval)
         start = time.time()
-        decisions = c.horizon * self.num_envs * self.num_agents
+        decisions = c.horizon * self.num_envs_global * self.num_agents
         # optional trace of iterations 2-4 (skip the warm-up of the first)
         profile_dir, prof = self.profile_dir, None
         iteration = 0
@@ -732,7 +808,7 @@ class POCATrainer:
             elapsed = time.time() - start
             sps = self.global_step / elapsed if elapsed > 0 else 0.0
             sps_inst = decisions / iter_dt if iter_dt > 0 else 0.0
-            if progress:
+            if progress and self.is_main:
                 print(f"[POCA] step={self.global_step:,} upd={self.update_count} "
                       f"pg={m['policy_loss']:.3f} vf={m['value_loss']:.3f} "
                       f"bl={m['baseline_loss']:.3f} ent={m['entropy']:.3f} "
@@ -743,7 +819,7 @@ class POCATrainer:
                    if not np.isfinite(m[k])]
             if bad:
                 msg = f"non-finite {bad} at step {self.global_step:,} — diverged"
-                if checkpointer is not None:
+                if checkpointer is not None and self.is_main:
                     # kept for post-mortem, never resumed from
                     path = checkpointer.save(self, quarantine=True)
                     msg += (f"; diverged params quarantined at {path}, "
@@ -752,20 +828,21 @@ class POCATrainer:
                     self._stop_profiler(prof, profile_dir)
                 raise FloatingPointError(msg)
 
-            if self.writer is not None and self.global_step >= next_summary:
+            if self.writer is not None and self.is_main and self.global_step >= next_summary:
                 next_summary += c.summary_freq
                 self._write_summaries(m, sps)
 
-            if checkpointer is not None and self.global_step >= next_checkpoint:
+            if (checkpointer is not None and self.is_main
+                    and self.global_step >= next_checkpoint):
                 next_checkpoint += c.checkpoint_interval
                 checkpointer.save(self)
 
         if prof is not None:
             # the run ended before iteration 4: write what was traced
             self._stop_profiler(prof, profile_dir)
-        if checkpointer is not None:
+        if checkpointer is not None and self.is_main:
             checkpointer.save(self, final=True)
-        if self.writer is not None:
+        if self.writer is not None and self.is_main:
             self.writer.flush()
         return env_state, obs
 

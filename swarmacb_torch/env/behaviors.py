@@ -189,25 +189,21 @@ def dispatch(
     prox_value, prox_angle,
     light_value, light_angle,
     rab_vec_x, rab_vec_y,
-    generator,           # torch.Generator for turn durations (or None with injected)
+    durations,           # dict {explore, photo, antiphoto}: (E, N) int32 in {1..4}
     max_speed: float,
     alpha_parameter: float,
     prox_threshold: float = 0.1,
-    injected_durations=None,  # optional dict {explore, photo, antiphoto}: (E,N) int32
 ):
     """Run all 6 behaviour modules densely and select per-robot wheels.
 
     Replaces the reference's masked Python dispatch loop
-    (behavior_modules.py:177-233). Returns (left, right, new_state).
+    (behavior_modules.py:177-233). The turn durations a triggered machine
+    latches are drawn by the caller (``DirectionalGateEnv.step``, with
+    ``draw_durations``). Returns (left, right, new_state).
     """
-    if injected_durations is None:
-        shape, dev = module_ids.shape, module_ids.device
-        dur_e, dur_p, dur_a = (draw_durations(generator, shape, dev)
-                               for _ in range(3))
-    else:
-        dur_e = injected_durations["explore"]
-        dur_p = injected_durations["photo"]
-        dur_a = injected_durations["antiphoto"]
+    dur_e = durations["explore"]
+    dur_p = durations["photo"]
+    dur_a = durations["antiphoto"]
 
     active0 = module_ids == EXPLORATION
     active2 = module_ids == PHOTOTAXIS

@@ -40,8 +40,15 @@ import torch
 from ..config.env_cfg import DirectionalGateEnvCfg
 from ..device import resolve_device
 from .. import ops
+from ..parallel.mesh import draw_local
 from . import behaviors, geometry, physics, sensors
 from .state import BehaviorState, EnvState, TimeStep
+
+
+def _padded(E: int) -> int:
+    """Arenas padded to whole lanes tiles (``env/lanes.py``)."""
+    lanes = ops.fused_step.LANES
+    return ((E + lanes - 1) // lanes) * lanes
 
 
 class DirectionalGateEnv:
@@ -49,11 +56,18 @@ class DirectionalGateEnv:
     functions of (state, actions) that return new states.
 
     ``device`` defaults to the card; pass ``device="cpu"`` to run on the CPU.
+    ``shard=(lo, E_global)`` makes it one rank's share of a data-parallel
+    run: ``cfg.num_envs`` arenas from arena ``lo`` of ``E_global``, whose
+    random draws are those arenas' columns of the global draws (``draw``).
     """
 
-    def __init__(self, cfg: DirectionalGateEnvCfg, device=None):
+    def __init__(self, cfg: DirectionalGateEnvCfg, device=None, shard=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.shard = (0, cfg.num_envs) if shard is None else tuple(shard)
+        lo, total = self.shard
+        if not 0 <= lo <= total - cfg.num_envs:
+            raise ValueError(f"shard {self.shard} does not hold {cfg.num_envs} arenas")
         arena = geometry.wall_segments(cfg.arena_circumradius, cfg.arena_num_sides)
         gate = geometry.gate_wall_segments(
             cfg.corridor_width, cfg.gate_south_y, cfg.side_wall_length
@@ -88,17 +102,37 @@ class DirectionalGateEnv:
     def obs_dim(self) -> int:
         return self.cfg.obs_dim
 
+    # ── random draws ──────────────────────────────────────────────
+    def draw(self, draw, shape, dim: int, per: int = 1, lanes: bool = False):
+        """``draw(s)`` under the draw rule of a data-parallel run
+        (``parallel.draw_local``): ``shape[dim]`` holds this env's arenas,
+        ``per`` entries each, and the global draw holds all ``E_global``.
+        With ``lanes``, ``dim`` is the last one and holds the lanes layout's
+        padded width: the draw spans the padded global width, and this
+        env's arenas are kept and padded again. An env that is not a shard
+        draws ``draw(shape)``."""
+        lo, total = self.shard
+        E = self.num_envs
+        if total == E:
+            return draw(tuple(shape))
+        if not lanes:
+            return draw_local(draw, shape, dim, lo * per, total * per)
+        local = tuple(shape[:-1]) + (E,)
+        x = draw_local(draw, local, len(local) - 1, lo, _padded(total))
+        return torch.nn.functional.pad(x, (0, shape[-1] - E))
+
     # ── reset ─────────────────────────────────────────────────────
-    def _sample_spawn(self, generator: torch.Generator, shape):
-        """Uniform-in-disc positions + uniform yaw.
+    def _sample_spawn(self, generator: torch.Generator, shape, lanes: bool = False):
+        """Uniform-in-disc positions + uniform yaw, for (E, N) robots, or
+        with ``lanes`` for the (N, Ep) lanes layout.
 
         Matches directional_gate_env.py:773-783: radius √u · (inradius − 2r),
         angle uniform in [0, 2π), yaw uniform in [−π, π).
         """
         cfg = self.cfg
         safe_r = cfg.inradius - cfg.robot_radius * 2
-        u = torch.rand((3,) + tuple(shape), generator=generator,
-                       device=self.device)
+        u = self.draw(lambda s: torch.rand(s, generator=generator, device=self.device),
+                      (3,) + tuple(shape), dim=2 if lanes else 1, lanes=lanes)
         r = torch.sqrt(u[0]) * safe_r
         theta = u[1] * 2 * math.pi
         yaw = u[2] * 2 * math.pi - math.pi
@@ -209,14 +243,19 @@ class DirectionalGateEnv:
 
         if cfg.discrete_actions:
             module_ids = actions.reshape(state.yaw.shape).to(torch.int32)
+            if injected_durations is None:
+                # the explore, photo and antiphoto draws, in that order
+                injected_durations = {n: self.draw(
+                    lambda s: behaviors.draw_durations(state.generator, s, self.device),
+                    module_ids.shape, dim=0) for n in ("explore", "photo", "antiphoto")}
             sensor_cache = self._compute_sensor_block(state.pos, state.yaw)
             left, right, bstate = behaviors.dispatch(
                 module_ids, bstate,
                 sensor_cache["prox_value"], sensor_cache["prox_angle"],
                 sensor_cache["light_value"], sensor_cache["light_angle"],
                 sensor_cache["rab_x"], sensor_cache["rab_y"],
-                state.generator, cfg.max_wheel_speed, cfg.alpha_parameter,
-                cfg.prox_threshold, injected_durations,
+                injected_durations, cfg.max_wheel_speed, cfg.alpha_parameter,
+                cfg.prox_threshold,
             )
         else:
             # Dandelion: clamp [−1,1] then scale (directional_gate_env.py:512-525)

@@ -19,14 +19,11 @@ from __future__ import annotations
 import torch
 
 from .. import ops
-from ..ops.fused_step import LANES, MACHINE_TILES
+from ..ops.fused_step import MACHINE_TILES
 from . import sensors
 from .behaviors import draw_durations
+from .directional_gate import _padded
 from .state import BehaviorState, EnvState
-
-
-def _padded(E: int) -> int:
-    return ((E + LANES - 1) // LANES) * LANES
 
 
 def to_lanes(x, num_envs: int):
@@ -151,7 +148,8 @@ def step_lanes(env, lanes: dict, actions, *, want_obs: bool = True,
 
     if cfg.discrete_actions:
         if injected_durations is None:
-            draws = tuple(draw_durations(gen, (N, Ep), dev) for _ in range(3))
+            draws = tuple(env.draw(lambda s: draw_durations(gen, s, dev), (N, Ep), dim=1,
+                                   lanes=True) for _ in range(3))
         else:
             draws = tuple(to_lanes(injected_durations[n], E)
                           for n in ("explore", "photo", "antiphoto"))
@@ -163,7 +161,7 @@ def step_lanes(env, lanes: dict, actions, *, want_obs: bool = True,
                    torch.clamp(right, -1.0, 1.0) * ms)
 
     if injected_spawn is None:
-        spos, syaw = env._sample_spawn(gen, (N, Ep))
+        spos, syaw = env._sample_spawn(gen, (N, Ep), lanes=True)
         spawn = (spos[..., 0].contiguous(), spos[..., 1].contiguous(), syaw)
     else:
         spos, syaw = injected_spawn

@@ -23,9 +23,10 @@ def available_tasks() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def make_env(task_id: str, cfg=None, device=None, **cfg_overrides):
+def make_env(task_id: str, cfg=None, device=None, shard=None, **cfg_overrides):
     """Instantiate an env by task id on ``device`` (default: the card),
-    optionally overriding config fields."""
+    optionally overriding config fields; ``shard`` as in
+    ``DirectionalGateEnv``."""
     if task_id not in _REGISTRY:
         raise KeyError(f"Unknown task {task_id!r}; available: {available_tasks()}")
     env_cls, cfg_cls = _REGISTRY[task_id]
@@ -33,4 +34,4 @@ def make_env(task_id: str, cfg=None, device=None, **cfg_overrides):
         cfg = cfg_cls()
     if cfg_overrides:
         cfg = cfg.replace(**cfg_overrides)
-    return env_cls(cfg, device=device)
+    return env_cls(cfg, device=device, shard=shard)

@@ -167,11 +167,17 @@ class DiscreteActor(nn.Module):
         argmax(logits + g) with g given (``noise``) or standard Gumbel
         draws −log(−log u), u uniform in [tiny, 1), from ``generator``."""
         if noise is None:
-            tiny = torch.finfo(logits.dtype).tiny
-            u = torch.rand(logits.shape, generator=generator,
-                           device=logits.device, dtype=logits.dtype)
-            noise = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+            noise = DiscreteActor.gumbel(torch.rand(
+                logits.shape, generator=generator, device=logits.device,
+                dtype=logits.dtype))
         return torch.argmax(logits + noise, dim=-1)
+
+    @staticmethod
+    def gumbel(u):
+        """Standard Gumbel draws −log(−log u) from uniforms u in [0, 1),
+        u raised to the dtype's tiny."""
+        tiny = torch.finfo(u.dtype).tiny
+        return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
 
 
 class LSTMCell(nn.Module):

@@ -184,13 +184,16 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code (cudaGetLastError)."""
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
-
-
-def stream_ptr(t) -> int:
+def launch(t, what: str, entry, *args) -> None:
+    """Call the C entry point ``entry(*args, stream)`` on the current
+    stream of ``t``'s card, with that card made the current device, and
+    raise if the launch returned a CUDA error code (cudaGetLastError). A
+    ``<<<>>>`` launch goes to the current device, which refuses a stream of
+    another card: a tensor on ``cuda:1`` (a seed lane of a seed mesh) needs
+    the guard while the process's current device is ``cuda:0``."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    with torch.cuda.device(t.device):
+        err = entry(*args, torch.cuda.current_stream(t.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")

@@ -198,9 +198,8 @@ def _forward_kernel(args, N):
     """K3f: pooled (B, N, h)."""
     B, H, h = _check(args, N)
     out = torch.empty((B, N, h), dtype=torch.float32, device=args[0].device)
-    err = _cuda.library("tail_forward").tail_forward_launch(
-        *_ptrs(args), out.data_ptr(), B, N, H, h, _cuda.stream_ptr(args[0]))
-    _cuda.check(err, "fused_tail")
+    _cuda.launch(args[0], "fused_tail", _cuda.library("tail_forward").tail_forward_launch,
+                 *_ptrs(args), out.data_ptr(), B, N, H, h)
     _cuda.launches["fused_tail"] += 1
     return out
 
@@ -226,20 +225,17 @@ def _stage_calls(args, dout, N, B, H, h):
     shape = (B, N, H, h)
 
     def rows():
-        _cuda.check(lib.tail_bwd_rows_launch(
-            *_ptrs(args), dout.data_ptr(),
-            *_ptrs((d_fc, d_attn_mI, d_dws, d_delta)), *shape,
-            _cuda.stream_ptr(dout)), "fused_tail backward, stage 1 (rows)")
+        _cuda.launch(dout, "fused_tail backward, stage 1 (rows)", lib.tail_bwd_rows_launch,
+                     *_ptrs(args), dout.data_ptr(),
+                     *_ptrs((d_fc, d_attn_mI, d_dws, d_delta)), *shape)
 
     def wa_product():
-        _cuda.check(lib.tail_bwd_wa_launch(
-            *_ptrs((attn_lhs, d_fc, d_wa, d_xa, d_bias, bias_part)), *shape,
-            _cuda.stream_ptr(dout)), "fused_tail backward, stage 2 (d_wa)")
+        _cuda.launch(dout, "fused_tail backward, stage 2 (d_wa)", lib.tail_bwd_wa_launch,
+                     *_ptrs((attn_lhs, d_fc, d_wa, d_xa, d_bias, bias_part)), *shape)
 
     def attn_product():
-        _cuda.check(lib.tail_bwd_attn_launch(
-            *_ptrs((d_fc, wa, d_attn_lhs)), *shape,
-            _cuda.stream_ptr(dout)), "fused_tail backward, stage 3 (d_attn_lhs)")
+        _cuda.launch(dout, "fused_tail backward, stage 3 (d_attn_lhs)",
+                     lib.tail_bwd_attn_launch, *_ptrs((d_fc, wa, d_attn_lhs)), *shape)
 
     return d_fc, grads, (rows, wa_product, attn_product)
 

@@ -268,9 +268,8 @@ def _base_stage(lib, args, terms, base, shape, sqrt_d, what):
     S_aa, S_as, S_sa, S_ss, wa = args[:5]
 
     def launch():
-        _cuda.check(lib.cf_bwd_base_launch(
-            *_ptrs((S_aa, S_as, S_sa, S_ss, wa, terms, base)), *shape, sqrt_d,
-            _cuda.stream_ptr(wa)), f"fused_cf_attention {what}, stage 0 (base)")
+        _cuda.launch(wa, f"fused_cf_attention {what}, stage 0 (base)", lib.cf_bwd_base_launch,
+                     *_ptrs((S_aa, S_as, S_sa, S_ss, wa, terms, base)), *shape, sqrt_d)
     return launch
 
 
@@ -294,9 +293,8 @@ def _forward_stage_calls(args, d, B, N, H, h):
     shape = (B, N, H, h)
 
     def rows():
-        _cuda.check(lib.cf_fwd_rows_launch(
-            *_ptrs((terms, base, wa, dws, x_a, delta, bias, pooled)), *shape,
-            _cuda.stream_ptr(wa)), "fused_cf_attention forward, stage 1 (rows)")
+        _cuda.launch(wa, "fused_cf_attention forward, stage 1 (rows)", lib.cf_fwd_rows_launch,
+                     *_ptrs((terms, base, wa, dws, x_a, delta, bias, pooled)), *shape)
 
     return scratch, pooled, (_base_stage(lib, args, terms, base, shape, math.sqrt(d),
                                          "forward"), rows)
@@ -344,21 +342,21 @@ def _stage_calls(args, dout, d, B, N, H, h):
     shape, sqrt_d = (B, N, H, h), math.sqrt(d)
 
     def rows():
-        _cuda.check(lib.cf_bwd_rows_launch(
-            *_ptrs((terms, base, wa, dws, x_a, delta, bias, dout, d_fc, dS_as, dS_ss,
-                    d_wa, d_dws, d_delta, d_scores)), *shape, sqrt_d,
-            _cuda.stream_ptr(dout)), "fused_cf_attention backward, stage 1 (rows)")
+        _cuda.launch(dout, "fused_cf_attention backward, stage 1 (rows)",
+                     lib.cf_bwd_rows_launch,
+                     *_ptrs((terms, base, wa, dws, x_a, delta, bias, dout, d_fc, dS_as,
+                             dS_ss, d_wa, d_dws, d_delta, d_scores)), *shape, sqrt_d)
 
     def sums():
-        _cuda.check(lib.cf_bwd_sums_launch(
-            *_ptrs((terms, d_fc, d_num, d_xa, bias_part, d_bias)), *shape,
-            _cuda.stream_ptr(dout)), "fused_cf_attention backward, stage 2 (sums)")
+        _cuda.launch(dout, "fused_cf_attention backward, stage 2 (sums)",
+                     lib.cf_bwd_sums_launch,
+                     *_ptrs((terms, d_fc, d_num, d_xa, bias_part, d_bias)), *shape)
 
     def products():
-        _cuda.check(lib.cf_bwd_products_launch(
-            *_ptrs((terms, wa, d_num, d_delta, d_scores, dS_aa, dS_sa, d_wa)), *shape,
-            sqrt_d, _cuda.stream_ptr(dout)),
-            "fused_cf_attention backward, stage 3 (products)")
+        _cuda.launch(dout, "fused_cf_attention backward, stage 3 (products)",
+                     lib.cf_bwd_products_launch,
+                     *_ptrs((terms, wa, d_num, d_delta, d_scores, dS_aa, dS_sa, d_wa)),
+                     *shape, sqrt_d)
 
     return scratch, grads, (_base_stage(lib, args, terms, base, shape, sqrt_d, "backward"),
                             rows, sums, products)

@@ -501,11 +501,10 @@ def _launch(lanes, actions, draws, spawn, cfg, want_obs):
     k = constants(cfg)
     table = k.table
     lib = _cuda.library("fused_step")
-    err = lib.fused_step_launch(
-        ctypes.cast(ptrs, ctypes.c_void_p), table.ctypes.data, table.size,
-        len(k.segments), len(k.faces), Ep, N, int(discrete), int(obs24),
-        int(want_obs), k.max_episode_length, _cuda.stream_ptr(lanes["px"]))
-    _cuda.check(err, "fused_env_step")
+    _cuda.launch(lanes["px"], "fused_env_step", lib.fused_step_launch,
+                 ctypes.cast(ptrs, ctypes.c_void_p), table.ctypes.data, table.size,
+                 len(k.segments), len(k.faces), Ep, N, int(discrete), int(obs24),
+                 int(want_obs), k.max_episode_length)
     _cuda.launches["fused_env_step"] += 1
     new = {n: out[f"o_{n}"] for n in ("px", "py", "yaw", "prev", "sc", "er", "cg")}
     if discrete:

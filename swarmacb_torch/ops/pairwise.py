@@ -121,13 +121,11 @@ def pairwise_sensors(pos, yaw, *, prox_range, robot_radius, rab_range,
     attr_x = torch.empty((E, N), dtype=torch.float32, device=pos.device)
     attr_y = torch.empty((E, N), dtype=torch.float32, device=pos.device)
     lib = _cuda.library("pairwise")
-    err = lib.pairwise_sensors_launch(
-        pos.data_ptr(), yaw.data_ptr(), consts.data_ptr(), S,
-        prox.data_ptr(), ztilde.data_ptr(), rab_proj.data_ptr(),
-        attr_x.data_ptr(), attr_y.data_ptr(), E, N, float(prox_range),
-        float(prox_range + robot_radius), float(rab_range), float(alpha_rab),
-        _cuda.stream_ptr(pos))
-    _cuda.check(err, "pairwise_sensors")
+    _cuda.launch(pos, "pairwise_sensors", lib.pairwise_sensors_launch,
+                 pos.data_ptr(), yaw.data_ptr(), consts.data_ptr(), S,
+                 prox.data_ptr(), ztilde.data_ptr(), rab_proj.data_ptr(),
+                 attr_x.data_ptr(), attr_y.data_ptr(), E, N, float(prox_range),
+                 float(prox_range + robot_radius), float(rab_range), float(alpha_rab))
     _cuda.launches["pairwise_sensors"] += 1
     return prox, ztilde, rab_proj, attr_x, attr_y
 
@@ -160,9 +158,8 @@ def resolve_robot_collisions(pos, robot_radius):
                          "(the kernel loads each robot as one float2)")
     out = torch.empty_like(pos)
     lib = _cuda.library("pairwise")
-    err = lib.robot_collisions_launch(
-        pos.data_ptr(), out.data_ptr(), E, N, float(2.0 * robot_radius),
-        collision_skip_d2(robot_radius), _cuda.stream_ptr(pos))
-    _cuda.check(err, "resolve_robot_collisions")
+    _cuda.launch(pos, "resolve_robot_collisions", lib.robot_collisions_launch,
+                 pos.data_ptr(), out.data_ptr(), E, N, float(2.0 * robot_radius),
+                 collision_skip_d2(robot_radius))
     _cuda.launches["resolve_robot_collisions"] += 1
     return out

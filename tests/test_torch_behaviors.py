@@ -22,7 +22,8 @@ import torch
 from swarmacb_tpu.env import behaviors as jbeh
 from swarmacb_tpu.env.behaviors import BehaviorState as JaxBehaviorState
 
-from swarmacb_torch.env import behaviors
+from swarmacb_torch.config import DirectionalGateEnvCfg
+from swarmacb_torch.env import DirectionalGateEnv, behaviors
 from swarmacb_torch.env.state import BehaviorState
 
 E, N, STEPS = 4, 20, 12
@@ -109,9 +110,8 @@ def test_dispatch_matches_jax_on_identical_inputs(seed):
         dur["explore"].reshape(-1)[::3] = 1                  # duration 1
         before = ts
         left, right, ts = behaviors.dispatch(
-            torch.from_numpy(module_ids), ts, *map(torch.from_numpy, inputs), None,
-            MAX_SPEED, ALPHA, THR,
-            injected_durations={k: torch.from_numpy(v) for k, v in dur.items()})
+            torch.from_numpy(module_ids), ts, *map(torch.from_numpy, inputs),
+            {k: torch.from_numpy(v) for k, v in dur.items()}, MAX_SPEED, ALPHA, THR)
         jleft, jright, js = jdispatch(jnp.asarray(module_ids), js,
                                       *map(jnp.asarray, inputs),
                                       dur={k: jnp.asarray(v) for k, v in dur.items()})
@@ -160,21 +160,29 @@ def test_reset_where_matches_jax():
     assert not got.explore_state.numpy()[mask].any()
 
 
-def test_dispatch_draws_durations_from_the_generator():
-    """Without injected durations the draws come from the generator: the
-    same seed gives the same machines, and every draw lies in {1..4}."""
-    rng = np.random.default_rng(2)
-    module_ids = torch.zeros((E, N), dtype=torch.int32)
-    inputs = [torch.from_numpy(a) for a in _step_inputs(rng)]
-    inputs[0] = torch.full((E, N), 0.5)                   # obstacle everywhere
-    inputs[1] = torch.zeros((E, N))                       # straight ahead
-    outs = []
+def test_dispatch_draws_durations_from_the_generator(monkeypatch):
+    """The env step draws the durations that ``dispatch`` latches, from the
+    state's generator: explore, photo, antiphoto in that order, right after
+    the reset's draws; the same seed gives the same durations, each in
+    {1..4}."""
+    env = DirectionalGateEnv(DirectionalGateEnvCfg(variant="daisy", num_envs=E),
+                             device="cpu")
+    seen = []
+    real = behaviors.dispatch
+    monkeypatch.setattr(behaviors, "dispatch",
+                        lambda *a, **kw: seen.append(a[8]) or real(*a, **kw))
+    expected = []
     for _ in range(2):
-        g = torch.Generator().manual_seed(9)
-        outs.append(behaviors.dispatch(module_ids, BehaviorState.init(E, N, "cpu"),
-                                       *inputs, g, MAX_SPEED, ALPHA, THR)[2])
-    assert torch.equal(outs[0].explore_steps, outs[1].explore_steps)
-    # trigger then decrement: the latched duration minus one, in {0..3}
-    steps = outs[0].explore_steps
-    assert int(steps.min()) >= 0 and int(steps.max()) <= 3
-    assert len(torch.unique(steps)) > 1
+        state, _ = env.reset(torch.Generator().manual_seed(9))
+        g = torch.Generator()
+        g.set_state(state.generator.get_state())
+        expected.append([behaviors.draw_durations(g, (E, N), "cpu") for _ in range(3)])
+        env.step(state, torch.zeros((E, N), dtype=torch.int32))
+    for durations, want in zip(seen, expected):
+        assert list(durations) == ["explore", "photo", "antiphoto"]
+        for got, w in zip(durations.values(), want):
+            assert got.dtype == torch.int32 and tuple(got.shape) == (E, N)
+            assert torch.equal(got, w)
+            assert int(got.min()) >= 1 and int(got.max()) <= 4
+    assert all(torch.equal(a, b) for a, b in zip(seen[0].values(), seen[1].values()))
+    assert len(torch.unique(seen[0]["explore"])) > 1

@@ -219,12 +219,32 @@ def _no_env(*args, **kwargs):
     raise AssertionError("the env was built")
 
 
-@pytest.mark.parametrize("flags,message", [
-    (["--distributed"], "item 13"),
-    (["--data_parallel", "4"], "item 13"),
+@pytest.mark.parametrize("flags,world,cuda,message", [
+    (["--num_envs", "3", "--data_parallel", "2"], None, False,
+     "num_envs=3 not divisible by 2 ranks"),
+    (["--seeds", "0-2", "--data_parallel", "2"], None, False,
+     "3 seeds not divisible by 2 devices"),
+    (["--seeds", "0-1", "--distributed"], "2", False,
+     "--seeds with --distributed over several processes"),
+    (["--data_parallel", "2", "--distributed"], "1", False,
+     "--data_parallel 2 under --distributed: torchrun started 1 rank"),
+    (["--data_parallel", "2"], None, True, "--data_parallel 2: 1 GPU"),
 ])
-def test_unported_options_stop_before_the_env(train_torch, monkeypatch, flags, message):
+def test_unported_options_stop_before_the_env(train_torch, monkeypatch, flags, world, cuda,
+                                              message):
+    """The data-parallel options the port refuses stop the run before the
+    env is built or any rank starts: arenas (or, with ``--seeds``, seeds)
+    that do not divide over the ranks, ``--seeds`` over several
+    ``torchrun`` processes, a ``--data_parallel`` other than the world
+    ``torchrun`` started, and more ranks than visible GPUs on the card (no
+    card is needed to name one)."""
     monkeypatch.setattr(train_torch, "make_env", _no_env)
+    monkeypatch.setattr(train_torch, "make_mesh", _no_env)
+    if world is not None:
+        monkeypatch.setenv("WORLD_SIZE", world)
+    if cuda:
+        monkeypatch.setattr(train_torch, "resolve_device", lambda device: torch.device("cuda"))
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit, match=message):
         train_torch.main([*SMALL, *flags])
 
@@ -234,6 +254,7 @@ def test_unported_options_stop_before_the_env(train_torch, monkeypatch, flags, m
     (["--mp_stages", "qk"], False, "qk", None),
     (["--mixed_precision", "--mp_stages", "auto"], True, "qkvo", None),
     (["--seeds", "0-1"], False, "qkvo", [0, 1]),
+    (["--seeds", "0-1", "--data_parallel", "2"], False, "qkvo", [0, 1]),
 ])
 def test_ported_options_are_taken(train_torch, tmp_path, capsys, flags, mixed, stages, seeds):
     """``--mixed_precision``, ``--mp_stages`` (a subset of "qkvo", or the
@@ -260,6 +281,7 @@ def test_ported_options_are_taken(train_torch, tmp_path, capsys, flags, mixed, s
         assert all(bool(torch.isfinite(p).all()) for p in lane.critic.parameters())
     if seeds:
         assert isinstance(trainer, SeedParallelTrainer) and trainer.seeds == seeds
+        assert len(trainer.devices) == (2 if "--data_parallel" in flags else 1)
         assert trainer.alive.all()
         for s in seeds:
             assert (tmp_path / f"ckpt_seed{s}" / "poca_final" / "metadata.json").exists()

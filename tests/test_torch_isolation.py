@@ -29,7 +29,8 @@ PORT_FILES = (sorted((ROOT / "swarmacb_torch").rglob("*.py"))
                                                 "time_train_iteration.py",
                                                 "train_torch.py",
                                                 "play_torch.py",
-                                                "eval_checkpoints_torch.py")])
+                                                "eval_checkpoints_torch.py",
+                                                "comm_account_torch.py")])
 
 
 def _imported_modules(path):

@@ -262,11 +262,30 @@ def test_all_dead_raises():
     ([1, 1], {}, ValueError, "duplicate"),
     ([], {}, ValueError, "no seeds"),
     ([0, 1], dict(writers=[None]), ValueError, "one writer per seed"),
-    ([0, 1], dict(mesh=object()), NotImplementedError, "item 13"),
+    ([0, 1, 2], dict(mesh=["cpu", "cpu"]), ValueError, "3 seeds not divisible over 2 devices"),
 ])
 def test_refusals(seeds, kw, error, match):
     with pytest.raises(error, match=match):
         SeedParallelTrainer(tiny_env("tulip"), tiny_cfg(), seeds, **kw)
+
+
+def test_seed_mesh_lanes_equal_serial_runs():
+    """Four seeds over a seed mesh of two devices (two CPU devices here):
+    two lanes a device, so a lane's cap is 6 // 2 = 3 (JAX
+    ``lanes_per_dev``), and each lane is the serial run of its seed at that
+    cap, bit for bit."""
+    env = tiny_env("tulip")
+    seeds = [0, 1, 2, 3]
+    tr = SeedParallelTrainer(env, tiny_cfg(), seeds, mesh=["cpu", "cpu"])
+    assert tr.devices == [torch.device("cpu")] * 2
+    assert all(lane.cfg.accum_chunk_groups == 3 for lane in tr.lanes)
+    es, obs, carry = tr._reset_all()
+    *_, m = tr.train_iteration(es, obs, carry)
+    for lane, seed in enumerate(seeds):
+        ser, t, _ = run_serial(env, tiny_cfg(), seed, 1)
+        for k in METRICS:
+            assert m[k][lane] == ser[0][k], (seed, k)
+        _state_equal(tr.lanes[lane], t)
 
 
 @pytest.mark.parametrize("spec,want", [("0-9", list(range(10))), ("0,2,5", [0, 2, 5]),
