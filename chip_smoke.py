@@ -63,7 +63,15 @@ Phases, each of which must pass for the run to pass:
      exactly, but for decision inputs within 16 ulps of their thresholds
      (the exemptions are counted), floats to the printed tolerance, two
      calls giving the same bits; and prints ptxas's registers and spills
-     and how far a 200-step free run of each drifts from the plain one;
+     and how far a 200-step free run of each drifts from the plain one.
+     Phase 2h holds the critic kernels' wide route (``tail_wide.cu``,
+     ``cf_attention_wide.cu``: the shapes ``route`` sends past the tuned
+     kernels' limits) at B = 1024, N = 20, H = 4, h = 1024 and at ragged
+     shapes, through ``ops.fused_tail``, ``ops.fused_cf_attention`` and
+     their autograd: each forward and cotangent against its plain version,
+     each stage's scratch against the staged plain version, two calls bit
+     for bit, ptxas's registers and spills, and at h = 1024 each direction
+     timed beside its bound;
   3. the slice: ``configs/DirGate_dandelion.yaml`` through the port's
      loader, cut to E = 1024 arenas and a 200-decision horizon, drives
      ``DirectionalGateEnv.reset`` and ``POCATrainer.rollout`` (env step,
@@ -87,12 +95,15 @@ Phases, each of which must pass for the run to pass:
      rollout and update (E = 4, T = 4) is then held against the same
      rollout and update on the CPU, where every op takes its plain
      version: dandelion on both critic paths and daisy on both env paths
-     at h = 512, tulip at h = 128, and cyclamen on both env paths at
-     h = 128 with windows of 3 decisions (two window groups). Phase 3f
+     at h = 512, tulip at h = 128, cyclamen on both env paths at
+     h = 128 with windows of 3 decisions (two window groups), and
+     dandelion at h = 1024 on both critic paths (the wide route). Phase 3f
      drives the command lines through their ``main(argv)`` in a temporary
-     directory: ``scripts/train_torch.py`` with
-     ``--hidden_dim 1024`` stops with the kernels' width message before it
-     builds the env; ``--config configs/DirGate_dandelion.yaml --num_envs
+     directory: ``scripts/train_torch.py --hidden_dim 1024 --num_envs 16``
+     trains one iteration at T = 1000 on each critic path (default and
+     ``--fused_attention on``) through the critic kernels' wide route (its
+     counters > 0, the tuned K3 and K5 counters 0), its wall time printed;
+     ``--config configs/DirGate_dandelion.yaml --num_envs
      64`` trains one iteration at the YAML's T = 1000 (K1, K2, K3f and K3b
      counted), saves ``poca_1280000`` and ``poca_final`` and writes its
      summaries; ``--checkpoint latest`` resumes with the saved actor,
@@ -121,7 +132,11 @@ Phases, each of which must pass for the run to pass:
      train one iteration at the smoke cut with each rank's launches
      counted, end with bit-identical parameters, make the all-reduces
      ``scripts/comm_account_torch.py`` counts (their time printed), and
-     roll out 20 decisions equal to one process of 1,024 arenas;
+     roll out 20 decisions equal to one process of 1,024 arenas. Phase 3k
+     runs ``scripts/measure_drift_torch.py``'s six cases: dandelion, daisy
+     and lily, 1200 steps of E = 4 on the composed env step (K1, K2) and
+     the fused one (K4), the card against the CPU (whose runs go to six
+     spawned processes), each held to the JAX package's drift criteria;
   4. a JSON line with every kernel's numbers, then the final status line.
 
 It exits non-zero, and prints no result, where there is no CUDA device or
@@ -1028,7 +1043,8 @@ def ptxas_report(log: str, kernels) -> dict[str, str]:
         name = next((k for k in kernels if "Compiling entry" in line and k in line), None)
         if name is None:
             continue
-        instance = re.search(r"ILi(\d+)E", line)
+        instance = (re.search(r"ILi(\d+)E", line)
+                    or re.search(r"I\w*?\d(Store|Accumulate|DsAa|DsSa)E", line))
         if instance:
             name += f"<{instance.group(1)}>"
         end = next((j for j in range(i + 1, len(lines)) if "Compiling entry" in lines[j]),
@@ -1323,6 +1339,236 @@ def phase_critic_paths(torch, cycles_per_ms):
     print(f"  device ms per chunk: tail path (K3f/K3b) "
           f"{', '.join(f'{t:.3f}' for t in times[False])}; fused attention "
           f"(K5f/K5b) {', '.join(f'{t:.3f}' for t in times[True])}", flush=True)
+
+
+# ── phase 2h: the critic's wide route ────────────────────────────────────
+
+HID_WIDE = 1024                     # --hidden_dim 1024, the width phase 3f trains at
+# (B, N, H, h) of phase 2h: the full width, then shapes the tuned kernels
+# refuse for each of their limits (N > 32, h % 4 != 0, H·N % 4 != 0, H > 4)
+WIDE_TAIL_SHAPES = ((E_MAIN, N_MAIN, H_MAIN, HID_WIDE), (5, 33, 3, 130))
+WIDE_CF_SHAPES = ((E_MAIN, N_MAIN, H_MAIN, HID_WIDE), (5, 33, 8, 136), (5, 7, 3, 6))
+WIDE_KERNELS = {
+    "tail_wide": ("tail_wide_fwd_kernel", "tail_wide_bwd_rows_kernel",
+                  "tail_wide_sums_kernel", "gemm_kernel", "sum_over_groups_kernel"),
+    "cf_attention_wide": ("cf_wide_terms_kernel", "cf_wide_fwd_rows_kernel",
+                          "cf_wide_bwd_rows_kernel", "cf_wide_sums_kernel", "gemm_kernel",
+                          "sum_over_groups_kernel")}
+WIDE_COUNTERS = ("fused_tail", "fused_tail_bwd", "fused_tail_wide", "fused_tail_wide_bwd",
+                 "fused_cf_attention", "fused_cf_attention_bwd", "fused_cf_attention_wide",
+                 "fused_cf_attention_wide_bwd")
+
+
+def phase_wide(torch, ops, card, cycles_per_ms):
+    """The wide route of K3f, K3b, K5f and K5b (``tail_wide.cu``,
+    ``cf_attention_wide.cu``) at the shapes ``route`` sends to it: through
+    ``ops.fused_tail`` and ``ops.fused_cf_attention`` and their autograd,
+    each output against its plain version, each stage's scratch against the
+    staged plain version, two calls bit for bit; at the full width each
+    direction timed beside its bound (float32 on the CUDA cores)."""
+    print(f"== phase 2h: the critic's wide route (tail_wide.cu, cf_attention_wide.cu) at "
+          f"{', '.join(str(s) for s in WIDE_TAIL_SHAPES)} for K3 and "
+          f"{', '.join(str(s) for s in WIDE_CF_SHAPES)} for K5, as (B, N, H, h)",
+          flush=True)
+    from swarmacb_torch.ops import _cuda
+
+    for source, kernels in WIDE_KERNELS.items():
+        for name, info in ptxas_report(_cuda.build_log(source), kernels).items():
+            print(f"  ptxas {source} {name}: {info}", flush=True)
+    rows = []
+    for shape in WIDE_TAIL_SHAPES:
+        rows += _wide_tail_at(torch, ops, card, cycles_per_ms, *shape)
+    for shape in WIDE_CF_SHAPES:
+        rows += _wide_cf_at(torch, ops, card, cycles_per_ms, *shape)
+    return rows
+
+
+def _wide_launches(torch, ops, run):
+    """The critic counters of one ``run()`` from 0."""
+    ops.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: ops.launches[k] for k in WIDE_COUNTERS if ops.launches[k]}
+
+
+def _hold_each(names, got, want, rel, what):
+    """Each of ``got`` within rel·max|plain| of ``want``; the largest error."""
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        scale = float(w.abs().max())
+        err, ok = max_err(g, w, rel * scale, 0.0)
+        worst = max(worst, err)
+        check(ok and g.shape == w.shape,
+              f"{what} {name} {tuple(g.shape)}: max|Δ| {err:.3e} (tolerance "
+              f"{rel:g}·max|plain| = {rel * scale:.3e})")
+    return worst
+
+
+def _wide_tail_at(torch, ops, card, cycles_per_ms, B, N, H, h):
+    from swarmacb_torch.ops import baseline_tail
+
+    full = B == E_MAIN
+    print(f"  -- K3f and K3b, wide route, (B, N, H, h) = {(B, N, H, h)}", flush=True)
+    check(baseline_tail.route(N, H, h) == "wide", f"fused_tail's route({N}, {H}, {h}) is wide")
+    args = [a.requires_grad_() for a in _tail_inputs(torch, B, N, H, h, SEED + 11)]
+    rng = np.random.default_rng(SEED + 12)
+    dout = torch.from_numpy(rng.normal(size=(B, N, h)).astype(np.float32)).to(DEVICE)
+
+    def both():
+        out = ops.fused_tail(*args, N)
+        return out.detach(), torch.autograd.grad(out, args, dout)
+
+    (out, got), counts = _wide_launches(torch, ops, both)
+    check(counts == {"fused_tail_wide": 1, "fused_tail_wide_bwd": 1},
+          f"ops.fused_tail and its autograd launched {counts} (the wide route once each)")
+    plain_out = baseline_tail.tail_reference(*args, N)
+    want = torch.autograd.grad(plain_out, args, dout, retain_graph=True)
+    # phase 2b's tolerance for K3f; phase 2c's for K3b's scratch and cotangents
+    err_f, ok = max_err(out, plain_out.detach(), 1e-5, 1e-5)
+    check(ok, f"K3f wide pooled {tuple(out.shape)}: max|Δ| {err_f:.3e} (tolerance "
+              "1e-05 + 1e-05·|plain|)")
+    saved = [a.detach() for a in args]
+    with torch.no_grad():
+        want_fc = baseline_tail.tail_backward_reference(saved, dout, N)[0]
+        again = baseline_tail._forward_kernel(saved, N, wide=True)
+    got_fc, got_again, calls = baseline_tail._stage_calls(saved, dout, N, B, H, h, wide=True)
+    for launch in calls:
+        launch()
+    torch.cuda.synchronize()
+    _hold_each(["d_fc"], [got_fc], [want_fc], 1e-5, "K3b wide stage 1")
+    del want_fc, got_fc
+    names = [f"d_{n}" for n in ("attn_lhs", "attn_mI", "wa", "dws", "x_a", "delta", "bias")]
+    err_b = _hold_each(names, got, want, 1e-5, "K3b wide")
+    check(torch.equal(out, again) and all(torch.equal(a, b) for a, b in zip(got, got_again)),
+          "K3f and K3b wide: two calls give the same bits")
+    del got_again, again
+    if not full:
+        return []
+    with torch.no_grad():
+        ms_f = device_ms(torch, lambda: baseline_tail._forward_kernel(saved, N, wide=True),
+                         cycles_per_ms)
+        plain_f = device_ms(torch, lambda: baseline_tail.tail_reference(*saved, N),
+                            cycles_per_ms)
+    ms_b = device_ms(torch, lambda: baseline_tail.backward_kernel(saved, dout, N, wide=True),
+                     cycles_per_ms)
+    plain_b = device_ms(torch, lambda: torch.autograd.grad(plain_out, args, dout,
+                                                           retain_graph=True), cycles_per_ms)
+    n_bytes, n_product, n_rest = _tail_forward_work(B, N, H, h)
+    bf, bf_by = bound_ms(n_bytes, n_product + n_rest)
+    bb, bb_by = bound_ms(*_tail_backward_work(B, N, H, h))
+    print(f"  K3f wide {ms_f:.4f} ms, plain {plain_f:.4f} ms, bound {bf:.4f} ms ({bf_by}, "
+          f"float32); K3b wide {ms_b:.4f} ms, plain backward {plain_b:.4f} ms, bound "
+          f"{bb:.4f} ms ({bb_by}); on {card}", flush=True)
+    common = dict(route="cuda", source="swarmacb_torch/ops/csrc/tail_wide.cu", library_ms=None)
+    return [dict(name="fused_tail_wide", replaces="swarmacb_tpu/ops/baseline_tail.py:201",
+                 max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by,
+                 **common),
+            dict(name="fused_tail_wide_bwd", replaces="swarmacb_tpu/ops/baseline_tail.py:224",
+                 max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by,
+                 **common)]
+
+
+def _wide_cf_at(torch, ops, card, cycles_per_ms, B, N, H, h):
+    from swarmacb_torch.ops import cf_attention
+
+    full = B == E_MAIN
+    d = h // H
+    print(f"  -- K5f and K5b, wide route, (B, N, H, h) = {(B, N, H, h)}, d = {d}", flush=True)
+    check(cf_attention.route(N, H, h) == "wide",
+          f"fused_cf_attention's route({N}, {H}, {h}) is wide")
+    args = [a.requires_grad_() for a in _cf_inputs(torch, B, N, H, h, SEED + 13, 3.0)]
+    rng = np.random.default_rng(SEED + 14)
+    dout = torch.from_numpy(rng.normal(size=(B, N, h)).astype(np.float32)).to(DEVICE)
+
+    def both():
+        out = ops.fused_cf_attention(*args, d)
+        return out.detach(), torch.autograd.grad(out, args, dout)
+
+    (out, got), counts = _wide_launches(torch, ops, both)
+    check(counts == {"fused_cf_attention_wide": 1, "fused_cf_attention_wide_bwd": 1},
+          f"ops.fused_cf_attention and its autograd launched {counts} (the wide route once "
+          "each)")
+    # phase 2d's tolerance for K5f. K5b: phase 2e's rules. Against a float64
+    # plain run at the full width, as 2e holds K5b at B = 1024; at the small
+    # ragged shapes the staged algebra that K5b, its plain version and the
+    # Pallas kernel share (the partition Z_b - E_aa + E_as) itself misses
+    # that rule by cancellation (tests/test_torch_wide_critic.py), so there
+    # the float64 errors are printed, and every shape holds the cotangents
+    # and scratch to the staged plain version below.
+    plain_out = cf_attention.cf_reference(*args, d)
+    err_f, ok = max_err(out, plain_out.detach(), 2e-5, 2e-5)
+    check(ok, f"K5f wide pooled {tuple(out.shape)}: max|Δ| {err_f:.3e} (tolerance "
+              "2e-05 + 2e-05·|plain|)")
+    want = torch.autograd.grad(plain_out, args, dout, retain_graph=True)
+    args64 = [a.detach().double().requires_grad_() for a in args]
+    truth = torch.autograd.grad(cf_attention.cf_reference(*args64, d), args64, dout.double())
+    del args64
+    err_b = 0.0
+    for name, g, w, t in zip(cf_attention.NAMES, got, want, truth):
+        err_k = float((g.double() - t).abs().max())
+        err_p = float((w.double() - t).abs().max())
+        floor = 4 * float(np.spacing(np.float32(float(t.abs().max()))))
+        band = 2.5 if name == "wa" else 2.0
+        limit = max(band * err_p, floor)
+        err_b = max(err_b, float((g - w).abs().max()))
+        what = (f"K5b wide d_{name} {tuple(g.shape)}: error against float64 {err_k:.3e}, "
+                f"plain float32's {err_p:.3e}")
+        if full:
+            check(err_k <= limit and g.shape == w.shape,
+                  f"{what} (tolerance max({band:g}x plain, 4 ulp {floor:.3e}) = {limit:.3e})")
+        else:
+            print(f"  {what} (phase 2e's rule would allow {limit:.3e})", flush=True)
+    del truth, want
+    # each stage's scratch and the nine cotangents against the staged plain
+    # version (phase 2e's rule)
+    saved = [a.detach() for a in args]
+    staged_f, staged_b = {}, {}
+    with torch.no_grad():
+        want_pooled = cf_attention.cf_forward_reference(saved, d, stages=staged_f)
+        want_fc, want_st = cf_attention.cf_backward_reference(saved, dout, d, stages=staged_b)
+    scratch_f, pooled, calls = cf_attention._forward_stage_calls(saved, d, B, N, H, h, wide=True)
+    for launch in calls:
+        launch()
+    scratch, got_again, calls = cf_attention._stage_calls(saved, dout, d, B, N, H, h, wide=True)
+    for launch in calls:
+        launch()
+    torch.cuda.synchronize()
+    _hold_each(("terms", "base", "pooled"),
+               (scratch_f["terms"], scratch_f["base"], pooled),
+               (staged_f["terms"], staged_f["base"], want_pooled), 1e-5,
+               "K5f wide against the staged plain version:")
+    _hold_each(("d_fc", "d_scores", "d_num", *(f"d_{n}" for n in cf_attention.NAMES)),
+               (scratch["d_fc"], scratch["d_scores"], scratch["d_num"], *got_again),
+               (want_fc, staged_b["d_scores"], staged_b["d_num"], *want_st), 1e-5,
+               "K5b wide against the staged plain version:")
+    del staged_f, staged_b, want_fc, want_st, scratch_f, scratch
+    check(torch.equal(out, pooled) and all(torch.equal(a, b) for a, b in zip(got, got_again)),
+          "K5f and K5b wide: two calls give the same bits")
+    del got_again, pooled
+    if not full:
+        return []
+    with torch.no_grad():
+        ms_f = device_ms(torch, lambda: cf_attention.forward_kernel(saved, d, wide=True),
+                         cycles_per_ms)
+        plain_f = device_ms(torch, lambda: cf_attention.cf_reference(*saved, d),
+                            cycles_per_ms)
+    ms_b = device_ms(torch, lambda: cf_attention.backward_kernel(saved, dout, d, wide=True),
+                     cycles_per_ms)
+    plain_b = device_ms(torch, lambda: torch.autograd.grad(plain_out, args, dout,
+                                                           retain_graph=True), cycles_per_ms)
+    bf, bf_by = bound_ms(*_cf_forward_work(B, N, H, h))
+    bb, bb_by = bound_ms(*_cf_backward_work(B, N, H, h))
+    print(f"  K5f wide {ms_f:.4f} ms, plain {plain_f:.4f} ms, bound {bf:.4f} ms ({bf_by}); "
+          f"K5b wide {ms_b:.4f} ms, plain backward {plain_b:.4f} ms, bound {bb:.4f} ms "
+          f"({bb_by}); on {card}", flush=True)
+    common = dict(route="cuda", source="swarmacb_torch/ops/csrc/cf_attention_wide.cu",
+                  library_ms=None)
+    return [dict(name="fused_cf_attention_wide", replaces="swarmacb_tpu/ops/cf_attention.py:267",
+                 max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by,
+                 **common),
+            dict(name="fused_cf_attention_wide_bwd",
+                 replaces="swarmacb_tpu/ops/cf_attention.py:290", max_abs_err=err_b, ms=ms_b,
+                 plain_ms=plain_b, bound_ms=bb, bound_by=bb_by, **common)]
 
 
 # ── phase 2g: K4, the fused env step ─────────────────────────────────────
@@ -1943,7 +2189,7 @@ BF16_STEP = 2.0 ** -8               # one bfloat16 step: the bf16 reference's to
 
 
 def phase_small_reference(torch, fused_attention=False, variant="dandelion",
-                          fused_env_step=False, mixed_precision=False):
+                          fused_env_step=False, mixed_precision=False, hidden=None):
     """A short rollout and update at a config's full width on the card
     against the same rollout and update on the CPU, whose ops all take
     their plain versions: same weights (drawn on the CPU from the seed),
@@ -1960,7 +2206,8 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
     is held bit for bit in at least 99.9 % of its elements, and what the
     critic's outputs reach (values, baselines, losses, gradients) within one
     bf16 step, 2^-8, where a summation order that differs between the
-    devices flips a rounding."""
+    devices flips a rounding. ``hidden`` overrides the variant's width
+    (``--hidden_dim``): at 1024 the card's critic takes the wide route."""
     from swarmacb_torch.agents import POCAConfig, POCATrainer, buffer
     from swarmacb_torch.config import DirectionalGateEnvCfg
     from swarmacb_torch.env import DirectionalGateEnv
@@ -1968,7 +2215,8 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
     E, N, T = 4, N_MAIN, 4
     recurrent = variant == "cyclamen"
     # the variant's width, as scripts/train_torch.py defaults it
-    hidden, layers = (128, 1) if variant in ("tulip", "cyclamen") else (HID_MAIN, 2)
+    hidden, layers = ((128, 1) if variant in ("tulip", "cyclamen") else (HID_MAIN, 2)
+                      if hidden is None else (hidden, 2))
     print(f"== phase {'3h' if mixed_precision else '3b'}: card against CPU, {variant}, "
           f"E={E}, T={T}, h={hidden}, fused_attention={fused_attention}, "
           f"fused_env_step={fused_env_step}, mixed_precision={mixed_precision}", flush=True)
@@ -2228,19 +2476,11 @@ def phase_cli(torch, ops, card):
           f"{Path(config).name} --num_envs {CLI_ENVS} (one iteration = {iteration:,} "
           f"decisions), resume, play_torch.py", flush=True)
 
-    # F1: a width the kernels refuse stops the run before the env is built
-    built = []
-    make_env = train_torch.make_env
-    train_torch.make_env = lambda *a, **k: built.append(1) or make_env(*a, **k)
-    try:
-        train_torch.main(["--config", config, "--hidden_dim", "1024"])
-        message = "(no exit)"
-    except SystemExit as exc:
-        message = str(exc)
-    finally:
-        train_torch.make_env = make_env
-    check("fused_tail: the kernels take" in message and not built,
-          f"train_torch.py --hidden_dim 1024 stops before the env: {message}")
+    # F1 closed: --hidden_dim 1024 trains on both critic paths, through the
+    # wide route of the critic kernels
+    wide = {f"wide_{'fused_attention' if fused else 'tail'}":
+            _wide_iteration(torch, ops, card, train_torch, config, fused)
+            for fused in (False, True)}
 
     with tempfile.TemporaryDirectory() as tmp:
         ckpt_dir, log_dir = Path(tmp) / "ckpt", Path(tmp) / "logs"
@@ -2356,6 +2596,62 @@ def phase_cli(torch, ops, card):
           f"{CLI_ENVS} arenas in {stats['seconds']:.3f} s, "
           f"{n * CLI_ENVS / stats['seconds']:,.0f} arena-steps/s; resumed train() "
           f"{wall2:.3f} s; phase 3f {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return wide
+
+
+WIDE_ENVS = 16                      # arenas of phase 3f's --hidden_dim 1024 iterations
+
+
+def _wide_iteration(torch, ops, card, train_torch, config, fused):
+    """One iteration of ``train_torch.py --hidden_dim 1024`` at E = WIDE_ENVS
+    and the YAML's T = 1000, on one critic path: the wide route's counters
+    from the iteration (K1 and K2 beside them), and its wall time."""
+    T = 1000
+    iteration = T * WIDE_ENVS * N_MAIN
+    flag = "on" if fused else "off"
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, ckpt = train_torch.prepare(
+            ["--config", config, "--hidden_dim", str(HID_WIDE), "--num_envs", str(WIDE_ENVS),
+             "--total_timesteps", str(iteration), "--fused_attention", flag,
+             "--checkpoint_dir", f"{tmp}/ckpt", "--log_dir", f"{tmp}/logs",
+             "--no-tensorboard"])
+        iter_s = []
+        train_iteration = trainer.train_iteration
+
+        def timed_iteration(*args):
+            t_it = time.perf_counter()
+            out = train_iteration(*args)
+            torch.cuda.synchronize()
+            iter_s.append(time.perf_counter() - t_it)
+            return out
+
+        trainer.train_iteration = timed_iteration
+        # the main path: counts from 0 just before, read just after
+        ops.reset_launches()
+        trainer.train(checkpointer=ckpt)
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+    passes = _chunk_passes(trainer)
+    on, off = (("fused_cf_attention", "fused_tail") if fused
+               else ("fused_tail", "fused_cf_attention"))
+    expect = {"pairwise_sensors": 1 + T, "resolve_robot_collisions": T, "fused_env_step": 0,
+              f"{on}_wide": T + passes, f"{on}_wide_bwd": passes, f"{off}_wide": 0,
+              f"{off}_wide_bwd": 0, "fused_tail": 0, "fused_tail_bwd": 0,
+              "fused_cf_attention": 0, "fused_cf_attention_bwd": 0}
+    for name, n in expect.items():
+        check(launches[name] == n, f"train_torch.py --hidden_dim {HID_WIDE} --fused_attention "
+                                   f"{flag} launched {name} {launches[name]} times "
+                                   f"(expected {n})")
+    params = [*trainer.actor.parameters(), *trainer.critic.parameters()]
+    check(trainer.cfg.hidden_dim == HID_WIDE and trainer.critic.fused_attention == fused
+          and trainer.update_count == 1 and all(bool(torch.isfinite(p).all()) for p in params),
+          f"one update at hidden {trainer.cfg.hidden_dim}x{trainer.cfg.num_layers}, "
+          f"fused_attention={trainer.critic.fused_attention}: every parameter finite")
+    print(f"  on {card}: train_torch.py --hidden_dim {HID_WIDE} --fused_attention {flag} "
+          f"--num_envs {WIDE_ENVS}: the iteration ({passes} chunk passes) {iter_s[0]:.3f} s, "
+          f"{iteration / iter_s[0]:,.0f} training agent-decisions/s", flush=True)
+    del trainer
+    return launches
 
 
 # ── phase 3h: mixed precision ────────────────────────────────────────────
@@ -2783,6 +3079,33 @@ def _gloo_ranks(torch, card) -> float:
     return wall_b
 
 
+# ── phase 3k: card-vs-CPU drift over whole episodes ──────────────────────
+
+def phase_drift(torch, card):
+    """``scripts/measure_drift_torch.py``'s six cases on the card against
+    the CPU: 1200 steps of E = 4 arenas, dandelion, daisy and lily on the
+    composed env step (K1, K2) and the fused one (K4), each held to the JAX
+    package's criteria."""
+    from swarmacb_torch.utils import drift
+
+    t0 = time.perf_counter()
+    cases = len(drift.VARIANTS) * len(drift.PATHS)
+    print(f"== phase 3k: card-vs-CPU drift over whole episodes (measure_drift_torch.py): "
+          f"E={drift.E}, N={drift.N}, {drift.STEPS} steps, {', '.join(drift.VARIANTS)} on "
+          f"{' and '.join(drift.PATHS)}, the CPU runs in {cases} processes", flush=True)
+    out = drift.measure(DEVICE, workers=cases, log=lambda line: print(f"  {line}", flush=True))
+    for case, m in out.items():
+        missed = drift.misses(m, drift.STEPS)
+        check(not missed, f"{case}: pos@100 {m['pos_drift_100_steps_m']:.3e} m, onset step "
+                          f"{m['divergence_onset_step']}, reward agreement "
+                          f"{m['reward_step_agreement']:.4%}, |Σreward Δ| "
+                          f"{m['episode_reward_sum_diff']:g}"
+                          + (f"; missed: {'; '.join(missed)}" if missed else
+                             " (criteria: <= 1e-4 m, >= 200, >= 99 %, <= 2)"))
+    print("  drift: " + json.dumps({"card": card, "cases": out}), flush=True)
+    print(f"  phase 3k {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # ── main ─────────────────────────────────────────────────────────────────
 
 def main() -> int:
@@ -2815,6 +3138,7 @@ def main() -> int:
     rows += phase_cf_backward(torch, ops, card, cycles_per_ms)
     phase_critic_paths(torch, cycles_per_ms)
     rows += phase_fused_step(torch, ops, cycles_per_ms)
+    rows += phase_wide(torch, ops, card, cycles_per_ms)
     # each path with its counts set to 0 just before and read just after
     launches, walls = {}, {}
     for fused in (False, True):
@@ -2829,12 +3153,15 @@ def main() -> int:
     for fused_env_step in (False, True):
         phase_small_reference(torch, variant="daisy", fused_env_step=fused_env_step)
     phase_small_reference(torch, variant="tulip")
+    for fused in (False, True):
+        phase_small_reference(torch, fused_attention=fused, hidden=HID_WIDE)
     for fused_env_step in (False, True):
         phase_small_reference(torch, variant="cyclamen", fused_env_step=fused_env_step)
-    for label, phase in (("3f", lambda: phase_cli(torch, ops, card)),
+    for label, phase in (("3f", lambda: launches.update(phase_cli(torch, ops, card))),
                          ("3h", lambda: phase_mixed_precision(torch, ops, card, walls)),
                          ("3i", lambda: phase_seeds(torch, ops, card)),
-                         ("3j", lambda: phase_data_parallel(torch, ops, card))):
+                         ("3j", lambda: phase_data_parallel(torch, ops, card)),
+                         ("3k", lambda: phase_drift(torch, card))):
         try:
             phase()
         except (Exception, SystemExit) as exc:   # reported as this phase's failure
@@ -2844,9 +3171,13 @@ def main() -> int:
     # each kernel's launches in the main-path run that exercises it
     path_of = {"fused_cf_attention": "fused_attention",
                "fused_cf_attention_bwd": "fused_attention",
-               "fused_env_step": "daisy_fused_env_step"}
+               "fused_env_step": "daisy_fused_env_step",
+               "fused_tail_wide": "wide_tail", "fused_tail_wide_bwd": "wide_tail",
+               "fused_cf_attention_wide": "wide_fused_attention",
+               "fused_cf_attention_wide_bwd": "wide_fused_attention"}
     for row in rows:
-        row["launches"] = launches[path_of.get(row["name"], "tail")][row["name"]]
+        # phase 3f's --hidden_dim 1024 iterations for the wide route: 0 if 3f failed
+        row["launches"] = launches.get(path_of.get(row["name"], "tail"), {}).get(row["name"], 0)
     print(f"== done in {time.perf_counter() - t_start:.1f} s; "
           f"{len(failures)} failure(s)", flush=True)
     for f in failures:

@@ -68,7 +68,6 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from swarmacb_torch.agents import (Checkpointer, POCAConfig, POCATrainer,  # noqa: E402
                                    SeedParallelTrainer)
-from swarmacb_torch.agents.trainer import check_card_widths  # noqa: E402
 from swarmacb_torch.config import DirectionalGateEnvCfg  # noqa: E402
 from swarmacb_torch.config.poca_cfg import check_mp_stages  # noqa: E402
 from swarmacb_torch.config.loader import load_config, print_config  # noqa: E402
@@ -273,8 +272,8 @@ class Plan(NamedTuple):
 
 
 def plan(argv=None) -> Plan:
-    """Parse and check a command line: the config, the device, the card's
-    kernel widths, and the ranks (E % n, or S % n with ``--seeds``)."""
+    """Parse and check a command line: the config, the device, and the
+    ranks (E % n, or S % n with ``--seeds``)."""
     args = build_parser().parse_args(argv)
     seeds = None if args.seeds is None else _parse_seeds(args.seeds)
     if seeds is not None and args.checkpoint not in (None, "latest"):
@@ -283,10 +282,6 @@ def plan(argv=None) -> Plan:
     run_name, variant, cfg, env_overrides = resolve_config(args)
     device = resolve_device(args.device)
     env_cfg = DirectionalGateEnvCfg(variant=variant).replace(**env_overrides)
-    try:
-        check_card_widths(device, env_cfg.num_agents, cfg)
-    except ValueError as exc:
-        raise SystemExit(f"[train] {exc}") from exc
     world = resolve_world(args, device, seeds)
     if seeds is not None and len(seeds) % world:
         raise SystemExit(f"[train] {len(seeds)} seeds not divisible by {world} devices; "

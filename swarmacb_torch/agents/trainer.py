@@ -76,22 +76,9 @@ from ..env.directional_gate import DirectionalGateEnv
 from ..env import lanes as laneslib
 from ..models.networks import (Actor, DiscreteActor, POCACritic,
                                RecurrentDiscreteActor)
-from ..ops import baseline_tail, cf_attention
 from . import buffer as buf
 from . import losses
 from .buffer import Rollout
-
-
-def check_card_widths(device, num_agents: int, cfg: POCAConfig) -> None:
-    """Refuse, on a CUDA device, the widths that the critic kernels of the
-    configured path do not take (``ops.baseline_tail.check_widths`` on the
-    default path, ``ops.cf_attention.check_widths`` with
-    ``fused_attention``), with the kernels' own message. The CPU's plain
-    versions take any width."""
-    if torch.device(device).type != "cuda":
-        return
-    path = cf_attention if cfg.fused_attention else baseline_tail
-    path.check_widths(num_agents, cfg.critic_num_heads, cfg.hidden_dim)
 
 
 class POCATrainer:
@@ -115,7 +102,6 @@ class POCATrainer:
         c = self.cfg
         check_mp_stages(c.mp_stages)
         self.device = env.device
-        check_card_widths(self.device, env.num_agents, c)
         self.mesh = mesh
         self.world = 1 if mesh is None else mesh.world
         self.rank = 0 if mesh is None else mesh.rank

@@ -4,14 +4,17 @@ versions, and the wrappers that pick one by the device of the input.
   pairwise_sensors, resolve_robot_collisions   (pairwise.py, csrc/pairwise.cu)
   fused_tail (forward and backward)            (baseline_tail.py,
                                                 csrc/tail_forward.cu,
-                                                csrc/baseline_tail.cu)
+                                                csrc/baseline_tail.cu;
+                                                the wide route csrc/tail_wide.cu)
   fused_cf_attention (forward and backward)    (cf_attention.py,
-                                                csrc/cf_attention.cu)
+                                                csrc/cf_attention.cu; the wide
+                                                route csrc/cf_attention_wide.cu)
   fused_env_step (one whole env control tick)  (fused_step.py,
                                                 csrc/fused_step.cu)
 
 ``launches`` counts the kernel launches of each wrapper since the last
-``reset_launches()``; ``build()`` compiles every kernel up front.
+``reset_launches()`` (the critic's wide route under names of its own,
+``fused_tail_wide`` and so on); ``build()`` compiles every kernel up front.
 """
 
 from ._cuda import build, launches, reset_launches

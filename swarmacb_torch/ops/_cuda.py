@@ -23,7 +23,11 @@ asks for one block of 512 threads an SM (128 registers a thread).
 ``cf_attention.cu`` (K5f, K5b) caps at 168 registers too; the rows
 kernels of both directions ask for four blocks of 128 threads an SM (128
 registers), and ``chip_smoke.py`` (phases 2d, 2e) and
-``scripts/time_cf_backward.py`` print what ptxas gave each kernel.
+``scripts/time_cf_backward.py`` print what ptxas gave each kernel. The
+critic's wide route (``tail_wide.cu``, ``cf_attention_wide.cu``, which
+share ``wide_common.cuh``) takes no cap; ``chip_smoke.py`` phase 2h prints
+its registers and spills. A library's hash covers its source and every
+``csrc/*.cuh`` header, so an edited header rebuilds the sources too.
 
 Nothing here runs when the package is imported: the CPU tests import every
 module, and the CPU has no nvcc.
@@ -52,6 +56,8 @@ SOURCES = {
     "tail_forward": (),
     "cf_attention": ("-maxrregcount=168",),
     "fused_step": ("-fmad=false",),
+    "tail_wide": (),
+    "cf_attention_wide": (),
 }
 
 _P = ctypes.c_void_p
@@ -84,6 +90,19 @@ SIGNATURES = {
     "fused_step": {
         "fused_step_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
+    "tail_wide": {
+        "tail_wide_forward_launch": [_P] * 9 + [_I, _I, _I, _I, _P],
+        "tail_wide_bwd_rows_launch": [_P] * 12 + [_I, _I, _I, _I, _P],
+        "tail_wide_bwd_wa_launch": [_P] * 6 + [_I, _I, _I, _I, _P],
+        "tail_wide_bwd_attn_launch": [_P] * 3 + [_I, _I, _I, _I, _P],
+    },
+    "cf_attention_wide": {
+        "cf_wide_base_launch": [_P] * 7 + [_I, _I, _I, _I, _F, _P],
+        "cf_wide_fwd_rows_launch": [_P] * 9 + [_I, _I, _I, _I, _P],
+        "cf_wide_bwd_rows_launch": [_P] * 15 + [_I, _I, _I, _I, _F, _P],
+        "cf_wide_bwd_sums_launch": [_P] * 8 + [_I, _I, _I, _I, _P],
+        "cf_wide_bwd_products_launch": [_P] * 8 + [_I, _I, _I, _I, _F, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -96,7 +115,11 @@ launches: dict[str, int] = {"pairwise_sensors": 0,
                             "fused_tail_bwd": 0,
                             "fused_cf_attention": 0,
                             "fused_cf_attention_bwd": 0,
-                            "fused_env_step": 0}
+                            "fused_env_step": 0,
+                            "fused_tail_wide": 0,
+                            "fused_tail_wide_bwd": 0,
+                            "fused_cf_attention_wide": 0,
+                            "fused_cf_attention_wide_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -121,7 +144,8 @@ def _nvcc() -> str:
 def _target(name: str, nvcc: str) -> tuple[Path, list[str]]:
     src = CSRC / f"{name}.cu"
     flags = [*_COMMON_FLAGS, *SOURCES[name]]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode())
     out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
     return out, [nvcc, *flags, "-o", str(out), str(src)]
 

@@ -35,8 +35,18 @@ d_dws, d_delta), the batched product attn_lhsᵀ·d_fc (d_wa, with d_xa and
 d_bias), and the batched product d_fc·waᵀ (d_attn_lhs).
 ``tail_backward_reference`` computes the same stages in plain PyTorch.
 
-Both kernels take h ≤ 512 with h % 4 == 0, N ≤ 32 and H·N % 4 == 0; the
-forward took h ≤ 4096 before it ran on the tensor cores.
+On a CUDA tensor ``fused_tail`` takes one of two routes, picked by shape
+alone (``route``): the tuned kernels above where h ≤ 512 with h % 4 == 0,
+N ≤ 32 and H·N % 4 == 0, and the wide route (``csrc/tail_wide.cu``: K3f
+and K3b for every other shape the JAX function takes, any B, N, H and
+h ≥ 1) elsewhere, each with its own launch counters (``fused_tail`` and
+``fused_tail_bwd``, ``fused_tail_wide`` and ``fused_tail_wide_bwd``). The
+wide route runs in float32 on the CUDA cores with 4-byte loads, one block
+per (b, I), and sums each row over column tiles of at most 512 floats;
+``layernorm_tiled`` is the plain version of its LayerNorm statistics. Its
+backward has the three stages of K3b, joined by the same d_fc scratch,
+with its two batched products in a hand-written kernel of its own. A
+route that fails raises: neither falls back on the other.
 """
 from __future__ import annotations
 
@@ -72,6 +82,27 @@ def _layernorm(fc):
     xc = fc - mu
     var = (xc * xc).mean(-1, keepdim=True)
     rstd = torch.rsqrt(var + LN_EPS)
+    return xc * rstd, rstd
+
+
+WIDE_TILE = 512          # columns of a tile of the wide route's row sums
+
+
+def layernorm_tiled(fc, tile=WIDE_TILE):
+    """``_layernorm`` with each row's sums taken as the wide route takes
+    them: a sum over each tile of at most ``tile`` columns, the tiles'
+    sums then added in order; the mean first, then the mean of squared
+    deviations from it (two passes, as JAX's ``_ln_stats``)."""
+    h = fc.shape[-1]
+
+    def row_sum(x):
+        total = x[..., :tile].sum(-1, keepdim=True)
+        for c0 in range(tile, h, tile):
+            total = total + x[..., c0:c0 + tile].sum(-1, keepdim=True)
+        return total
+
+    xc = fc - row_sum(fc) / h
+    rstd = torch.rsqrt(row_sum(xc * xc) / h + LN_EPS)
     return xc * rstd, rstd
 
 
@@ -151,17 +182,19 @@ def tail_backward_reference(args, dout, N):
     return d_fc, [d_attn_lhs, d_attn_mI, d_wa, d_dws, d_xa, d_delta, d_bias]
 
 
-def check_widths(N, H, h):
-    """Raise on the widths the card's kernels do not take: N agents, H
-    heads, hidden width h (the CPU's plain version takes any)."""
-    if h % 4 or h > 512 or N > 32 or (H * N) % 4:
-        raise ValueError(f"fused_tail: the kernels take h % 4 == 0, h <= 512, "
-                         f"N <= 32 and H*N % 4 == 0, got h={h}, N={N}, H={H}")
+def route(N, H, h) -> str:
+    """The kernels a CUDA call takes for N agents, H heads and width h,
+    by shape alone: "tuned" (K3f in ``tail_forward.cu``, K3b in
+    ``baseline_tail.cu``) where h % 4 == 0, h ≤ 512, N ≤ 32 and
+    H·N % 4 == 0; "wide" (``tail_wide.cu``) for every other shape."""
+    tuned = h % 4 == 0 and h <= 512 and N <= 32 and (H * N) % 4 == 0
+    return "tuned" if tuned else "wide"
 
 
-def _check(args, N):
-    """(B, H, h) of the seven tail inputs; raises on what the kernels do not
-    take (shape, dtype, device, layout)."""
+def _check(args, N, wide=False):
+    """(B, H, h) of the seven tail inputs; raises on what the route's
+    kernels do not take: shape, dtype, device, layout, and the widths that
+    ``route`` sends to the other route."""
     attn_lhs, _, wa = args[:3]
     B, _, HM = attn_lhs.shape
     h = wa.shape[-1]
@@ -174,38 +207,76 @@ def _check(args, N):
         if tuple(t.shape) != shape:
             raise ValueError(f"fused_tail: {name} must be {shape}, "
                              f"got {tuple(t.shape)}")
-        _check_layout(name, t, dev)
-    check_widths(N, H, h)
+        _check_layout(name, t, dev, wide)
+    if min(B, N, H, h) < 1:
+        raise ValueError(f"fused_tail: the kernels take B, N, H, h >= 1, "
+                         f"got B={B}, N={N}, H={H}, h={h}")
+    if not wide and route(N, H, h) != "tuned":
+        raise ValueError(f"fused_tail: the tuned kernels take h % 4 == 0, h <= 512, "
+                         f"N <= 32 and H*N % 4 == 0, got h={h}, N={N}, H={H} "
+                         "(route() sends these to the wide kernels)")
+    if wide and route(N, H, h) != "wide":
+        raise ValueError(f"fused_tail: the wide kernels take the widths the tuned ones "
+                         f"do not, got h={h}, N={N}, H={H} (route() sends these to the "
+                         "tuned kernels)")
     if dev.type != "cuda":
         raise ValueError(f"fused_tail: tensors must lie on the CPU or a CUDA "
                          f"device, got {dev}")
     return B, H, h
 
 
-def _check_layout(name, t, dev):
+def _check_layout(name, t, dev, wide=False):
+    """float32, contiguous, on ``dev``; 16-byte aligned for the tuned
+    kernels' float4 loads (the wide ones load 4 bytes at a time)."""
     if t.device != dev or t.dtype != torch.float32:
         raise ValueError(f"fused_tail: {name} must be float32 on {dev}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
+    if not t.is_contiguous() or t.data_ptr() % (4 if wide else 16):
         raise ValueError(f"fused_tail: {name} must be contiguous and "
-                         "16-byte aligned")
+                         f"{4 if wide else 16}-byte aligned")
 
 
 def _ptrs(tensors):
     return [t.data_ptr() for t in tensors]
 
 
-def _forward_kernel(args, N):
-    """K3f: pooled (B, N, h)."""
-    B, H, h = _check(args, N)
-    out = torch.empty((B, N, h), dtype=torch.float32, device=args[0].device)
+# floats of one (b, I)'s fc rows that the wide forwards keep in shared
+# memory (80 KB at N = 20, h = 1024, two blocks an SM); longer rows go to a
+# (B, N², h) scratch in device memory
+WIDE_SHARED_ROWS = 28 * 1024
+
+
+def wide_rows_scratch(B, N, h, dev):
+    """None where N·h fc rows fit ``WIDE_SHARED_ROWS`` floats, else the
+    (B, N², h) float32 scratch a wide forward keeps its rows in."""
+    if N * h <= WIDE_SHARED_ROWS:
+        return None
+    return torch.empty((B, N * N, h), dtype=torch.float32, device=dev)
+
+
+def _forward_kernel(args, N, wide=False):
+    """K3f, on the tuned route or the wide one: pooled (B, N, h). The wide
+    route keeps its fc rows in shared memory at N·h ≤ 28,672 floats (no
+    scratch at B = 1024, N = 20, h = 1024), else in a (B, N², h) scratch."""
+    B, H, h = _check(args, N, wide)
+    dev = args[0].device
+    out = torch.empty((B, N, h), dtype=torch.float32, device=dev)
+    if wide:
+        scratch = wide_rows_scratch(B, N, h, dev)
+        _cuda.launch(args[0], "fused_tail (wide)",
+                     _cuda.library("tail_wide").tail_wide_forward_launch, *_ptrs(args),
+                     None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+                     B, N, H, h)
+        _cuda.launches["fused_tail_wide"] += 1
+        return out
     _cuda.launch(args[0], "fused_tail", _cuda.library("tail_forward").tail_forward_launch,
                  *_ptrs(args), out.data_ptr(), B, N, H, h)
     _cuda.launches["fused_tail"] += 1
     return out
 
 
-def _stage_calls(args, dout, N, B, H, h):
-    """The outputs of K3b and its three launches, for inputs that
+def _stage_calls(args, dout, N, B, H, h, wide=False):
+    """The outputs of K3b and its three launches, on the tuned route or the
+    wide one (whose entry points take the same arguments), for inputs that
     ``backward_kernel`` takes (it checks them; ``chip_smoke.py`` calls this
     to hold and time each stage on its own).
 
@@ -220,53 +291,58 @@ def _stage_calls(args, dout, N, B, H, h):
     d_attn_lhs, d_attn_mI, d_wa, d_dws, d_xa, d_delta, d_bias = grads
     d_fc = torch.empty((B, N * N, h), dtype=torch.float32, device=dev)
     bias_part = torch.empty((B, h), dtype=torch.float32, device=dev)
-    lib = _cuda.library("baseline_tail")
+    lib = _cuda.library("tail_wide" if wide else "baseline_tail")
+    entry = lambda stage: getattr(  # noqa: E731
+        lib, f"tail_wide_bwd_{stage}_launch" if wide else f"tail_bwd_{stage}_launch")
+    route_name = " (wide)" if wide else ""
     attn_lhs, wa = args[0], args[2]
     shape = (B, N, H, h)
 
     def rows():
-        _cuda.launch(dout, "fused_tail backward, stage 1 (rows)", lib.tail_bwd_rows_launch,
+        _cuda.launch(dout, f"fused_tail backward{route_name}, stage 1 (rows)", entry("rows"),
                      *_ptrs(args), dout.data_ptr(),
                      *_ptrs((d_fc, d_attn_mI, d_dws, d_delta)), *shape)
 
     def wa_product():
-        _cuda.launch(dout, "fused_tail backward, stage 2 (d_wa)", lib.tail_bwd_wa_launch,
+        _cuda.launch(dout, f"fused_tail backward{route_name}, stage 2 (d_wa)", entry("wa"),
                      *_ptrs((attn_lhs, d_fc, d_wa, d_xa, d_bias, bias_part)), *shape)
 
     def attn_product():
-        _cuda.launch(dout, "fused_tail backward, stage 3 (d_attn_lhs)",
-                     lib.tail_bwd_attn_launch, *_ptrs((d_fc, wa, d_attn_lhs)), *shape)
+        _cuda.launch(dout, f"fused_tail backward{route_name}, stage 3 (d_attn_lhs)",
+                     entry("attn"), *_ptrs((d_fc, wa, d_attn_lhs)), *shape)
 
     return d_fc, grads, (rows, wa_product, attn_product)
 
 
-def backward_kernel(args, dout, N):
-    """K3b: the cotangents of the seven inputs ``args`` for ``dout``
-    (B, N, h), in the inputs' order and shapes.
+def backward_kernel(args, dout, N, wide=False):
+    """K3b, on the tuned route or the wide one: the cotangents of the seven
+    inputs ``args`` for ``dout`` (B, N, h), in the inputs' order and shapes.
 
     The three kernels are joined by a (B, N², h) float32 d_fc scratch, a
-    fresh ``torch.empty``: 838.9 MB at the main path's B = 1024, N = 20,
-    h = 512 (4·B·N²·h bytes), beside a (B, h) d_bias partial. Tensors that
-    are not CUDA, and shapes ``_check`` refuses, raise before any launch.
+    fresh ``torch.empty`` (4·B·N²·h bytes: 838.9 MB at the main path's
+    B = 1024, N = 20, h = 512, 1.68 GB on the wide route at h = 1024),
+    beside a (B, h) d_bias partial. Tensors that are not CUDA, and shapes
+    ``_check`` refuses, raise before any launch.
     """
     if args[0].device.type != "cuda":
         raise ValueError("fused_tail backward: the kernels take CUDA tensors; "
                          "on the CPU the gradient is autograd of tail_reference")
-    B, H, h = _check(args, N)
+    B, H, h = _check(args, N, wide)
     dout = dout.contiguous()
     if tuple(dout.shape) != (B, N, h):
         raise ValueError(f"fused_tail: dout must be {(B, N, h)}, "
                          f"got {tuple(dout.shape)}")
-    _check_layout("dout", dout, args[0].device)
-    _, grads, stages = _stage_calls(args, dout, N, B, H, h)
+    _check_layout("dout", dout, args[0].device, wide)
+    _, grads, stages = _stage_calls(args, dout, N, B, H, h, wide)
     for launch in stages:
         launch()
-    _cuda.launches["fused_tail_bwd"] += 1
+    _cuda.launches["fused_tail_wide_bwd" if wide else "fused_tail_bwd"] += 1
     return grads
 
 
 class _FusedTail(torch.autograd.Function):
-    """K3f forward, K3b backward (the JAX package's ``custom_vjp``)."""
+    """The tuned route: K3f forward, K3b backward (the JAX package's
+    ``custom_vjp``)."""
 
     @staticmethod
     def forward(ctx, attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N):
@@ -281,8 +357,27 @@ class _FusedTail(torch.autograd.Function):
         return (*backward_kernel(ctx.saved_tensors, dout, ctx.N), None)
 
 
+class _FusedTailWide(torch.autograd.Function):
+    """The wide route (``tail_wide.cu``): its K3f forward and K3b backward."""
+
+    @staticmethod
+    def forward(ctx, attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N):
+        args = (attn_lhs, attn_mI, wa, dws, x_a, delta, bias)
+        ctx.N = N
+        ctx.save_for_backward(*args)
+        return _forward_kernel(args, N, wide=True)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        return (*backward_kernel(ctx.saved_tensors, dout, ctx.N, wide=True), None)
+
+
 def fused_tail(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N):
-    """pooled (B, N, h) from the small tail inputs (module docstring)."""
+    """pooled (B, N, h) from the small tail inputs (module docstring): the
+    plain version on the CPU; on the card the route ``route`` names."""
     if attn_lhs.device.type == "cpu":
         return tail_reference(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N)
-    return _FusedTail.apply(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N)
+    wide = route(N, attn_lhs.shape[-1] // N, wa.shape[-1]) == "wide"
+    return (_FusedTailWide if wide else _FusedTail).apply(
+        attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N)

@@ -39,7 +39,19 @@ each (group, head) (dS_aa, dS_sa, d_wa). ``cf_forward_reference`` and
 rebuilt by one function (``_rebuild_fc``) in both directions, as the two
 rows kernels share one device function.
 
-The kernels take h ≤ 512 with h % 4 == 0, N ≤ 32 and H ≤ 4.
+On a CUDA tensor ``fused_cf_attention`` takes one of two routes, picked by
+shape alone (``route``): the tuned kernels above where h ≤ 512 with
+h % 4 == 0, N ≤ 32 and H ≤ 4, and the wide route
+(``csrc/cf_attention_wide.cu``: K5f and K5b for every other shape the JAX
+function takes, any B, N, H and h ≥ 1) elsewhere, each with its own launch
+counters (``fused_cf_attention`` and ``fused_cf_attention_bwd``,
+``fused_cf_attention_wide`` and ``fused_cf_attention_wide_bwd``). The wide
+route has the stages of the plain versions above (stage 0, then the rows
+forward; or rows, sums and products backward), in float32 on the CUDA
+cores with 4-byte loads, its products in a hand-written batched-product
+kernel, each row's sums over column tiles of at most 512 floats
+(``baseline_tail.layernorm_tiled``). A route that fails raises: neither
+falls back on the other.
 """
 
 from __future__ import annotations
@@ -50,7 +62,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _cuda
-from .baseline_tail import _layernorm, pool_layernorm
+from .baseline_tail import _layernorm, pool_layernorm, wide_rows_scratch
 
 
 def cf_reference(S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias, d):
@@ -215,17 +227,18 @@ def cf_backward_reference(args, dout, d, stages=None):
 NAMES = ("S_aa", "S_as", "S_sa", "S_ss", "wa", "dws", "x_a", "delta", "bias")
 
 
-def check_widths(N, H, h):
-    """Raise on the widths the card's kernels do not take: N agents, H
-    heads, hidden width h (the CPU's plain version takes any)."""
-    if h % 4 or h > 512 or N > 32 or H > 4:
-        raise ValueError(f"fused_cf_attention: the kernels take h % 4 == 0, "
-                         f"h <= 512, N <= 32 and H <= 4, got h={h}, N={N}, H={H}")
+def route(N, H, h) -> str:
+    """The kernels a CUDA call takes for N agents, H heads and width h,
+    by shape alone: "tuned" (``cf_attention.cu``) where h % 4 == 0,
+    h ≤ 512, N ≤ 32 and H ≤ 4; "wide" (``cf_attention_wide.cu``) for every
+    other shape."""
+    return "tuned" if h % 4 == 0 and h <= 512 and N <= 32 and H <= 4 else "wide"
 
 
-def _check(args):
-    """(B, N, H, h) of the nine inputs; raises on what the kernels do not
-    take (shape, dtype, device, layout)."""
+def _check(args, wide=False):
+    """(B, N, H, h) of the nine inputs; raises on what the route's kernels
+    do not take: shape, dtype, device, layout, and the widths that
+    ``route`` sends to the other route."""
     S_aa, wa = args[0], args[4]
     if S_aa.dim() != 4 or wa.dim() != 4:
         raise ValueError("fused_cf_attention: S_aa and wa must be 4-D")
@@ -239,20 +252,32 @@ def _check(args):
         if tuple(t.shape) != shape:
             raise ValueError(f"fused_cf_attention: {name} must be {shape}, "
                              f"got {tuple(t.shape)}")
-        _check_layout(name, t, dev)
-    check_widths(N, H, h)
+        _check_layout(name, t, dev, wide)
+    if min(B, N, H, h) < 1:
+        raise ValueError(f"fused_cf_attention: the kernels take B, N, H, h >= 1, "
+                         f"got B={B}, N={N}, H={H}, h={h}")
+    if not wide and route(N, H, h) != "tuned":
+        raise ValueError(f"fused_cf_attention: the tuned kernels take h % 4 == 0, "
+                         f"h <= 512, N <= 32 and H <= 4, got h={h}, N={N}, H={H} "
+                         "(route() sends these to the wide kernels)")
+    if wide and route(N, H, h) != "wide":
+        raise ValueError(f"fused_cf_attention: the wide kernels take the widths the tuned "
+                         f"ones do not, got h={h}, N={N}, H={H} (route() sends these to "
+                         "the tuned kernels)")
     if dev.type != "cuda":
         raise ValueError(f"fused_cf_attention: the kernels take CUDA tensors, got "
                          f"{dev} (CPU tensors take the plain version)")
     return B, N, H, h
 
 
-def _check_layout(name, t, dev):
+def _check_layout(name, t, dev, wide=False):
+    """float32, contiguous, on ``dev``; 16-byte aligned for the tuned
+    kernels' float4 loads (the wide ones load 4 bytes at a time)."""
     if t.device != dev or t.dtype != torch.float32:
         raise ValueError(f"fused_cf_attention: {name} must be float32 on {dev}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
+    if not t.is_contiguous() or t.data_ptr() % (4 if wide else 16):
         raise ValueError(f"fused_cf_attention: {name} must be contiguous and "
-                         "16-byte aligned")
+                         f"{4 if wide else 16}-byte aligned")
 
 
 def _ptrs(tensors):
@@ -263,71 +288,95 @@ def _empty(dev):
     return lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
 
 
-def _base_stage(lib, args, terms, base, shape, sqrt_d, what):
-    """A callable that launches stage 0 of both directions (terms, base)."""
+def _base_stage(lib, args, terms, base, shape, sqrt_d, what, wide=False):
+    """A callable that launches stage 0 of both directions (terms, base),
+    on the tuned route or the wide one (same arguments)."""
     S_aa, S_as, S_sa, S_ss, wa = args[:5]
+    entry = lib.cf_wide_base_launch if wide else lib.cf_bwd_base_launch
 
     def launch():
-        _cuda.launch(wa, f"fused_cf_attention {what}, stage 0 (base)", lib.cf_bwd_base_launch,
+        _cuda.launch(wa, f"fused_cf_attention {what}, stage 0 (base)", entry,
                      *_ptrs((S_aa, S_as, S_sa, S_ss, wa, terms, base)), *shape, sqrt_d)
     return launch
 
 
-def _forward_stage_calls(args, d, B, N, H, h):
-    """The output of K5f and its two launches, for inputs that
-    ``forward_kernel`` takes (it checks them; ``chip_smoke.py`` calls this
-    to hold and time each stage on its own).
+def _library(wide):
+    return _cuda.library("cf_attention_wide" if wide else "cf_attention")
+
+
+def _forward_stage_calls(args, d, B, N, H, h, wide=False):
+    """The output of K5f and its two launches, on the tuned route or the
+    wide one, for inputs that ``forward_kernel`` takes (it checks them;
+    ``chip_smoke.py`` calls this to hold and time each stage on its own).
 
     Returns (scratch, pooled, stages): ``scratch`` the stage-0 scratch by
-    name (``terms``, ``base``), ``pooled`` the (B, N, h) output, and
-    ``stages`` two callables, each of which launches one stage on the
+    name (``terms``, ``base``; on the wide route also ``rows`` where the fc
+    rows do not stay in shared memory), ``pooled`` the (B, N, h) output,
+    and ``stages`` two callables, each of which launches one stage on the
     current stream and raises if its launch failed; stage 1 reads what
     stage 0 wrote.
     """
-    empty = _empty(args[0].device)
+    dev = args[0].device
+    empty = _empty(dev)
     scratch = {"terms": empty(B, H, 5, N, N), "base": empty(B, H, 2, N, h)}
-    terms, base = scratch.values()
+    terms, base = scratch["terms"], scratch["base"]
     pooled = empty(B, N, h)
-    lib = _cuda.library("cf_attention")
+    lib = _library(wide)
     wa, dws, x_a, delta, bias = args[4:]
     shape = (B, N, H, h)
+    if wide:
+        rows_scratch = wide_rows_scratch(B, N, h, dev)
+        if rows_scratch is not None:
+            scratch["rows"] = rows_scratch
 
-    def rows():
-        _cuda.launch(wa, "fused_cf_attention forward, stage 1 (rows)", lib.cf_fwd_rows_launch,
-                     *_ptrs((terms, base, wa, dws, x_a, delta, bias, pooled)), *shape)
+        def rows():
+            _cuda.launch(wa, "fused_cf_attention forward (wide), stage 1 (rows)",
+                         lib.cf_wide_fwd_rows_launch,
+                         *_ptrs((terms, base, wa, dws, x_a, delta, bias)),
+                         None if rows_scratch is None else rows_scratch.data_ptr(),
+                         pooled.data_ptr(), *shape)
+    else:
+        def rows():
+            _cuda.launch(wa, "fused_cf_attention forward, stage 1 (rows)",
+                         lib.cf_fwd_rows_launch,
+                         *_ptrs((terms, base, wa, dws, x_a, delta, bias, pooled)), *shape)
 
     return scratch, pooled, (_base_stage(lib, args, terms, base, shape, math.sqrt(d),
-                                         "forward"), rows)
+                                         "forward", wide), rows)
 
 
-def forward_kernel(args, d):
-    """K5f: pooled (B, N, h) of the nine inputs ``args``.
+def forward_kernel(args, d, wide=False):
+    """K5f, on the tuned route or the wide one: pooled (B, N, h) of the
+    nine inputs ``args``.
 
     Two kernels joined by scratch, each a fresh ``torch.empty``: the terms
     (20·B·H·N² bytes, 32.8 MB at the main path's B = 1024, N = 20, H = 4)
-    and the base products (8·B·H·N·h bytes, 335.5 MB at h = 512), 368 MB
-    in all, freed when the call returns. Tensors that are not CUDA, and
-    shapes ``_check`` refuses, raise before any launch.
+    and the base products (8·B·H·N·h bytes, 335.5 MB at h = 512, 671.1 MB
+    on the wide route at h = 1024), freed when the call returns; the wide
+    route keeps its fc rows in shared memory at N·h ≤ 28,672 floats, else
+    in a (B, N², h) scratch. Tensors that are not CUDA, and shapes
+    ``_check`` refuses, raise before any launch.
     """
-    B, N, H, h = _check(args)
-    _, pooled, stages = _forward_stage_calls(args, d, B, N, H, h)
+    B, N, H, h = _check(args, wide)
+    _, pooled, stages = _forward_stage_calls(args, d, B, N, H, h, wide)
     for launch in stages:
         launch()
-    _cuda.launches["fused_cf_attention"] += 1
+    _cuda.launches["fused_cf_attention_wide" if wide else "fused_cf_attention"] += 1
     return pooled
 
 
-def _stage_calls(args, dout, d, B, N, H, h):
-    """The outputs of K5b and its four launches, for inputs that
-    ``backward_kernel`` takes (it checks them; ``chip_smoke.py`` calls this
-    to hold and time each stage on its own).
+def _stage_calls(args, dout, d, B, N, H, h, wide=False):
+    """The outputs of K5b and its four launches, on the tuned route or the
+    wide one, for inputs that ``backward_kernel`` takes (it checks them;
+    ``chip_smoke.py`` calls this to hold and time each stage on its own).
 
     Returns (scratch, grads, stages): ``scratch`` the stages' scratch by
     name (``terms``, ``base``, ``d_fc``, ``d_scores``, ``d_num``,
-    ``bias_part``; shapes in ``cf_backward_reference`` and the kernel
-    source), grads the nine cotangents in the inputs' order, and ``stages``
-    four callables, each of which launches one stage on the current stream
-    and raises if a launch failed. They must run in order: each stage reads
+    ``bias_part``, and on the wide route ``dU2``, d_delta over each head's
+    Z2; shapes in ``cf_backward_reference`` and the kernel sources), grads
+    the nine cotangents in the inputs' order, and ``stages`` four
+    callables, each of which launches one stage on the current stream and
+    raises if a launch failed. They must run in order: each stage reads
     what the ones before it wrote, and stage 3 completes d_wa in place.
     """
     grads = [torch.empty_like(t) for t in args]
@@ -336,62 +385,81 @@ def _stage_calls(args, dout, d, B, N, H, h):
     scratch = {"terms": empty(B, H, 5, N, N), "base": empty(B, H, 2, N, h),
                "d_fc": empty(B, N, N, h), "d_scores": empty(B, H, 2, N, N),
                "d_num": empty(B, H, N, h), "bias_part": empty(B, h)}
-    terms, base, d_fc, d_scores, d_num, bias_part = scratch.values()
-    lib = _cuda.library("cf_attention")
+    if wide:
+        scratch["dU2"] = empty(B, H, N, h)
+    terms, base, d_fc, d_scores, d_num, bias_part = (
+        scratch[k] for k in ("terms", "base", "d_fc", "d_scores", "d_num", "bias_part"))
+    lib = _library(wide)
     wa, dws, x_a, delta, bias = args[4:]
     shape, sqrt_d = (B, N, H, h), math.sqrt(d)
+    what = "fused_cf_attention backward" + (" (wide)" if wide else "")
 
     def rows():
-        _cuda.launch(dout, "fused_cf_attention backward, stage 1 (rows)",
-                     lib.cf_bwd_rows_launch,
+        _cuda.launch(dout, f"{what}, stage 1 (rows)",
+                     lib.cf_wide_bwd_rows_launch if wide else lib.cf_bwd_rows_launch,
                      *_ptrs((terms, base, wa, dws, x_a, delta, bias, dout, d_fc, dS_as,
                              dS_ss, d_wa, d_dws, d_delta, d_scores)), *shape, sqrt_d)
 
-    def sums():
-        _cuda.launch(dout, "fused_cf_attention backward, stage 2 (sums)",
-                     lib.cf_bwd_sums_launch,
-                     *_ptrs((terms, d_fc, d_num, d_xa, bias_part, d_bias)), *shape)
+    if wide:
+        dU2 = scratch["dU2"]
 
-    def products():
-        _cuda.launch(dout, "fused_cf_attention backward, stage 3 (products)",
-                     lib.cf_bwd_products_launch,
-                     *_ptrs((terms, wa, d_num, d_delta, d_scores, dS_aa, dS_sa, d_wa)),
-                     *shape, sqrt_d)
+        def sums():
+            _cuda.launch(dout, f"{what}, stage 2 (sums)", lib.cf_wide_bwd_sums_launch,
+                         *_ptrs((terms, d_fc, d_delta, d_num, dU2, d_xa, bias_part,
+                                 d_bias)), *shape)
 
-    return scratch, grads, (_base_stage(lib, args, terms, base, shape, sqrt_d, "backward"),
-                            rows, sums, products)
+        def products():
+            _cuda.launch(dout, f"{what}, stage 3 (products)", lib.cf_wide_bwd_products_launch,
+                         *_ptrs((terms, wa, d_num, dU2, d_scores, dS_aa, dS_sa, d_wa)),
+                         *shape, sqrt_d)
+    else:
+        def sums():
+            _cuda.launch(dout, f"{what}, stage 2 (sums)", lib.cf_bwd_sums_launch,
+                         *_ptrs((terms, d_fc, d_num, d_xa, bias_part, d_bias)), *shape)
+
+        def products():
+            _cuda.launch(dout, f"{what}, stage 3 (products)", lib.cf_bwd_products_launch,
+                         *_ptrs((terms, wa, d_num, d_delta, d_scores, dS_aa, dS_sa, d_wa)),
+                         *shape, sqrt_d)
+
+    return scratch, grads, (_base_stage(lib, args, terms, base, shape, sqrt_d, "backward",
+                                        wide), rows, sums, products)
 
 
-def backward_kernel(args, dout, d):
-    """K5b: the cotangents of the nine inputs ``args`` for ``dout``
-    (B, N, h), in the inputs' order and shapes.
+def backward_kernel(args, dout, d, wide=False):
+    """K5b, on the tuned route or the wide one: the cotangents of the nine
+    inputs ``args`` for ``dout`` (B, N, h), in the inputs' order and shapes.
 
     The four kernels are joined by scratch, each a fresh ``torch.empty``;
-    the largest is the (B, N, N, h) float32 d_fc, 838.9 MB at the main
-    path's B = 1024, N = 20, h = 512 (4·B·N²·h bytes), beside the base
-    products and d_num (8·B·H·N·h and 4·B·H·N·h bytes: 335.5 and 167.8 MB),
-    the terms and score scratch (28·B·H·N² bytes, 45.9 MB) and a (B, h)
-    d_bias partial. Tensors that are not CUDA, and shapes ``_check``
-    refuses, raise before any launch.
+    the largest is the (B, N, N, h) float32 d_fc, 4·B·N²·h bytes, beside
+    the base products and d_num (8·B·H·N·h and 4·B·H·N·h bytes), the terms
+    and score scratch (28·B·H·N² bytes, 45.9 MB at B = 1024, N = 20, H = 4)
+    and a (B, h) d_bias partial: at the main path's B = 1024, N = 20,
+    h = 512 that is 838.9, 335.5 and 167.8 MB, ~1.39 GB in all. The wide
+    route adds dU2 (4·B·H·N·h bytes); at h = 1024 its scratch is 1.68 GB
+    of d_fc, 671.1 MB of base products, 335.5 MB each of d_num and dU2 and
+    45.9 MB of terms and scores, ~3.07 GB. Tensors that are not CUDA, and
+    shapes ``_check`` refuses, raise before any launch.
     """
     if args[0].device.type != "cuda":
         raise ValueError("fused_cf_attention backward: the kernels take CUDA "
                          "tensors; on the CPU the gradient is autograd of cf_reference")
-    B, N, H, h = _check(args)
+    B, N, H, h = _check(args, wide)
     dout = dout.contiguous()
     if tuple(dout.shape) != (B, N, h):
         raise ValueError(f"fused_cf_attention: dout must be {(B, N, h)}, "
                          f"got {tuple(dout.shape)}")
-    _check_layout("dout", dout, args[0].device)
-    _, grads, stages = _stage_calls(args, dout, d, B, N, H, h)
+    _check_layout("dout", dout, args[0].device, wide)
+    _, grads, stages = _stage_calls(args, dout, d, B, N, H, h, wide)
     for launch in stages:
         launch()
-    _cuda.launches["fused_cf_attention_bwd"] += 1
+    _cuda.launches["fused_cf_attention_wide_bwd" if wide else "fused_cf_attention_bwd"] += 1
     return grads
 
 
 class _FusedCfAttention(torch.autograd.Function):
-    """K5f forward, K5b backward (the JAX package's ``custom_vjp``)."""
+    """The tuned route: K5f forward, K5b backward (the JAX package's
+    ``custom_vjp``)."""
 
     @staticmethod
     def forward(ctx, S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias, d):
@@ -406,10 +474,30 @@ class _FusedCfAttention(torch.autograd.Function):
         return (*backward_kernel(ctx.saved_tensors, dout, ctx.d), None)
 
 
+class _FusedCfAttentionWide(torch.autograd.Function):
+    """The wide route (``cf_attention_wide.cu``): its K5f forward and K5b
+    backward."""
+
+    @staticmethod
+    def forward(ctx, S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias, d):
+        args = (S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias)
+        ctx.d = d
+        ctx.save_for_backward(*args)
+        return forward_kernel(args, d, wide=True)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        return (*backward_kernel(ctx.saved_tensors, dout, ctx.d, wide=True), None)
+
+
 def fused_cf_attention(S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias, d):
     """pooled (B, N, h) from raw scores and folded values (module
-    docstring). ``d`` is the per-head dimension (softmax scale 1/√d)."""
+    docstring): the plain version on the CPU; on the card the route
+    ``route`` names. ``d`` is the per-head dimension (softmax scale 1/√d)."""
     args = (S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias)
     if S_aa.device.type == "cpu":
         return cf_reference(*args, d)
-    return _FusedCfAttention.apply(*args, d)
+    B, H, N, _ = S_aa.shape
+    wide = route(N, H, wa.shape[-1]) == "wide"
+    return (_FusedCfAttentionWide if wide else _FusedCfAttention).apply(*args, d)

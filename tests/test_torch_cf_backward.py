@@ -28,8 +28,9 @@ held, from inputs made with numpy from a seed:
   trainer's path, at rtol 2e-4, atol 2e-5.
 
 The kernels' wrapper refuses CPU tensors (no silent plain path) and shapes
-the kernels do not take, and the four stages' C entry points are
-registered with their argument counts.
+the tuned kernels do not take, which ``route`` sends to the wide kernels,
+and the four stages' C entry points are registered with their argument
+counts.
 """
 
 import functools
@@ -149,13 +150,18 @@ def test_backward_kernel_refuses_cpu_tensors():
 @pytest.mark.parametrize("B,N,H,h", [(2, 33, 4, 32), (2, 5, 5, 32), (2, 5, 4, 516),
                                      (2, 5, 4, 30)])
 def test_shapes_the_kernels_do_not_take_are_refused(B, N, H, h):
-    """N > 32, H > 4, h > 512 and h % 4 != 0 raise before any launch (the
-    meta device: no data, and no kernel can run on it)."""
+    """N > 32, H > 4, h > 512 and h % 4 != 0 raise in the tuned kernels'
+    check before any launch (the meta device: no data, and no kernel can
+    run on it); ``route`` sends them to the wide kernels, whose check
+    refuses only the device."""
     meta = lambda *s: torch.zeros(s, device="meta")  # noqa: E731
     args = (meta(B, H, N, N), meta(B, H, N, N), meta(B, H, N, N), meta(B, H, N, 1),
             meta(B, H, N, h), meta(B, H, N, h), meta(B, N, h), meta(B, N, h), meta(h))
     with pytest.raises(ValueError, match=r"h <= 512, N <= 32 and H <= 4"):
         cf_attention._check(args)
+    assert cf_attention.route(N, H, h) == "wide"
+    with pytest.raises(ValueError, match="CUDA tensors, got meta"):
+        cf_attention._check(args, wide=True)
 
 
 def test_stage_entry_points_are_registered():

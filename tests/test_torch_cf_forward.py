@@ -22,7 +22,8 @@ from inputs made with numpy from a seed:
 - its scratch: exactly stage 0's (``cf_backward_base``) on the same inputs.
 
 The kernels' wrapper refuses CPU tensors (no silent plain path) and shapes
-the kernels do not take, before any launch.
+the tuned kernels do not take, before any launch; ``route`` sends those
+shapes to the wide kernels, whose wrapper takes them.
 """
 
 import functools
@@ -104,12 +105,17 @@ def test_forward_kernel_refuses_cpu_tensors():
 @pytest.mark.parametrize("B,N,H,h", [(2, 33, 4, 32), (2, 5, 5, 32), (2, 5, 4, 516),
                                      (2, 5, 4, 30)])
 def test_forward_kernel_refuses_shapes_it_does_not_take(B, N, H, h):
-    """N > 32, H > 4, h > 512 and h % 4 != 0 raise before any launch (the
-    meta device: no data, and no kernel can run on it)."""
+    """N > 32, H > 4, h > 512 and h % 4 != 0 raise in the tuned kernels'
+    wrapper before any launch (the meta device: no data, and no kernel can
+    run on it); ``route`` sends them to the wide kernels, whose wrapper
+    refuses only the device."""
     meta = lambda *s: torch.zeros(s, device="meta")  # noqa: E731
     args = (meta(B, H, N, N), meta(B, H, N, N), meta(B, H, N, N), meta(B, H, N, 1),
             meta(B, H, N, h), meta(B, H, N, h), meta(B, N, h), meta(B, N, h), meta(h))
-    before = _cuda.launches["fused_cf_attention"]
+    before = dict(_cuda.launches)
     with pytest.raises(ValueError, match=r"h <= 512, N <= 32 and H <= 4"):
         cf_attention.forward_kernel(args, h // H)
-    assert _cuda.launches["fused_cf_attention"] == before
+    assert cf_attention.route(N, H, h) == "wide"
+    with pytest.raises(ValueError, match="CUDA tensors, got meta"):
+        cf_attention.forward_kernel(args, h // H, wide=True)
+    assert _cuda.launches == before

@@ -30,7 +30,8 @@ PORT_FILES = (sorted((ROOT / "swarmacb_torch").rglob("*.py"))
                                                 "train_torch.py",
                                                 "play_torch.py",
                                                 "eval_checkpoints_torch.py",
-                                                "comm_account_torch.py")])
+                                                "comm_account_torch.py",
+                                                "measure_drift_torch.py")])
 
 
 def _imported_modules(path):

@@ -16,8 +16,10 @@ card. Here, from inputs made with numpy from a seed:
   (B, N, h) = (6, 5, 32), (3, 4, 64) and (2, 20, 512), the last the main
   path's width; a single TF32 product misses that tolerance at the main
   width, so the tolerance tells the two routes apart;
-- the wrapper refuses shapes outside the kernels' limits before a launch,
-  and the new source is registered with its entry point.
+- the tuned kernels' wrapper refuses the shapes outside their limits
+  before a launch, and ``route`` sends exactly those shapes to the wide
+  kernels, whose wrapper takes them; the new source is registered with its
+  entry point.
 """
 
 import jax.numpy as jnp
@@ -139,8 +141,14 @@ def _meta_args(B, N, H_, h):
 @pytest.mark.parametrize("N,H_,h", [(20, 4, 516), (20, 4, 1024), (20, 4, 130),
                                     (33, 4, 64), (5, 3, 32), (20, 4, 4096)])
 def test_check_refuses_shapes_outside_the_kernels_limits(N, H_, h):
+    """The tuned kernels still refuse these shapes; ``route`` now sends them
+    to the wide kernels, whose check takes them (only the meta device, not
+    CUDA, is refused)."""
     with pytest.raises(ValueError, match=r"h <= 512, N <= 32 and H\*N % 4 == 0"):
         baseline_tail._check(_meta_args(2, N, H_, h), N)
+    assert baseline_tail.route(N, H_, h) == "wide"
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        baseline_tail._check(_meta_args(2, N, H_, h), N, wide=True)
 
 
 @pytest.mark.parametrize("N,H_,h", [(20, 4, 512), (20, 4, 128), (5, 4, 32), (32, 4, 36),
@@ -149,6 +157,9 @@ def test_check_takes_shapes_inside_the_limits(N, H_, h):
     # the shape passes; only the device (meta, not CUDA) is refused
     with pytest.raises(ValueError, match="CPU or a CUDA"):
         baseline_tail._check(_meta_args(2, N, H_, h), N)
+    assert baseline_tail.route(N, H_, h) == "tuned"
+    with pytest.raises(ValueError, match="the wide kernels take the widths the tuned"):
+        baseline_tail._check(_meta_args(2, N, H_, h), N, wide=True)
 
 
 def test_forward_source_is_registered_without_a_register_cap():
