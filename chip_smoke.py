@@ -71,7 +71,18 @@ Phases, each of which must pass for the run to pass:
      their autograd: each forward and cotangent against its plain version,
      each stage's scratch against the staged plain version, two calls bit
      for bit, ptxas's registers and spills, and at h = 1024 each direction
-     timed beside its bound;
+     timed beside its bound. Phase 2i holds the env kernels' wide route
+     (``pairwise_wide.cu``, ``fused_step_wide.cu``: the robot counts past
+     the tuned kernels' 32 that ``ops.pairwise.route`` sends there) through
+     ``ops`` at (E, N) = (1, 33), (37, 40), (1024, 64), (5, 100), K1 and
+     K2 also at (32768, 64) and past their shared-memory staging at
+     (2, 4100), K4 at (3, 300): each against its plain version (K1's RAB
+     sums to the scale of their terms, K4's continuous observations against
+     the plain sensors of the poses the kernel returned), two calls bit for
+     bit, the wide counter moved and the tuned one not, ptxas's registers
+     and spills, each timed at (1024, 64) beside its plain version and its
+     bound (K1 and K2 also at (32768, 64)); then 20 daisy ``step_lanes``
+     steps at E = 1024, N = 40, each one K4-wide launch;
   3. the slice: ``configs/DirGate_dandelion.yaml`` through the port's
      loader, cut to E = 1024 arenas and a 200-decision horizon, drives
      ``DirectionalGateEnv.reset`` and ``POCATrainer.rollout`` (env step,
@@ -136,7 +147,16 @@ Phases, each of which must pass for the run to pass:
      runs ``scripts/measure_drift_torch.py``'s six cases: dandelion, daisy
      and lily, 1200 steps of E = 4 on the composed env step (K1, K2) and
      the fused one (K4), the card against the CPU (whose runs go to six
-     spawned processes), each held to the JAX package's drift criteria;
+     spawned processes), each held to the JAX package's drift criteria.
+     Phase 3l drives ``scripts/manual_control_torch.py``'s core for 100
+     frames at ``--sim-hz 60`` (6 sub-steps) at N = 20 (the tuned K1 and
+     K2) and N = 40 (their wide route) on the card, each frame also on the
+     CPU from the card's state (positions, headings, K+, K-, the machines
+     and the HUD's sensor values held), counts K1 100 and K2 600 launches, prints
+     the median frame time, and runs the script headless where pygame
+     imports. Phase 3m runs ``scripts/sps_sweep_torch.py``'s measurement,
+     dandelion at E = 16 and 256, T = 200, one timed iteration: each line's
+     decisions/s and phase split, and its K1, K2, K3f and K3b launches;
   4. a JSON line with every kernel's numbers, then the final status line.
 
 It exits non-zero, and prints no result, where there is no CUDA device or
@@ -148,6 +168,7 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -367,10 +388,13 @@ def _sensor_work(pos, yaw, cfg, walls):
     from swarmacb_torch.env.geometry import EPUCK_SENSOR_ANGLES
 
     E, N = yaw.shape
-    d = np.sqrt(((pos[:, None] - pos[:, :, None]) ** 2).sum(-1))
     off = ~np.eye(N, dtype=bool)[None]
-    n_prox = int(((d < cfg.prox_range + cfg.robot_radius) & off).sum())
-    n_rab = int(((d < cfg.rab_range) & off).sum())
+    n_prox = n_rab = 0
+    for e0 in range(0, E, 1024):
+        p = pos[e0:e0 + 1024]
+        d = np.sqrt(((p[:, None] - p[:, :, None]) ** 2).sum(-1))
+        n_prox += int(((d < cfg.prox_range + cfg.robot_radius) & off).sum())
+        n_rab += int(((d < cfg.rab_range) & off).sum())
     # the wall candidates, in float32 as the kernel takes them
     f32 = np.float32
     ang = EPUCK_SENSOR_ANGLES.astype(np.float64)
@@ -1710,6 +1734,75 @@ def _k4_free_run(torch, fn, env, k, tiles, rng_seed, steps):
     return cur
 
 
+def _k4_hold(torch, ops, variant, want_obs, E, N, tag, own_poses=False):
+    """K4 (``ops.fused_env_step``, whichever route N takes) against its plain
+    version in one form at (E, N), from ``_k4_state``: two calls the same
+    bits, integer and boolean tiles exact but for ties, floats within
+    K4_TOL, some arenas reset. With ``own_poses``, the observation tiles of
+    the continuous form are held against the plain sensors of the poses the
+    kernel returned (the positions themselves against the plain step's):
+    those poses differ from the plain step's in the last bits (the push-out
+    sums run in another order), and a neighbour within those bits of the
+    RAB range or the proximity reach turns a sensor term on or off.
+    Returns (env, constants, args, max |Δ|)."""
+    from swarmacb_torch.ops import fused_step
+
+    env, k, tiles, acts, draws, spawn = _k4_state(torch, variant, E, N, SEED + 11)
+    cfg = env.cfg
+    args = (tiles, acts, draws, spawn, cfg)
+    got = ops.fused_env_step(*args, want_obs=want_obs)
+    again = ops.fused_env_step(*args, want_obs=want_obs)
+    want = fused_step.fused_env_step_plain(*args, want_obs=want_obs)
+    torch.cuda.synchronize()
+    flat = lambda out: [*out[0].values(), out[1], out[2], *out[3]]  # noqa: E731
+    check(all(bool(torch.equal(a, b)) for a, b in zip(flat(got), flat(again))),
+          f"{tag}: two calls give the same bits")
+    robot_tie, arena_tie = _k4_ties(torch, k, *args, want_obs)
+    exempt, stray, off = 0, [], torch.zeros_like(robot_tie)
+    ints = [(n, robot_tie) for n in fused_step.MACHINE_TILES if n in got[0]]
+    ints += [(n, arena_tie) for n in ("sc", "er", "cg", "prev")]
+    for name, tie in ints + [("reward", arena_tie), ("done", arena_tie)]:
+        g = got[0][name] if name in got[0] else got[1 if name == "reward" else 2]
+        w = want[0][name] if name in want[0] else want[1 if name == "reward" else 2]
+        bad = g != w
+        exempt += int((bad & tie.expand_as(bad)).sum())
+        if bool((bad & ~tie.expand_as(bad)).any()):
+            stray.append(name)
+        off |= bad.any(0, keepdim=True) if bad.shape[0] == 1 else bad
+    check(not stray, f"{tag}: integer and boolean tiles equal to the plain "
+                     f"version's ({exempt} tie exemptions within {K4_TIE_ULPS} "
+                     f"ulps; mismatches away from a tie: {stray or 'none'})")
+    keep = ~off.any(0)
+    worst = 0.0
+    floats = [(n, got[0][n], want[0][n]) for n in ("px", "py", "yaw")]
+    names = (("prox", "light", "ztilde", "rab_proj") if len(got[3]) == 4
+             else ("ztilde",))
+    want_obs_tiles = want[3]
+    if own_poses and not cfg.discrete_actions and want_obs:
+        direct = max(float((g - w).abs().max()) for g, w in zip(got[3], want[3]))
+        sb = fused_step.sensor_block(got[0]["px"], got[0]["py"], torch.cos(got[0]["yaw"]),
+                                     torch.sin(got[0]["yaw"]), k, N)
+        want_obs_tiles = fused_step._obs_tiles(sb, k, variant in ("dandelion", "daisy"))
+        print(f"  {tag}: observation tiles against the plain step's (information): max|Δ| "
+              f"{direct:.3e}; held below against the plain sensors of the kernel's poses",
+              flush=True)
+    floats += list(zip(names, got[3], want_obs_tiles))
+    for name, g, w in floats:
+        rtol = 2e-5 if name == "rab_proj" else 0.0
+        err, ok = max_err(g[:, keep], w[:, keep], K4_TOL[name], rtol)
+        worst = max(worst, err)
+        check(ok and g.shape == w.shape,
+              f"{tag} {name} {tuple(g.shape)}: max|Δ| {err:.3e} "
+              f"(tolerance {K4_TOL[name]:g} + {rtol:g}·|plain|)")
+    dones = int(got[2].sum())
+    moved = int((got[0]["es"] != tiles["es"]).sum()) if "es" in tiles else -1
+    check(dones > 0, f"{tag}: {dones} arenas reset, "
+                     f"{float(got[1].abs().sum()):.0f} reward counts, {moved} "
+                     "exploration latches moved")
+    del got, again, want
+    return env, k, args, worst
+
+
 def phase_fused_step(torch, ops, cycles_per_ms):
     """K4 against its plain version in each of its four compiled forms at
     E_MAIN, in the fused rollout's form (daisy, with observations) at
@@ -1726,50 +1819,8 @@ def phase_fused_step(torch, ops, cycles_per_ms):
             for name, info in ptxas_report(_cuda.build_log("fused_step"),
                                            ("fused_step_kernel",)).items():
                 print(f"  ptxas {name}: {info}", flush=True)
-        env, k, tiles, acts, draws, spawn = _k4_state(torch, variant, E, N, SEED + 11)
-        cfg = env.cfg
-        args = (tiles, acts, draws, spawn, cfg)
-        got = ops.fused_env_step(*args, want_obs=want_obs)
-        again = ops.fused_env_step(*args, want_obs=want_obs)
-        want = fused_step.fused_env_step_plain(*args, want_obs=want_obs)
-        torch.cuda.synchronize()
-        flat = lambda out: [*out[0].values(), out[1], out[2], *out[3]]  # noqa: E731
-        check(all(bool(torch.equal(a, b)) for a, b in zip(flat(got), flat(again))),
-              f"{tag}: two calls give the same bits")
-        robot_tie, arena_tie = _k4_ties(torch, k, *args, want_obs)
-        exempt, stray, off = 0, [], torch.zeros_like(robot_tie)
-        ints = [(n, robot_tie) for n in fused_step.MACHINE_TILES if n in got[0]]
-        ints += [(n, arena_tie) for n in ("sc", "er", "cg", "prev")]
-        for name, tie in ints + [("reward", arena_tie), ("done", arena_tie)]:
-            g = got[0][name] if name in got[0] else got[1 if name == "reward" else 2]
-            w = want[0][name] if name in want[0] else want[1 if name == "reward" else 2]
-            bad = g != w
-            exempt += int((bad & tie.expand_as(bad)).sum())
-            if bool((bad & ~tie.expand_as(bad)).any()):
-                stray.append(name)
-            off |= bad.any(0, keepdim=True) if bad.shape[0] == 1 else bad
-        check(not stray, f"{tag}: integer and boolean tiles equal to the plain "
-                         f"version's ({exempt} tie exemptions within {K4_TIE_ULPS} "
-                         f"ulps; mismatches away from a tie: {stray or 'none'})")
-        keep = ~off.any(0)
-        worst = 0.0
-        floats = [(n, got[0][n], want[0][n]) for n in ("px", "py", "yaw")]
-        names = (("prox", "light", "ztilde", "rab_proj") if len(got[3]) == 4
-                 else ("ztilde",))
-        floats += list(zip(names, got[3], want[3]))
-        for name, g, w in floats:
-            rtol = 2e-5 if name == "rab_proj" else 0.0
-            err, ok = max_err(g[:, keep], w[:, keep], K4_TOL[name], rtol)
-            worst = max(worst, err)
-            check(ok and g.shape == w.shape,
-                  f"{tag} {name} {tuple(g.shape)}: max|Δ| {err:.3e} "
-                  f"(tolerance {K4_TOL[name]:g} + {rtol:g}·|plain|)")
-        dones = int(got[2].sum())
-        moved = int((got[0]["es"] != tiles["es"]).sum()) if "es" in tiles else -1
-        check(dones > 0, f"{tag}: {dones} arenas reset, "
-                         f"{float(got[1].abs().sum()):.0f} reward counts, {moved} "
-                         "exploration latches moved")
-        del got, again, want
+        env, k, args, worst = _k4_hold(torch, ops, variant, want_obs, E, N, tag)
+        cfg, tiles = env.cfg, args[0]
         forms[(variant, want_obs, E, N)] = dict(max_abs_err=worst)
         if N != N_MAIN:   # a ragged shape: held, not timed
             continue
@@ -1810,6 +1861,233 @@ def phase_fused_step(torch, ops, cycles_per_ms):
                  **{**forms[("daisy", True, E_MAIN, N_MAIN)],
                     "max_abs_err": max(f["max_abs_err"] for f in forms.values())},
                  **_bench_keys(forms[("daisy", True, E_BENCH, N_MAIN)]))]
+
+
+# ── phase 2i: the env kernels' wide route ────────────────────────────────
+
+N_WIDE = 64                         # robots of the timed wide shapes
+# (E, N) of phase 2i: one arena past the tuned kernels' 32 robots, a ragged
+# E, the timed shape, a count past 96 (four robot passes of a K4 block)
+WIDE_ENV_SHAPES = ((1, 33), (37, 40), (E_MAIN, N_WIDE), (5, 100))
+# shapes past the shared-memory staging, held and not timed: K1 and K2 read
+# the arena from global memory past 4,096 robots, K4's block buffers live in
+# a global scratch past 256
+WIDE_ENV_GLOBAL = {"K1": (2, 4100), "K2": (2, 4100), "K4": (3, 300)}
+WIDE_ENV_KERNELS = {"pairwise_wide": ("pairwise_sensors_wide_kernel",
+                                      "robot_collisions_wide_kernel"),
+                    "fused_step_wide": ("fused_step_wide_kernel",)}
+N_LANES_RUN, LANES_RUN_STEPS = 40, 20  # 2i's daisy step_lanes run at E_MAIN
+K1_TOL = {"prox": (1e-6, 0.0), "ztilde": (1e-6, 0.0), "rab_proj": (1e-5, 1e-5),
+          "attr_x": (1e-5, 1e-5), "attr_y": (1e-5, 1e-5)}
+
+
+def _rab_term_scale(torch, pos, cfg):
+    """Per robot (E, N), in float64, the sums of the magnitudes of K1's RAB
+    terms: Σ_j 1/(d_ij + ε) over the neighbours in range (for rab_proj, a
+    unit vector's projection of that sum) and Σ_j α/(1 + d_ij) (for the
+    attraction vector). Two float32 sums of n terms in different orders
+    differ by up to about n·2⁻²⁴ of the sum of their terms' magnitudes,
+    which K1-wide's tolerance takes in place of |plain|: a near pair's 1/d
+    terms cancel, and the sum of up to 63 of them can be far below them."""
+    out = {"rab_proj": 0.0, "attr_x": 0.0, "attr_y": 0.0}
+    parts = []
+    for e0 in range(0, pos.shape[0], 1024):
+        p = pos[e0:e0 + 1024].double()
+        d = torch.sqrt(((p[:, None] - p[:, :, None]) ** 2).sum(-1) + 1e-8)
+        eye = torch.eye(p.shape[1], dtype=torch.bool, device=p.device)
+        on = (d < cfg.rab_range) & ~eye
+        parts.append(((on / (d + 1e-8)).sum(-1), (on * cfg.alpha_parameter / (1 + d)).sum(-1)))
+    w = torch.cat([a for a, _ in parts])
+    a = torch.cat([b for _, b in parts])
+    out.update(rab_proj=w, attr_x=a, attr_y=a)
+    return out
+
+
+def _grid_poses(rng, cfg, E, N, pitch=0.15):
+    """Robots on a square grid of ``pitch`` about the arena's centre,
+    jittered by up to 0.03, headings uniform: a few neighbours each within
+    the sensors' reach, walls in reach of the middle ones."""
+    side = int(np.ceil(np.sqrt(N)))
+    k = np.arange(N)
+    grid = (np.stack([k % side, k // side], -1) - (side - 1) / 2) * pitch
+    pos = (grid[None] + rng.uniform(-0.03, 0.03, (E, N, 2))).astype(np.float32)
+    return pos, rng.uniform(-np.pi, np.pi, (E, N)).astype(np.float32)
+
+
+def _routed(torch, ops, fn, wide_name, tuned_name, what):
+    """``fn()`` from counts of 0, checking that it launched the wide
+    kernel once and the tuned one never."""
+    ops.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    n_wide, n_tuned = ops.launches[wide_name], ops.launches[tuned_name]
+    check(n_wide == 1 and n_tuned == 0,
+          f"{what}: the wide route ran ({wide_name} {n_wide}, {tuned_name} {n_tuned})")
+    return out
+
+
+def phase_env_wide(torch, ops, cfg, walls, cycles_per_ms):
+    """K1, K2 and K4 at robot counts past the tuned kernels' 32
+    (``pairwise_wide.cu``, ``fused_step_wide.cu``), through ``ops``: each
+    against its plain version at WIDE_ENV_SHAPES and WIDE_ENV_GLOBAL, two
+    calls bit for bit, the wide counter moved and the tuned one not; K1 and
+    K2 also at (E_BENCH, N_WIDE); each timed at (E_MAIN, N_WIDE) beside its
+    plain version and its bound, K1 and K2 also at (E_BENCH, N_WIDE); then
+    LANES_RUN_STEPS daisy ``step_lanes`` steps at N_LANES_RUN, each one
+    K4-wide launch. Returns the JSON rows and that run's launches."""
+    from swarmacb_torch.config import DirectionalGateEnvCfg
+    from swarmacb_torch.env import DirectionalGateEnv, lanes, physics
+    from swarmacb_torch.ops import _cuda, fused_step, pairwise
+
+    t0 = time.perf_counter()
+    print(f"== phase 2i: the env kernels' wide route (pairwise_wide.cu, fused_step_wide.cu) at "
+          f"(E, N) in {WIDE_ENV_SHAPES}, past the shared-memory staging at "
+          f"{WIDE_ENV_GLOBAL}, K1 and K2 also at ({E_BENCH}, {N_WIDE})", flush=True)
+    for source, kernels in WIDE_ENV_KERNELS.items():
+        for name, info in ptxas_report(_cuda.build_log(source), kernels).items():
+            print(f"  ptxas {source} {name}: {info}", flush=True)
+    kw = dict(prox_range=cfg.prox_range, robot_radius=cfg.robot_radius,
+              rab_range=cfg.rab_range, alpha_rab=cfg.alpha_parameter, wall_segments=walls)
+    r = cfg.robot_radius
+    err = {"K1": 0.0, "K2": 0.0, "K4": 0.0}
+    timed = {}
+
+    def k1_at(E, N, poses=_arena_poses):
+        pos_np, yaw_np = poses(np.random.default_rng(SEED), cfg, E, N)
+        pos, yaw = (torch.from_numpy(a).to(DEVICE) for a in (pos_np, yaw_np))
+        call = lambda: ops.pairwise_sensors(pos, yaw, **kw)  # noqa: E731
+        got = _routed(torch, ops, call, "pairwise_sensors_wide", "pairwise_sensors",
+                      f"K1 E={E} N={N}")
+        again = call()
+        want = pairwise.pairwise_sensors_plain(pos, yaw, **kw)
+        torch.cuda.synchronize()
+        scale = _rab_term_scale(torch, pos, cfg)
+        for (name, (atol, rtol)), g, w in zip(K1_TOL.items(), got, want):
+            if name in scale:   # a sum of up to N − 1 terms, in another order
+                s_ = scale[name].reshape(w.shape[:2] + (1,) * (w.dim() - 2)).expand_as(w)
+                diff = (g.double() - w.double()).abs()
+                e, ok = float(diff.max()), bool((diff <= atol + rtol * s_).all())
+                rule = f"{atol:g} + {rtol:g}·Σ|term|"
+            else:
+                e, ok = max_err(g, w, atol, rtol)
+                rule = f"{atol:g} + {rtol:g}·|plain|"
+            err["K1"] = max(err["K1"], e)
+            check(ok and g.shape == w.shape, f"K1-wide E={E} N={N} {name} {tuple(g.shape)}: "
+                  f"max|Δ| {e:.3e} (tolerance {rule})")
+        check(all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+              and float(got[0].max()) > 0 and float(got[2].abs().max()) > 0,
+              f"K1-wide E={E} N={N}: two calls give the same bits; readings non-trivial")
+        del got, again, want
+        if N == N_WIDE:
+            b_ms, b_by = bound_ms(*_sensor_work(pos_np, yaw_np, cfg, walls.cpu().numpy()))
+            t = dict(ms=device_ms(torch, call, cycles_per_ms), bound_ms=b_ms, bound_by=b_by)
+            if E == E_MAIN:
+                t["plain_ms"] = device_ms(
+                    torch, lambda: pairwise.pairwise_sensors_plain(pos, yaw, **kw),
+                    cycles_per_ms)
+            timed[("K1", E)] = t
+            print(f"  K1-wide E={E} N={N}: kernel {t['ms']:.4f} ms"
+                  + (f", plain {t['plain_ms']:.4f} ms" if "plain_ms" in t else "")
+                  + f", bound {b_ms:.6f} ms ({b_by})", flush=True)
+
+    def k2_at(E, N, kinds=("spread", "packed", "tie")):
+        for kind, p_np in _collision_inputs(cfg, E, N).items():
+            if kind not in kinds:
+                continue
+            p = torch.from_numpy(p_np).to(DEVICE)
+            call = lambda: ops.resolve_robot_collisions(p, r)  # noqa: E731
+            got = _routed(torch, ops, call, "resolve_robot_collisions_wide",
+                          "resolve_robot_collisions", f"K2 E={E} N={N} {kind}")
+            again = call()
+            want = physics.resolve_robot_collisions(p, r)
+            torch.cuda.synchronize()
+            e, ok = max_err(got, want, 1e-6, 0.0)
+            err["K2"] = max(err["K2"], e)
+            moved = float((got - p).abs().max())
+            check(ok and bool(torch.equal(got, again)) and moved > 1e-4,
+                  f"K2-wide E={E} N={N} {kind}: max|Δ| {e:.3e} (tolerance 1e-06), two calls "
+                  f"bit-identical, largest push {moved:.3e}")
+            del got, again, want
+            if N == N_WIDE and kind == "spread":
+                b_ms, b_by = bound_ms(*_collision_work(p_np, r))
+                t = dict(ms=device_ms(torch, call, cycles_per_ms), bound_ms=b_ms, bound_by=b_by)
+                if E == E_MAIN:
+                    t["plain_ms"] = device_ms(
+                        torch, lambda: physics.resolve_robot_collisions(p, r), cycles_per_ms)
+                timed[("K2", E)] = t
+                print(f"  K2-wide E={E} N={N} spread: kernel {t['ms']:.4f} ms"
+                      + (f", plain {t['plain_ms']:.4f} ms" if "plain_ms" in t else "")
+                      + f", bound {b_ms:.6f} ms ({b_by})", flush=True)
+
+    def k4_at(variant, want_obs, E, N):
+        tag = f"K4-wide {variant}{'' if want_obs else ' (no obs)'} E={E} N={N}"
+        ops.reset_launches()
+        env, k, args, e = _k4_hold(torch, ops, variant, want_obs, E, N, tag, own_poses=True)
+        check(ops.launches["fused_env_step_wide"] == 2 and ops.launches["fused_env_step"] == 0,
+              f"{tag}: the wide route ran (fused_env_step_wide "
+              f"{ops.launches['fused_env_step_wide']}, fused_env_step "
+              f"{ops.launches['fused_env_step']})")
+        err["K4"] = max(err["K4"], e)
+        if N != N_WIDE or not want_obs or variant != "daisy":
+            return
+        cfg4 = env.cfg
+        n_bytes, n_flops = _k4_work(E, N, len(k.segments), len(k.faces), 1, True, True,
+                                    cfg4.discrete_actions)
+        b_ms, b_by = bound_ms(n_bytes, n_flops)
+        t = dict(ms=device_ms(torch, lambda: ops.fused_env_step(*args), cycles_per_ms),
+                 plain_ms=device_ms(torch, lambda: fused_step.fused_env_step_plain(*args),
+                                    cycles_per_ms), bound_ms=b_ms, bound_by=b_by)
+        timed[("K4", E)] = t
+        print(f"  K4-wide daisy E={E} N={N}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
+              f"{n_flops / 1e9:.4f} GFLOP)", flush=True)
+
+    for E, N in WIDE_ENV_SHAPES:
+        k1_at(E, N)
+        k2_at(E, N)
+        k4_at("daisy", True, E, N)
+    for variant, want_obs in K4_FORMS[1:]:
+        k4_at(variant, want_obs, *WIDE_ENV_SHAPES[1])
+    k1_at(E_BENCH, N_WIDE)
+    k2_at(E_BENCH, N_WIDE)
+    # thousands of robots: K1 on a grid, whose sums stay short, K2 on spread
+    # and tie positions (packed, each push would sum thousands of overlaps)
+    k1_at(*WIDE_ENV_GLOBAL["K1"], poses=_grid_poses)
+    k2_at(*WIDE_ENV_GLOBAL["K2"], kinds=("spread", "tie"))
+    k4_at("daisy", True, *WIDE_ENV_GLOBAL["K4"])
+
+    # a daisy run on the fused env path at N_LANES_RUN robots: K4-wide alone
+    env = DirectionalGateEnv(DirectionalGateEnvCfg(variant="daisy", num_envs=E_MAIN,
+                                                   num_agents=N_LANES_RUN), device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 21)
+    st, _ = env.reset(gen)
+    cur = lanes.state_to_lanes(env, st)
+    ids = lanes.actions_to_lanes(env, torch.randint(
+        0, 6, (E_MAIN, N_LANES_RUN), generator=gen, device=DEVICE, dtype=torch.int32))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for _ in range(LANES_RUN_STEPS):
+        cur, reward, done, obs = lanes.step_lanes(env, cur, ids)
+    torch.cuda.synchronize()
+    run = {k: v for k, v in ops.launches.items() if v}
+    finite = all(bool(torch.isfinite(t).all()) for t in (cur["px"], cur["py"], *obs))
+    check(run == {"fused_env_step_wide": LANES_RUN_STEPS} and finite,
+          f"daisy step_lanes, E={E_MAIN} N={N_LANES_RUN}, {LANES_RUN_STEPS} steps: launches "
+          f"{run}, positions and observations finite")
+    print(f"  phase 2i {time.perf_counter() - t0:.1f} s", flush=True)
+    rows = []
+    for key, name, source, replaces in (
+            ("K1", "pairwise_sensors_wide", "pairwise_wide.cu", "pairwise.py:145"),
+            ("K2", "resolve_robot_collisions_wide", "pairwise_wide.cu", "pairwise.py:246"),
+            ("K4", "fused_env_step_wide", "fused_step_wide.cu", "fused_step.py:530")):
+        row = dict(name=name, route="cuda", source=f"swarmacb_torch/ops/csrc/{source}",
+                   replaces=f"swarmacb_tpu/ops/{replaces}", library_ms=None,
+                   max_abs_err=err[key], **timed[(key, E_MAIN)])
+        if (key, E_BENCH) in timed:
+            row.update(_bench_keys(timed[(key, E_BENCH)]))
+        rows.append(row)
+    return rows, run
 
 
 # ── phase 3: the slice ───────────────────────────────────────────────────
@@ -3106,6 +3384,200 @@ def phase_drift(torch, card):
     print(f"  phase 3k {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ── phase 3l: manual control on the card ─────────────────────────────────
+
+MC_FRAMES, MC_HZ, MC_SIM_HZ = 100, 10.0, 60.0   # --hz 10 --sim-hz 60: 6 sub-steps
+MC_SMOKE_FRAMES = 20
+# Poses card against CPU, a frame from one state: positions to the CPU
+# test's 2e-6 m; headings to 4 float32 ulps of π a sub-step, since each
+# sub-step wraps the heading through atan2(sin, cos) (physics.py), which
+# CUDA's libdevice (sinf, cosf within 2 ulps, atan2f 3) and the CPU's
+# libm round apart, where the CPU test's two sides share the CPU's.
+MC_POS_TOL = 2e-6
+MC_YAW_ULPS = 4
+MC_SENSOR_TOL = {"prox_vals": 2e-6, "ztilde": 2e-6, "rab_proj": 5e-5, "rab_x": 5e-5,
+                 "rab_y": 5e-5, "light_vals": 2e-5, "light_value": 2e-5, "prox_value": 2e-5}
+MC_FIELDS = ("explore_state", "explore_steps", "explore_dir", "photo_avoiding",
+             "photo_steps", "photo_dir", "antiphoto_avoiding", "antiphoto_steps",
+             "antiphoto_dir")
+
+
+def _mc_ties(torch, cache, path, cfg, k):
+    """Whether a frame holds a tie, within K4_TIE_ULPS ulps: a robot's
+    obstacle or turn test on its proximity sums (against Σ|term|, where
+    that is not zero: a sum of no readings is exactly zero on both
+    devices), or a robot near a ground-zone edge at any sub-step (against
+    1 m)."""
+    win = K4_TIE_ULPS * float(np.finfo(np.float32).eps)
+    v = cache["prox_vals"].double().cpu()
+    cos_a = torch.tensor(k.cos_a, dtype=torch.float64)
+    sin_a = torch.tensor(k.sin_a, dtype=torch.float64)
+    tx, ty = v * cos_a, v * sin_a
+    sx, sy = tx.sum(-1), ty.sum(-1)
+    scx, scy = tx.abs().sum(-1), ty.abs().sum(-1)
+    value = torch.clamp(torch.hypot(sx, sy), max=1.0)
+    if bool((((sx.abs() <= win * scx) & (scx > 0)) | ((sy.abs() <= win * scy) & (scy > 0))
+             | ((value - cfg.prox_threshold).abs() <= win * (scx + scy))).any()):
+        return True
+    for p in path:
+        x, y = p[..., 0].double().abs().cpu(), p[..., 1].double().cpu()
+        for b in (k.gate_zone_hw, k.corr_hw):
+            if bool(((x - b).abs() <= win).any()):
+                return True
+        for b in (k.gate_south, k.corr_south, k.ni):
+            if bool(((y - b).abs() <= win).any()):
+                return True
+    return False
+
+
+def phase_manual_control(torch, ops, card):
+    """``scripts/manual_control_torch.py``'s core on the card: MC_FRAMES
+    frames at ``--sim-hz 60`` (6 sub-steps) at N = 20 (the tuned K1 and K2)
+    and N = 40 (their wide route), from the card's reset with one log of
+    wheels, module ids and turn durations; each frame also stepped on the
+    CPU from the card's state (teacher-forced): positions to 2e-6, headings
+    to MC_YAW_ULPS ulps of π a sub-step, K⁺, K⁻ and the behaviour machines
+    exactly but for a frame with a tie, the HUD's sensor values to K1's
+    plain-version tolerances. Counts
+    the launches (K1 once and K2 six times a frame) and prints the median
+    frame time beside the 100 ms that ``--hz 10`` allows; then runs the
+    script headless if pygame imports. Returns the N = 40 run's launches."""
+    from swarmacb_torch.ops import fused_step
+
+    t0 = time.perf_counter()
+    mc = _script("manual_control_torch")
+    substeps = mc.substeps_for(MC_HZ, MC_SIM_HZ)
+    print(f"== phase 3l: manual control (manual_control_torch.py's core) on the card, "
+          f"{MC_FRAMES} frames at --hz {MC_HZ:g} --sim-hz {MC_SIM_HZ:g} ({substeps} sub-steps), "
+          f"N = 20 and 40, against the CPU frame by frame", flush=True)
+    out = {}
+    for N in (20, 40):
+        env, _, st = mc.build(N, DEVICE, SEED)
+        cpu_env = mc.build(N, "cpu", SEED)[0]
+        k = fused_step.constants(env.cfg)
+        dt_sub = env.cfg.dt / substeps
+        ms = env.cfg.max_wheel_speed
+        rng = np.random.default_rng(SEED + N)
+        log = [((float(w[0]), float(w[1])), (f // 17) % 6,
+                {n: rng.integers(1, 5, (1, N)).astype(np.int32) for n in mc.DURATIONS})
+               for f, w in enumerate(rng.uniform(-ms, ms, (MC_FRAMES, 2)).astype(np.float32))]
+        kp_tot = km_tot = torch.zeros((), device=DEVICE)
+        worst = {"pos": 0.0, "yaw": 0.0, **{n: 0.0 for n in MC_SENSOR_TOL}}
+        yaw_tol = substeps * MC_YAW_ULPS * float(np.spacing(np.float32(np.pi)))
+        bad, ties, frame_ms = [], 0, []
+        ops.reset_launches()
+        for f, (wheels, mod, dur) in enumerate(log):
+            host = dataclasses.replace(
+                st, pos=st.pos.cpu(), yaw=st.yaw.cpu(), prev_ground=st.prev_ground.cpu(),
+                behavior=type(st.behavior)(**{n: getattr(st.behavior, n).cpu()
+                                              for n in MC_FIELDS}),
+                generator=torch.Generator())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st, cache, kp, km = mc.mixed_step(
+                env, st, wheels, mod, {n: torch.from_numpy(v).to(DEVICE) for n, v in dur.items()},
+                substeps, dt_sub)
+            kp_tot, km_tot = kp_tot + kp, km_tot + km
+            hud = mc.read_hud(st, cache, kp_tot, km_tot)    # the frame's one copy
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+            path = []   # the CPU step launches nothing
+            want, wcache, wkp, wkm = mc.mixed_step(
+                cpu_env, host, wheels, mod, {n: torch.from_numpy(v) for n, v in dur.items()},
+                substeps, dt_sub, path=path)
+            dpos = float((st.pos.cpu() - want.pos).abs().max())
+            dyaw = float((st.yaw.cpu() - want.yaw).abs().max())
+            exact = (float(kp) == float(wkp) and float(km) == float(wkm)
+                     and all(bool(torch.equal(getattr(st.behavior, n).cpu(),
+                                              getattr(want.behavior, n))) for n in MC_FIELDS))
+            worst["pos"], worst["yaw"] = max(worst["pos"], dpos), max(worst["yaw"], dyaw)
+            if dpos > MC_POS_TOL or dyaw > yaw_tol or not exact:   # exempt only at a tie
+                if _mc_ties(torch, wcache, path, env.cfg, k):
+                    ties += 1
+                else:
+                    bad.append(f)
+            for n, tol in MC_SENSOR_TOL.items():
+                e = float((cache[n].cpu() - wcache[n]).abs().max())
+                worst[n] = max(worst[n], e)
+                if e > tol:
+                    bad.append(f)
+        launches = {n: v for n, v in ops.launches.items() if v}
+        expect = ({"pairwise_sensors": MC_FRAMES, "resolve_robot_collisions": MC_FRAMES * substeps}
+                  if N <= 32 else {"pairwise_sensors_wide": MC_FRAMES,
+                                   "resolve_robot_collisions_wide": MC_FRAMES * substeps})
+        check(launches == expect, f"manual control N={N}: launches {launches} (expected "
+                                  f"{expect}: K1 once and K2 {substeps} times a frame)")
+        check(not bad, f"manual control N={N}: {MC_FRAMES} frames against the CPU, positions "
+              f"max|Δ| {worst['pos']:.3e} m (tolerance {MC_POS_TOL:g}), headings "
+              f"{worst['yaw']:.3e} rad (tolerance {yaw_tol:.3e}), K+ K- and machines exact, "
+              f"sensors {', '.join(f'{n} {worst[n]:.2e}' for n in MC_SENSOR_TOL)} "
+              f"({ties} frames off at a tie, exempted; frames off: {sorted(set(bad))[:5]})")
+        check(bool(np.isfinite(hud["pos"]).all()), f"manual control N={N}: K+ {hud['k_plus']:.0f}, "
+              f"K- {hud['k_minus']:.0f} after {MC_FRAMES} frames, positions finite")
+        med = statistics.median(frame_ms)
+        print(f"  manual control N={N}: median frame {med:.3f} ms (min {min(frame_ms):.3f}, max "
+              f"{max(frame_ms):.3f}; the core and the HUD's one copy) against the "
+              f"{1e3 / MC_HZ:.0f} ms that --hz {MC_HZ:g} allows; on {card}", flush=True)
+        out[N] = launches
+    if importlib.util.find_spec("pygame") is None:
+        print("  pygame does not import on this machine: the headless run of "
+              "manual_control_torch.py is not made (the core above is the check)", flush=True)
+    else:
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "manual_control_torch.py"), "--smoke-frames",
+             str(MC_SMOKE_FRAMES), "--sim-hz", str(MC_SIM_HZ), "--num_agents", "40"],
+            capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env={**os.environ, "SDL_VIDEODRIVER": "dummy"})
+        line = next((ln for ln in proc.stdout.splitlines() if "smoke OK" in ln), "")
+        check(proc.returncode == 0 and bool(line),
+              f"manual_control_torch.py --smoke-frames {MC_SMOKE_FRAMES} headless on the card: "
+              f"rc {proc.returncode}, {line or proc.stderr[-300:]}")
+    print(f"  phase 3l {time.perf_counter() - t0:.1f} s", flush=True)
+    return out[40]
+
+
+# ── phase 3m: the E sweep on the card ────────────────────────────────────
+
+SWEEP_ENVS, SWEEP_HORIZON, SWEEP_ITERS = (16, 256), 200, 1
+
+
+def phase_sweep(torch, ops, card):
+    """``scripts/sps_sweep_torch.py`` cut short: dandelion at E in
+    SWEEP_ENVS, T = SWEEP_HORIZON, SWEEP_ITERS timed iteration, on the
+    card: each line's decisions/s against horizon·E·N over ``iter_s``, a
+    finite positive phase split, and the kernels it launched (K1, K2, K3f
+    and K3b; three iterations: the first, the timed one, the split one)."""
+    t0 = time.perf_counter()
+    sweep = _script("sps_sweep_torch")
+    print(f"== phase 3m: the E sweep (sps_sweep_torch.py), dandelion, E in {SWEEP_ENVS}, "
+          f"T={SWEEP_HORIZON}, {SWEEP_ITERS} timed iteration", flush=True)
+    for E in SWEEP_ENVS:
+        ops.reset_launches()
+        r = sweep.measure("dandelion", E, SWEEP_ITERS, SWEEP_HORIZON, False, True,
+                          device=DEVICE)
+        torch.cuda.synchronize()
+        launches = {n: v for n, v in ops.launches.items() if v}
+        print("  sweep: " + json.dumps(r), flush=True)
+        its = 2 + SWEEP_ITERS
+        decisions = r["horizon"] * E * N_MAIN * r["iters"]
+        ps = r["phase_split_s"]
+        check(abs(r["decisions_per_sec"] - decisions / r["iter_s"])
+              <= decisions / r["iter_s"] ** 2 * 5e-4 + 0.5
+              and all(np.isfinite(ps[n]) and ps[n] > 0 for n in
+                      ("rollout", "prep", "mb_steps_total", "blocked_iter"))
+              and r["card"] == card,
+              f"sweep E={E}: {r['decisions_per_sec']:,} training agent-decisions/s "
+              f"(iter {r['iter_s']} s), phases rollout {ps['rollout']} s, prep {ps['prep']} s, "
+              f"minibatch steps {ps['mb_steps_total']} s ({ps['n_mb_steps']}), blocked "
+              f"iteration {ps['blocked_iter']} s, on {r['card']}")
+        check(launches.get("pairwise_sensors") == its * SWEEP_HORIZON + 1
+              and launches.get("resolve_robot_collisions") == its * SWEEP_HORIZON
+              and launches.get("fused_tail", 0) > 0 and launches.get("fused_tail_bwd", 0) > 0
+              and set(launches) == {"pairwise_sensors", "resolve_robot_collisions",
+                                    "fused_tail", "fused_tail_bwd"},
+              f"sweep E={E}: launches {launches} over {its} iterations")
+    print(f"  phase 3m {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # ── main ─────────────────────────────────────────────────────────────────
 
 def main() -> int:
@@ -3139,8 +3611,11 @@ def main() -> int:
     phase_critic_paths(torch, cycles_per_ms)
     rows += phase_fused_step(torch, ops, cycles_per_ms)
     rows += phase_wide(torch, ops, card, cycles_per_ms)
+    wide_env_rows, lanes_run = phase_env_wide(torch, ops, env.cfg, env.wall_segments,
+                                              cycles_per_ms)
+    rows += wide_env_rows
     # each path with its counts set to 0 just before and read just after
-    launches, walls = {}, {}
+    launches, walls = {"daisy_lanes_n40": lanes_run}, {}
     for fused in (False, True):
         trainer = phase_slice(torch, ops, card, fused_attention=fused)
         path = "fused_attention" if fused else "tail"
@@ -3161,7 +3636,10 @@ def main() -> int:
                          ("3h", lambda: phase_mixed_precision(torch, ops, card, walls)),
                          ("3i", lambda: phase_seeds(torch, ops, card)),
                          ("3j", lambda: phase_data_parallel(torch, ops, card)),
-                         ("3k", lambda: phase_drift(torch, card))):
+                         ("3k", lambda: phase_drift(torch, card)),
+                         ("3l", lambda: launches.update(
+                             manual_control_n40=phase_manual_control(torch, ops, card))),
+                         ("3m", lambda: phase_sweep(torch, ops, card))):
         try:
             phase()
         except (Exception, SystemExit) as exc:   # reported as this phase's failure
@@ -3174,7 +3652,10 @@ def main() -> int:
                "fused_env_step": "daisy_fused_env_step",
                "fused_tail_wide": "wide_tail", "fused_tail_wide_bwd": "wide_tail",
                "fused_cf_attention_wide": "wide_fused_attention",
-               "fused_cf_attention_wide_bwd": "wide_fused_attention"}
+               "fused_cf_attention_wide_bwd": "wide_fused_attention",
+               "fused_env_step_wide": "daisy_lanes_n40",
+               "pairwise_sensors_wide": "manual_control_n40",
+               "resolve_robot_collisions_wide": "manual_control_n40"}
     for row in rows:
         # phase 3f's --hidden_dim 1024 iterations for the wide route: 0 if 3f failed
         row["launches"] = launches.get(path_of.get(row["name"], "tail"), {}).get(row["name"], 0)

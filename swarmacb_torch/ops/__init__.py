@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), their plain PyTorch
 versions, and the wrappers that pick one by the device of the input.
 
-  pairwise_sensors, resolve_robot_collisions   (pairwise.py, csrc/pairwise.cu)
+  pairwise_sensors, resolve_robot_collisions   (pairwise.py, csrc/pairwise.cu;
+                                                past 32 robots an arena the
+                                                wide route csrc/pairwise_wide.cu)
   fused_tail (forward and backward)            (baseline_tail.py,
                                                 csrc/tail_forward.cu,
                                                 csrc/baseline_tail.cu;
@@ -10,11 +12,12 @@ versions, and the wrappers that pick one by the device of the input.
                                                 csrc/cf_attention.cu; the wide
                                                 route csrc/cf_attention_wide.cu)
   fused_env_step (one whole env control tick)  (fused_step.py,
-                                                csrc/fused_step.cu)
+                                                csrc/fused_step.cu; the wide
+                                                route csrc/fused_step_wide.cu)
 
 ``launches`` counts the kernel launches of each wrapper since the last
-``reset_launches()`` (the critic's wide route under names of its own,
-``fused_tail_wide`` and so on); ``build()`` compiles every kernel up front.
+``reset_launches()`` (the wide routes under names of their own,
+``fused_tail_wide``, ``pairwise_sensors_wide`` and so on); ``build()`` compiles every kernel up front.
 """
 
 from ._cuda import build, launches, reset_launches

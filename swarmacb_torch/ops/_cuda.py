@@ -26,8 +26,12 @@ registers), and ``chip_smoke.py`` (phases 2d, 2e) and
 ``scripts/time_cf_backward.py`` print what ptxas gave each kernel. The
 critic's wide route (``tail_wide.cu``, ``cf_attention_wide.cu``, which
 share ``wide_common.cuh``) takes no cap; ``chip_smoke.py`` phase 2h prints
-its registers and spills. A library's hash covers its source and every
-``csrc/*.cuh`` header, so an edited header rebuilds the sources too.
+its registers and spills. The env kernels' wide route (``pairwise_wide.cu``;
+``fused_step_wide.cu``, which includes ``fused_step.cu`` for its device
+functions) builds with FMA contraction off, as its tuned kernels do. A
+library's hash covers its source, every ``csrc/*.cuh`` header and every
+file the source includes by a quoted ``#include``, so an edited header or
+included source rebuilds the sources that read it.
 
 Nothing here runs when the package is imported: the CPU tests import every
 module, and the CPU has no nvcc.
@@ -38,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -58,6 +63,8 @@ SOURCES = {
     "fused_step": ("-fmad=false",),
     "tail_wide": (),
     "cf_attention_wide": (),
+    "pairwise_wide": ("-fmad=false",),
+    "fused_step_wide": ("-fmad=false",),
 }
 
 _P = ctypes.c_void_p
@@ -65,7 +72,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # C entry points and their argument types (every pointer and the stream
-# as c_void_p, so ctypes never cuts a 64-bit address to an int)
+# as c_void_p, so ctypes never cuts a 64-bit address to an int); the return
+# type is int (a CUDA error code) unless given as (argtypes, restype)
 SIGNATURES = {
     "pairwise": {
         "pairwise_sensors_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
@@ -103,6 +111,15 @@ SIGNATURES = {
         "cf_wide_bwd_sums_launch": [_P] * 8 + [_I, _I, _I, _I, _P],
         "cf_wide_bwd_products_launch": [_P] * 8 + [_I, _I, _I, _I, _F, _P],
     },
+    "pairwise_wide": {
+        "pairwise_sensors_wide_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
+                                         _I, _I, _F, _F, _F, _F, _P],
+        "robot_collisions_wide_launch": [_P, _P, _I, _I, _F, _P],
+    },
+    "fused_step_wide": {
+        "fused_step_wide_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+        "fused_step_wide_scratch_bytes": ([_I, _I], ctypes.c_size_t),
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -119,7 +136,10 @@ launches: dict[str, int] = {"pairwise_sensors": 0,
                             "fused_tail_wide": 0,
                             "fused_tail_wide_bwd": 0,
                             "fused_cf_attention_wide": 0,
-                            "fused_cf_attention_wide_bwd": 0}
+                            "fused_cf_attention_wide_bwd": 0,
+                            "pairwise_sensors_wide": 0,
+                            "resolve_robot_collisions_wide": 0,
+                            "fused_env_step_wide": 0}
 
 
 def reset_launches() -> None:
@@ -144,7 +164,9 @@ def _nvcc() -> str:
 def _target(name: str, nvcc: str) -> tuple[Path, list[str]]:
     src = CSRC / f"{name}.cu"
     flags = [*_COMMON_FLAGS, *SOURCES[name]]
-    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    included = re.findall(r'^#include "([^"]+)"', src.read_text(encoding="utf-8"), re.M)
+    read = set(CSRC.glob("*.cuh")) | {CSRC / f for f in included}
+    headers = b"".join(p.read_bytes() for p in sorted(read))
     digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode())
     out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
     return out, [nvcc, *flags, "-o", str(out), str(src)]
@@ -201,9 +223,10 @@ def library(name: str) -> ctypes.CDLL:
         if not out.exists():
             build([name])
         lib = ctypes.CDLL(str(out))
-        for fn, argtypes in SIGNATURES[name].items():
+        for fn, sig in SIGNATURES[name].items():
+            argtypes, restype = sig if isinstance(sig, tuple) else (sig, ctypes.c_int)
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = restype
         _libs[name] = lib
     return lib
 

@@ -40,9 +40,11 @@ and the band test is here a plain predicate that the CUDA kernel and the
 plain version evaluate alike. (Its bracket is also inconsistent with
 itself, ADVICE.md:6.)
 
-The CUDA kernel is ``csrc/fused_step.cu``. The wrapper dispatches by the
-device of the tiles: a CPU tile takes the plain version, a CUDA tile the
-kernel, or it raises.
+The CUDA kernel is ``csrc/fused_step.cu``, tuned for arenas of up to 32
+robots; past that an arena takes the wide route, ``csrc/fused_step_wide.cu``
+(the same tick, the robots of a block taken in turn), by N alone
+(``route``). The wrapper dispatches by the device of the tiles: a CPU tile
+takes the plain version, a CUDA tile the kernel, or it raises.
 """
 
 from __future__ import annotations
@@ -56,9 +58,13 @@ import torch
 
 from ..env import geometry
 from . import _cuda
+from .pairwise import route
 
 LANES = 128
-MAX_AGENTS = 32
+# Wall segments and faces of the constants table. The env's arena is the
+# mission's polygon of ``arena_num_sides`` faces and the gate's two side
+# walls; no YAML, script or loader sets another side count than the
+# dodecagon's 12, so the kernels see 14 segments and 12 faces.
 MAX_SEGMENTS = 32
 MAX_FACES = 16
 
@@ -448,9 +454,9 @@ def _check_tiles(lanes, actions, draws, spawn, cfg):
         raise ValueError(f"fused_env_step: tiles must lie on the CPU or a CUDA "
                          f"device, got {dev}")
     Ep = px.shape[1]
-    if px.dim() != 2 or px.shape[0] != N or Ep % LANES or N > MAX_AGENTS:
-        raise ValueError(f"fused_env_step: px must be (N<={MAX_AGENTS}, Ep % "
-                         f"{LANES} == 0) with N={N}, got {tuple(px.shape)}")
+    if px.dim() != 2 or px.shape[0] != N or Ep % LANES or N < 1:
+        raise ValueError(f"fused_env_step: px must be (N, Ep % {LANES} == 0) with "
+                         f"N={N} >= 1, got {tuple(px.shape)}")
     f32, i32 = torch.float32, torch.int32
     want = {"px": (N, f32), "py": (N, f32), "yaw": (N, f32), "prev": (N, f32),
             "sc": (1, i32), "er": (1, f32), "cg": (1, f32),
@@ -500,12 +506,21 @@ def _launch(lanes, actions, draws, spawn, cfg, want_obs):
         *(slots[n].data_ptr() if n in slots else None for n in IN_SLOTS + OUT_SLOTS))
     k = constants(cfg)
     table = k.table
-    lib = _cuda.library("fused_step")
-    _cuda.launch(lanes["px"], "fused_env_step", lib.fused_step_launch,
-                 ctypes.cast(ptrs, ctypes.c_void_p), table.ctypes.data, table.size,
-                 len(k.segments), len(k.faces), Ep, N, int(discrete), int(obs24),
-                 int(want_obs), k.max_episode_length)
-    _cuda.launches["fused_env_step"] += 1
+    args = (ctypes.cast(ptrs, ctypes.c_void_p), table.ctypes.data, table.size,
+            len(k.segments), len(k.faces), Ep, N, int(discrete), int(obs24),
+            int(want_obs), k.max_episode_length)
+    if route(N) == "wide":
+        lib = _cuda.library("fused_step_wide")
+        # the block buffers' global home, where they outgrow shared memory
+        n_bytes = lib.fused_step_wide_scratch_bytes(N, Ep)
+        scratch = torch.empty(n_bytes // 4, dtype=torch.float32, device=dev) if n_bytes else None
+        _cuda.launch(lanes["px"], "fused_env_step_wide", lib.fused_step_wide_launch, *args,
+                     None if scratch is None else scratch.data_ptr())
+        _cuda.launches["fused_env_step_wide"] += 1
+    else:
+        lib = _cuda.library("fused_step")
+        _cuda.launch(lanes["px"], "fused_env_step", lib.fused_step_launch, *args)
+        _cuda.launches["fused_env_step"] += 1
     new = {n: out[f"o_{n}"] for n in ("px", "py", "yaw", "prev", "sc", "er", "cg")}
     if discrete:
         new.update({n: out[f"o_{n}"] for n in MACHINE_TILES})

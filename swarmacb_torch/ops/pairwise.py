@@ -1,7 +1,7 @@
 """The env's N² pairwise passes: CUDA kernels and their plain versions.
 
 Counterpart of ``swarmacb_tpu/ops/pairwise.py``. Two kernels in
-``csrc/pairwise.cu``:
+``csrc/pairwise.cu``, tuned for arenas of up to 32 robots:
 
   - ``pairwise_sensors``: the 8-ray wall raycast fused with the robot
     proximity cone test, the range-and-bearing neighbour count, its 4
@@ -9,6 +9,9 @@ Counterpart of ``swarmacb_tpu/ops/pairwise.py``. Two kernels in
   - ``resolve_robot_collisions``: the single Jacobi pass of elastic push-out,
     which skips, exactly, the pairs whose squared distance reaches
     ``collision_skip_d2(robot_radius)``.
+
+Past 32 robots an arena takes the wide route, ``csrc/pairwise_wide.cu``:
+the same two passes, simply, for any robot count (``route``).
 
 Each wrapper dispatches by the device of its input: a CPU tensor goes to
 the plain PyTorch version (the env's own sensor and physics functions), a
@@ -27,8 +30,19 @@ import torch
 from ..env import physics, sensors
 from . import _cuda
 
-MAX_AGENTS = 32
+TUNED_MAX_AGENTS = 32   # robots an arena of the tuned kernels: a 32-bit mask a robot
+# Wall segments the kernels stage. The env's arena is the mission's polygon
+# of ``arena_num_sides`` faces and the gate's two side walls; no YAML,
+# script or loader sets another side count than the dodecagon's 12, so the
+# kernels see 14 segments.
 MAX_SEGMENTS = 64
+
+
+def route(N) -> str:
+    """The kernels a CUDA call takes for arenas of N robots, by N alone:
+    "tuned" (``csrc/pairwise.cu``, ``csrc/fused_step.cu``) where N <= 32,
+    "wide" (``csrc/pairwise_wide.cu``, ``csrc/fused_step_wide.cu``) past it."""
+    return "tuned" if N <= TUNED_MAX_AGENTS else "wide"
 
 
 def pairwise_sensors_plain(pos, yaw, *, prox_range, robot_radius, rab_range,
@@ -110,23 +124,25 @@ def pairwise_sensors(pos, yaw, *, prox_range, robot_radius, rab_range,
         raise ValueError(f"pairwise_sensors: bad shapes pos {tuple(pos.shape)}"
                          f" yaw {tuple(yaw.shape)} "
                          f"segments {tuple(wall_segments.shape)}")
-    if N > MAX_AGENTS or S > MAX_SEGMENTS:
-        raise ValueError(f"pairwise_sensors: the kernel takes N <= {MAX_AGENTS}"
-                         f" robots and <= {MAX_SEGMENTS} segments, got N={N},"
-                         f" S={S}")
+    if N < 1 or S > MAX_SEGMENTS:
+        raise ValueError(f"pairwise_sensors: the kernels take N >= 1 robots and "
+                         f"<= {MAX_SEGMENTS} segments, got N={N}, S={S}")
     consts = cached_sensor_constants(wall_segments)
     prox = torch.empty((E, N, 8), dtype=torch.float32, device=pos.device)
     ztilde = torch.empty((E, N), dtype=torch.float32, device=pos.device)
     rab_proj = torch.empty((E, N, 4), dtype=torch.float32, device=pos.device)
     attr_x = torch.empty((E, N), dtype=torch.float32, device=pos.device)
     attr_y = torch.empty((E, N), dtype=torch.float32, device=pos.device)
-    lib = _cuda.library("pairwise")
-    _cuda.launch(pos, "pairwise_sensors", lib.pairwise_sensors_launch,
+    wide = route(N) == "wide"
+    lib = _cuda.library("pairwise_wide" if wide else "pairwise")
+    name = "pairwise_sensors_wide" if wide else "pairwise_sensors"
+    entry = lib.pairwise_sensors_wide_launch if wide else lib.pairwise_sensors_launch
+    _cuda.launch(pos, name, entry,
                  pos.data_ptr(), yaw.data_ptr(), consts.data_ptr(), S,
                  prox.data_ptr(), ztilde.data_ptr(), rab_proj.data_ptr(),
                  attr_x.data_ptr(), attr_y.data_ptr(), E, N, float(prox_range),
                  float(prox_range + robot_radius), float(rab_range), float(alpha_rab))
-    _cuda.launches["pairwise_sensors"] += 1
+    _cuda.launches[name] += 1
     return prox, ztilde, rab_proj, attr_x, attr_y
 
 
@@ -150,13 +166,19 @@ def resolve_robot_collisions(pos, robot_radius):
         return physics.resolve_robot_collisions(pos, robot_radius)
     _check_cuda("resolve_robot_collisions", pos)
     E, N = pos.shape[:2]
-    if pos.shape != (E, N, 2) or N > MAX_AGENTS:
-        raise ValueError(f"resolve_robot_collisions: pos must be (E, N<="
-                         f"{MAX_AGENTS}, 2), got {tuple(pos.shape)}")
+    if pos.shape != (E, N, 2) or N < 1:
+        raise ValueError(f"resolve_robot_collisions: pos must be (E, N>=1, 2), "
+                         f"got {tuple(pos.shape)}")
+    out = torch.empty_like(pos)
+    if route(N) == "wide":
+        lib = _cuda.library("pairwise_wide")
+        _cuda.launch(pos, "resolve_robot_collisions_wide", lib.robot_collisions_wide_launch,
+                     pos.data_ptr(), out.data_ptr(), E, N, float(2.0 * robot_radius))
+        _cuda.launches["resolve_robot_collisions_wide"] += 1
+        return out
     if pos.data_ptr() % 8 != 0:
         raise ValueError("resolve_robot_collisions: pos must be 8-byte aligned "
-                         "(the kernel loads each robot as one float2)")
-    out = torch.empty_like(pos)
+                         "(the tuned kernel loads each robot as one float2)")
     lib = _cuda.library("pairwise")
     _cuda.launch(pos, "resolve_robot_collisions", lib.robot_collisions_launch,
                  pos.data_ptr(), out.data_ptr(), E, N, float(2.0 * robot_radius),

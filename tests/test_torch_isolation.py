@@ -31,7 +31,9 @@ PORT_FILES = (sorted((ROOT / "swarmacb_torch").rglob("*.py"))
                                                 "play_torch.py",
                                                 "eval_checkpoints_torch.py",
                                                 "comm_account_torch.py",
-                                                "measure_drift_torch.py")])
+                                                "measure_drift_torch.py",
+                                                "manual_control_torch.py",
+                                                "sps_sweep_torch.py")])
 
 
 def _imported_modules(path):
@@ -261,7 +263,8 @@ def test_fused_env_step_refuses_a_tile_it_cannot_launch_on():
 def test_every_kernel_source_is_registered_and_plain_c():
     """Each ``csrc/*.cu`` builds on its own (an entry of ``_cuda.SOURCES``
     and ``SIGNATURES``), includes no PyTorch header, and none takes fast
-    math; the sensor and step kernels build with FMA contraction off. The
+    math; the sensor and step kernels, tuned and wide, build with FMA
+    contraction off. The
     tail's forward (``tail_forward.cu``) and backward (``baseline_tail.cu``)
     are two sources: only the backward caps its registers."""
     from swarmacb_torch.ops import _cuda
@@ -275,7 +278,7 @@ def test_every_kernel_source_is_registered_and_plain_c():
                                     for i in includes), name
         flags = (*_cuda._COMMON_FLAGS, *_cuda.SOURCES[name])
         assert not any("fast_math" in f or "fast-math" in f for f in flags), name
-    for name in ("pairwise", "fused_step"):
+    for name in ("pairwise", "fused_step", "pairwise_wide", "fused_step_wide"):
         assert "-fmad=false" in _cuda.SOURCES[name]
     assert _cuda.SOURCES["baseline_tail"] == ("-maxrregcount=168",)
     assert _cuda.SOURCES["tail_forward"] == ()
