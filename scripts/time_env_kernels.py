@@ -4,7 +4,7 @@
 step of one checkout, timed on one NVIDIA GPU, to set two versions of the
 port side by side.
 
-    python3 scripts/time_env_kernels.py [--E 1024 32768] [--root DIR] [--label L]
+    python3 scripts/time_env_kernels.py [--E 1024 32768] [--root DIR] [--label L] [--wide N]
 
 ``--root`` times the package of another checkout (for instance the parent
 commit, unpacked with ``git archive``) through its public entry points,
@@ -37,10 +37,16 @@ card. For each E (daisy, N = 20):
     the events by the host's launches; ``scripts/profile_torch_rollout.py``
     traces its device time.
 
+With ``--wide N`` it times instead K1 and K2 alone at N robots an arena,
+where N > 32 takes their wide route (``pairwise_wide.cu``): K1 on
+``chip_smoke``'s spread poses, K2 on its spread and packed inputs, each
+with a SHA-256 of its outputs' bytes.
+
 Prints the card's name and power limit, the launch floor (an empty
 kernel, ``torch.cuda._sleep(0)``, under the same timing), ptxas's
-registers and spills for the three kernels, and a JSON line. ``chip_smoke.py`` holds the kernels against
-their plain versions and times them beside their bounds.
+registers and spills for the kernels timed, and a JSON line.
+``chip_smoke.py`` holds the kernels against their plain versions and times
+them beside their bounds.
 """
 
 from __future__ import annotations
@@ -73,12 +79,47 @@ def time_k2(torch, cs, ops, cyc, robot_radius, inputs):
     return dict(ms=times, sha256=digest.hexdigest()[:16])
 
 
+def time_wide(torch, cs, ops, cyc, E_list, N, out):
+    """K1 and K2 through their wrappers at (E, N) for each E of ``E_list``
+    (daisy's env otherwise): device ms and a SHA-256 of the outputs."""
+    import numpy as np
+
+    from swarmacb_torch.config import DirectionalGateEnvCfg
+    from swarmacb_torch.env import DirectionalGateEnv
+
+    for E in E_list:
+        res = out["E"][E] = {}
+        env = DirectionalGateEnv(DirectionalGateEnvCfg(variant="daisy", num_envs=E,
+                                                       num_agents=N), device="cuda")
+        cfg = env.cfg
+        pos_np, yaw_np = cs._arena_poses(np.random.default_rng(cs.SEED), cfg, E, N)
+        pos, yaw = torch.from_numpy(pos_np).cuda(), torch.from_numpy(yaw_np).cuda()
+        kw = dict(prox_range=cfg.prox_range, robot_radius=cfg.robot_radius,
+                  rab_range=cfg.rab_range, alpha_rab=cfg.alpha_parameter,
+                  wall_segments=env.wall_segments)
+        k1 = lambda: ops.pairwise_sensors(pos, yaw, **kw)  # noqa: E731
+        digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in k1()))
+        res["k1"] = dict(ms=cs.device_ms(torch, k1, cyc), sha256=digest.hexdigest()[:16])
+        print(f"  E={E} N={N} K1 through its wrapper {res['k1']['ms']:.4f} ms, output "
+              f"sha256 {res['k1']['sha256']}", flush=True)
+        packed = cs._packed_poses(np.random.default_rng(cs.SEED + 1), cfg, E, N)
+        for kind, p_np in (("spread", pos_np), ("packed", packed)):
+            row = res[f"k2_{kind}"] = time_k2(torch, cs, ops, cyc, cfg.robot_radius,
+                                              [torch.from_numpy(p_np).cuda()])
+            print(f"  E={E} N={N} K2 through its wrapper, {kind} inputs: {row['ms'][0]:.4f} "
+                  f"ms, output sha256 {row['sha256']}", flush=True)
+        del env, pos, yaw
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--E", type=int, nargs="+", default=[1024, 32768])
     ap.add_argument("--root", type=Path, default=HERE,
                     help="checkout whose swarmacb_torch is timed")
     ap.add_argument("--label", default="")
+    ap.add_argument("--wide", type=int, default=0, metavar="N",
+                    help="time only K1 and K2, at N robots an arena")
     args = ap.parse_args()
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -106,15 +147,23 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"{card}; timing {root} {args.label}", flush=True)
-    _cuda.build(["pairwise", "fused_step"])
-    for name, kernels in (("pairwise", ("pairwise_sensors_kernel",
-                                         "robot_collisions_kernel")),
-                          ("fused_step", ("fused_step_kernel",))):
+    sources = ((("pairwise_wide", ("pairwise_sensors_wide_kernel",
+                                   "robot_collisions_wide_kernel")),) if args.wide else
+               (("pairwise", ("pairwise_sensors_kernel", "robot_collisions_kernel")),
+                ("fused_step", ("fused_step_kernel",))))
+    _cuda.build([name for name, _ in sources])
+    for name, kernels in sources:
         for k, info in cs.ptxas_report(_cuda.build_log(name), kernels).items():
             print(f"  ptxas {k}: {info}", flush=True)
     cyc = cs._sleep_cycles_per_ms(torch)
     floor = cs.device_ms(torch, lambda: torch.cuda._sleep(0), cyc)
     print(f"  launch floor: an empty kernel {floor:.4f} ms", flush=True)
+    if args.wide:
+        out = dict(card=card, root=str(root), label=args.label, floor_ms=floor, N=args.wide,
+                   E={})
+        time_wide(torch, cs, ops, cyc, args.E, args.wide, out)
+        print(json.dumps(out), flush=True)
+        return 0
 
     run, variant, pcfg, env_ov = load_config(HERE / "configs" / "DirGate_daisy.yaml")
     env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}

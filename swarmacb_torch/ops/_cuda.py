@@ -72,8 +72,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # C entry points and their argument types (every pointer and the stream
-# as c_void_p, so ctypes never cuts a 64-bit address to an int); the return
-# type is int (a CUDA error code) unless given as (argtypes, restype)
+# as c_void_p, so ctypes never cuts a 64-bit address to an int)
 SIGNATURES = {
     "pairwise": {
         "pairwise_sensors_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
@@ -117,8 +116,7 @@ SIGNATURES = {
         "robot_collisions_wide_launch": [_P, _P, _I, _I, _F, _P],
     },
     "fused_step_wide": {
-        "fused_step_wide_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-        "fused_step_wide_scratch_bytes": ([_I, _I], ctypes.c_size_t),
+        "fused_step_wide_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 
@@ -223,10 +221,9 @@ def library(name: str) -> ctypes.CDLL:
         if not out.exists():
             build([name])
         lib = ctypes.CDLL(str(out))
-        for fn, sig in SIGNATURES[name].items():
-            argtypes, restype = sig if isinstance(sig, tuple) else (sig, ctypes.c_int)
+        for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
+            getattr(lib, fn).restype = ctypes.c_int
         _libs[name] = lib
     return lib
 

@@ -29,7 +29,7 @@
 //      write the arena's outputs.
 // The five buffers take 5·8·N floats a block: in shared memory up to
 // kMaxStaged = 256 robots (40 KB), past that in a global scratch that the
-// wrapper allocates (160·N bytes for each block of 8 arenas). Nothing
+// launch allocates (160·N bytes for each block of 8 arenas). Nothing
 // refuses an N >= 1.
 //
 // Numerics: the tuned kernel's, operation by operation (the same functions,
@@ -293,33 +293,33 @@ fused_step_wide_kernel(const __grid_constant__ Consts c, const __grid_constant__
 
 extern "C" {
 
-// Bytes of the global scratch the wide kernel needs at (N, Ep): zero where
-// its buffers fit in shared memory.
-size_t fused_step_wide_scratch_bytes(int N, int Ep) {
-  if (N <= kMaxStaged) return 0;
-  return static_cast<size_t>(Ep / kGroup) * kBuffers * kGroup * N * sizeof(float);
-}
-
-// As fused_step_launch, plus scratch: a device buffer of
-// fused_step_wide_scratch_bytes(N, Ep) bytes where that is not zero.
+// As fused_step_launch. Past kMaxStaged robots the launch takes the block
+// buffers' global scratch from the stream's pool and hands it back after
+// the kernel, both in stream order.
 int fused_step_wide_launch(void* const* ptrs, const float* consts, int n_consts, int n_seg,
                            int n_face, int Ep, int N, int discrete, int obs24, int want_obs,
-                           int max_episode_length, float* scratch, void* stream) {
+                           int max_episode_length, void* stream) {
   if (n_consts * sizeof(float) != sizeof(Consts) || N < 1 || n_seg > kMaxSeg ||
-      n_face > kMaxFace || Ep < 1 || Ep % kGroup ||
-      (fused_step_wide_scratch_bytes(N, Ep) > 0 && scratch == nullptr))
+      n_face > kMaxFace || Ep < 1 || Ep % kGroup)
     return static_cast<int>(cudaErrorInvalidValue);
   Consts c;
   memcpy(&c, consts, sizeof(Consts));
   Ptrs P;
   for (int k = 0; k < kNumSlots; ++k) P.p[k] = ptrs[k];
   const Flags F{Ep, N, n_seg, n_face, discrete, obs24, want_obs, max_episode_length};
-  const bool staged = N <= kMaxStaged;
-  const size_t shared = staged ? kBuffers * kGroup * N * sizeof(float) : 0;
-  fused_step_wide_kernel<<<Ep / kGroup, kWideThreads, shared,
-                           static_cast<cudaStream_t>(stream)>>>(
-      c, P, F, staged ? nullptr : scratch);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t buffers = static_cast<size_t>(kBuffers) * kGroup * N * sizeof(float);
+  float* scratch = nullptr;
+  if (N > kMaxStaged) {
+    const cudaError_t err = cudaMallocAsync(reinterpret_cast<void**>(&scratch),
+                                            buffers * (Ep / kGroup), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fused_step_wide_kernel<<<Ep / kGroup, kWideThreads, scratch ? 0 : buffers, s>>>(
+      c, P, F, scratch);
+  const cudaError_t err = cudaGetLastError();
+  if (scratch != nullptr) cudaFreeAsync(scratch, s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

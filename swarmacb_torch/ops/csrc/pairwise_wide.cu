@@ -10,10 +10,10 @@
 //                                    (Pallas body _collision_kernel)
 //
 // A simple design: a block works on one arena (blockIdx.x), its robots
-// split over blockIdx.y and, past the grid, looped; the arena's positions
-// are staged in shared memory by one coalesced pass, 8 bytes a robot, up to
-// kMaxStaged robots (32 KB). Past that the kernels read them from global
-// memory, where L1 and L2 serve the re-reads; nothing refuses an N >= 1.
+// split over blockIdx.y and, past the grid, looped. Each thread reads the
+// arena's positions, 8 bytes a robot, straight from global memory, where L1
+// and L2 serve the re-reads (staging them in shared memory was no faster at
+// (1024, 64) or (32768, 64); PERF.md); nothing refuses an N >= 1.
 //
 // pairwise_sensors_wide_kernel: eight lanes a robot, one a sensor ray, 32
 // robots a block. Lane (i, s) takes the range-and-bearing terms of the
@@ -47,30 +47,19 @@ constexpr int kMaxSeg = 64;           // wall segments
 constexpr int kConstHead = 2 * kSensors + 2 * kRabProj;
 constexpr int kSensorRobots = 32;     // robots a block of the sensor pass
 constexpr int kCollisionThreads = 128;
-constexpr int kMaxStaged = 4096;      // robots staged in shared memory (32 KB)
 constexpr int kMaxGridY = 65535;
-
-// The arena's positions, in shared memory where they fit, else in global
-// memory: (x, y) of robot j at arena[2j], arena[2j + 1].
-__device__ __forceinline__ const float* stage_arena(const float* src, float* s_p, int N,
-                                                    bool staged) {
-  if (staged)
-    for (int k = threadIdx.x; k < 2 * N; k += blockDim.x) s_p[k] = src[k];
-  return staged ? s_p : src;
-}
 
 __global__ void __launch_bounds__(kSensorRobots * kSensors) pairwise_sensors_wide_kernel(
     const float* __restrict__ pos, const float* __restrict__ yaw,
     const float* __restrict__ consts, int n_seg, float* __restrict__ prox,
     float* __restrict__ ztilde, float* __restrict__ rab_proj,
-    float* __restrict__ attr_x, float* __restrict__ attr_y, int N, int staged,
+    float* __restrict__ attr_x, float* __restrict__ attr_y, int N,
     float prox_range, float prox_plus_r, float rab_range, float alpha) {
-  extern __shared__ float s_p[];  // the arena's (x, y), where staged
   __shared__ float s_c[kConstHead + 4 * kMaxSeg];
 
   const size_t e = blockIdx.x;
   for (int k = threadIdx.x; k < kConstHead + 4 * n_seg; k += blockDim.x) s_c[k] = consts[k];
-  const float* arena = stage_arena(pos + e * N * 2, s_p, N, staged);
+  const float* arena = pos + e * N * 2;  // (x, y) of robot j at arena[2j], arena[2j + 1]
   __syncthreads();
 
   const int s = threadIdx.x % kSensors;                          // this lane's ray
@@ -162,12 +151,9 @@ __global__ void __launch_bounds__(kSensorRobots * kSensors) pairwise_sensors_wid
 //   out_i = (x_i + sum_{j>i} half(i, j)) - sum_{j<i} half(j, i),
 // each sum in ascending j, half(j, i) taken as -half(i, j) (exact).
 __global__ void __launch_bounds__(kCollisionThreads) robot_collisions_wide_kernel(
-    const float* __restrict__ pos, float* __restrict__ out, int N, int staged,
-    float min_dist) {
-  extern __shared__ float s_p[];
+    const float* __restrict__ pos, float* __restrict__ out, int N, float min_dist) {
   const size_t e = blockIdx.x;
-  const float* arena = stage_arena(pos + e * N * 2, s_p, N, staged);
-  __syncthreads();
+  const float* arena = pos + e * N * 2;
   for (int i = blockIdx.y * blockDim.x + threadIdx.x; i < N; i += gridDim.y * blockDim.x) {
     const float xi = arena[2 * i], yi = arena[2 * i + 1];
     float hx_own = 0.f, hy_own = 0.f;      // pairs (i, j), j > i
@@ -203,10 +189,6 @@ inline int grid_y(int N, int per_block) {
   return blocks < kMaxGridY ? blocks : kMaxGridY;
 }
 
-inline size_t staged_bytes(int N) {
-  return N <= kMaxStaged ? 2 * sizeof(float) * static_cast<size_t>(N) : 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -219,23 +201,20 @@ int pairwise_sensors_wide_launch(const float* pos, const float* yaw, const float
                                  float alpha, void* stream) {
   if (N < 1 || E < 1 || n_seg > kMaxSeg || n_seg < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t shared = staged_bytes(N);
   const dim3 grid(E, grid_y(N, kSensorRobots));
-  pairwise_sensors_wide_kernel<<<grid, kSensorRobots * kSensors, shared,
+  pairwise_sensors_wide_kernel<<<grid, kSensorRobots * kSensors, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
-      pos, yaw, consts, n_seg, prox, ztilde, rab_proj, attr_x, attr_y, N, shared > 0,
-      prox_range, prox_plus_r, rab_range, alpha);
+      pos, yaw, consts, n_seg, prox, ztilde, rab_proj, attr_x, attr_y, N, prox_range,
+      prox_plus_r, rab_range, alpha);
   return static_cast<int>(cudaGetLastError());
 }
 
 int robot_collisions_wide_launch(const float* pos, float* out, int E, int N,
                                  float min_dist, void* stream) {
   if (N < 1 || E < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t shared = staged_bytes(N);
   const dim3 grid(E, grid_y(N, kCollisionThreads));
-  robot_collisions_wide_kernel<<<grid, kCollisionThreads, shared,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      pos, out, N, shared > 0, min_dist);
+  robot_collisions_wide_kernel<<<grid, kCollisionThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(pos, out, N, min_dist);
   return static_cast<int>(cudaGetLastError());
 }
 

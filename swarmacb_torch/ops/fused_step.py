@@ -511,11 +511,7 @@ def _launch(lanes, actions, draws, spawn, cfg, want_obs):
             int(want_obs), k.max_episode_length)
     if route(N) == "wide":
         lib = _cuda.library("fused_step_wide")
-        # the block buffers' global home, where they outgrow shared memory
-        n_bytes = lib.fused_step_wide_scratch_bytes(N, Ep)
-        scratch = torch.empty(n_bytes // 4, dtype=torch.float32, device=dev) if n_bytes else None
-        _cuda.launch(lanes["px"], "fused_env_step_wide", lib.fused_step_wide_launch, *args,
-                     None if scratch is None else scratch.data_ptr())
+        _cuda.launch(lanes["px"], "fused_env_step_wide", lib.fused_step_wide_launch, *args)
         _cuda.launches["fused_env_step_wide"] += 1
     else:
         lib = _cuda.library("fused_step")

@@ -19,14 +19,25 @@ loss and gradients to a few float32 ulps, where jit with the default option
 is ~1e-5 off in the loss. Step 0's losses are held to the port's at that
 file's 2e-6, which the default option would miss.
 
-Bound, stated before the first run: after the six steps every parameter is
-within 2.2·steps·lr of the JAX trainer's, the bound ``chip_smoke.py``'s
-phase 3h holds the bf16 update to (card against CPU); 2.2·lr bounds one
-Adam step's move of a coordinate, with room for ε, so two runs whose
-gradients differ only in rounding cannot part by more. Step 0's losses
-agree to 2e-6 relative; after it the parameters part (a coordinate whose
-exact gradient is zero, as the key bias's, takes a full Adam step on its
-gradient's rounding, in either sign), and the losses are not held.
+Bounds. 2.2·steps·lr, stated before the first run, holds every parameter
+after the six steps, as ``chip_smoke.py``'s phase 3h holds the bf16 update
+(card against CPU). It cannot fail: one Adam step moves a coordinate by
+about lr at most, so any two runs stay within it. The checks that can fail:
+
+- each step's losses at the port's own parameters, the JAX loss evaluated
+  there, to 2e-6 relative at step 0 and to 2e-5 after it (measured: 5.5e-6
+  at step 2, one bf16 rounding that flax's and PyTorch's float32
+  LayerNorms put on either side of a tie). A port that keeps float32 in
+  any one of the q, k, v, o projections after step 0 misses this by
+  1.5e-4 to 9.4e-4;
+- each step's losses against the JAX trainer's own, to 1e-3 relative
+  (measured: 1.9e-4 in the value loss, from the key bias below). A flipped
+  gradient sign misses it by 2.9e-3 at step 1;
+- every parameter but the key bias within 0.25·lr of the JAX trainer's
+  (measured: 0.089·lr, ``fc_q.weight``; a flipped sign puts them 11–12·lr
+  apart). The key bias's exact gradient is zero (a softmax row's shift), so
+  it takes a full Adam step on its gradient's rounding, in either sign
+  (measured 8.9·lr), and only 2.2·steps·lr holds it.
 """
 
 import jax
@@ -44,7 +55,7 @@ from swarmacb_tpu.env.directional_gate import DirectionalGateEnv as JaxEnv
 
 from swarmacb_torch.agents import POCAConfig, POCATrainer, Rollout, buffer
 from swarmacb_torch.config import DirectionalGateEnvCfg
-from swarmacb_torch.convert import flax_to_state_dict, load_flax_params
+from swarmacb_torch.convert import _torch_key, flax_to_state_dict, load_flax_params
 from swarmacb_torch.env import DirectionalGateEnv
 
 from test_torch_mixed_precision import _wide
@@ -52,6 +63,10 @@ from test_torch_mixed_precision_update import E, N_AG, T, UPDATE_CFG, _synth_rol
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS = 6
+SAME_RTOL = 2e-5
+LOSS_RTOL = 1e-3
+PARAM_FRAC = 0.25
+KEY_BIAS = "critic.self_attn.fc_k.bias"
 
 
 def _rounded(fn):
@@ -66,6 +81,18 @@ def _rounded(fn):
                 compiler_options={"xla_allow_excess_precision": False})
         return compiled[rows](params, batch, *args)
     return call
+
+
+def _port_as_flax(trainer, like):
+    """The port's actor and critic as a flax tree shaped like ``like``
+    (``convert.flax_to_state_dict`` the other way)."""
+    sd = {net: getattr(trainer, net).state_dict() for net in ("actor", "critic")}
+
+    def leaf(path, _):
+        name, is_kernel = _torch_key([k.key for k in path[1:]])
+        a = sd[path[0].key][name].detach().numpy()
+        return jnp.asarray(a.T if is_kernel else a)
+    return jax.tree_util.tree_map_with_path(leaf, like)
 
 
 def test_six_bf16_adam_steps_stay_within_the_bound():
@@ -99,17 +126,30 @@ def test_six_bf16_adam_steps_stay_within_the_bound():
     flat_t = trainer._flatten_buffer(ours, returns_t, buffer.normalize_advantages(adv_t))
     assert trainer._grad_chunks(mb) == 2
 
-    for step, idx in enumerate(minibatches):
-        parts = [rounded(params, {k: v[idx[lo:lo + 2]] for k, v in flat.items()},
-                         c.clip_eps, c.beta) for lo in (0, 2)]
+    def jax_loss(at, chunks):
+        parts = [rounded(at, chunk, c.clip_eps, c.beta) for chunk in chunks]
         grads = jax.tree_util.tree_map(lambda a, b: (0 + a + b) * 0.5, parts[0][1], parts[1][1])
-        aux = (np.stack(parts[0][0][1]) + np.stack(parts[1][0][1])) * 0.5
+        return grads, (np.stack(parts[0][0][1]) + np.stack(parts[1][0][1])) * 0.5
+
+    losses = []
+    for step, idx in enumerate(minibatches):
+        chunks = [{k: v[idx[lo:lo + 2]] for k, v in flat.items()} for lo in (0, 2)]
+        grads, aux = jax_loss(params, chunks)
+        # the JAX loss at the port's own parameters, which part from the JAX
+        # trainer's after step 0
+        aux_here = jax_loss(_port_as_flax(trainer, params), chunks)[1] if step else aux
         updates, opt_state = jtrainer.tx.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
         aux_t = trainer._sgd_step({k: v[torch.from_numpy(idx)] for k, v in flat_t.items()},
-                                  c.clip_eps, c.beta, trainer._feedforward_loss)
-        if step == 0:   # the same parameters: ``test_torch_mixed_precision_update``'s bound
-            np.testing.assert_allclose(aux_t.numpy(), aux, rtol=2e-6, atol=1e-7)
+                                  c.clip_eps, c.beta, trainer._feedforward_loss).numpy()
+        # the same parameters: ``test_torch_mixed_precision_update``'s bound at step 0
+        np.testing.assert_allclose(aux_t, aux_here, rtol=SAME_RTOL if step else 2e-6, atol=1e-7,
+                                   err_msg=f"step {step}'s losses at the port's parameters")
+        losses.append((aux_t, aux))
+
+    for step, (got_aux, want_aux) in enumerate(losses):
+        np.testing.assert_allclose(got_aux, want_aux, rtol=LOSS_RTOL, atol=1e-7,
+                                   err_msg=f"step {step}'s losses against the JAX trainer's")
 
     bound = 2.2 * STEPS * c.lr
     want = {f"{net}.{k}": np.asarray(v) for net in ("actor", "critic")
@@ -119,11 +159,14 @@ def test_six_bf16_adam_steps_stay_within_the_bound():
     assert got.keys() == want.keys()
     worst, moved = 0.0, 0.0
     for name, w in want.items():
-        diff = np.abs(got[name].numpy() - w)
-        worst = max(worst, float(diff.max()))
+        diff = float(np.abs(got[name].numpy() - w).max())
         moved = max(moved, float((got[name] - start[name]).abs().max()))
-        assert float(diff.max()) <= bound, (
-            f"parameter {name}: max|Δ| {float(diff.max()):.3e} past 2.2·steps·lr = {bound:.3e}")
-    print(f"six bf16 Adam steps: parameters within {worst:.3e} of the JAX trainer's "
-          f"(bound {bound:.3e}); the largest move {moved:.3e}")
+        assert diff <= bound, (
+            f"parameter {name}: max|Δ| {diff:.3e} past 2.2·steps·lr = {bound:.3e}")
+        if name != KEY_BIAS:
+            worst = max(worst, diff)
+            assert diff <= PARAM_FRAC * c.lr, (
+                f"parameter {name}: max|Δ| {diff / c.lr:.3e}·lr past {PARAM_FRAC}·lr")
+    print(f"six bf16 Adam steps: parameters but the key bias within {worst / c.lr:.3e}·lr "
+          f"of the JAX trainer's; the largest move {moved:.3e}")
     assert moved > STEPS * c.lr * 0.5, "the steps moved no parameter — weak test"
