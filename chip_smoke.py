@@ -67,11 +67,14 @@ Phases, each of which must pass for the run to pass:
      Phase 2h holds the critic kernels' wide route (``tail_wide.cu``,
      ``cf_attention_wide.cu``: the shapes ``route`` sends past the tuned
      kernels' limits) at B = 1024, N = 20, H = 4, h = 1024 and at ragged
-     shapes, through ``ops.fused_tail``, ``ops.fused_cf_attention`` and
+     shapes (for K3 also the edges of ``baseline_tail.wide_plan``: N = 100,
+     h = 1000), through ``ops.fused_tail``, ``ops.fused_cf_attention`` and
      their autograd: each forward and cotangent against its plain version,
      each stage's scratch against the staged plain version, two calls bit
      for bit, ptxas's registers and spills, and at h = 1024 each direction
-     timed beside its bound. Phase 2i holds the env kernels' wide route
+     timed beside its bound (K3's products run in 3xTF32 on the tensor
+     cores: beside the float32 bound, its route's; K3f-wide also at the
+     rollout's B = 16). Phase 2i holds the env kernels' wide route
      (``pairwise_wide.cu``, ``fused_step_wide.cu``: the robot counts past
      the tuned kernels' 32 that ``ops.pairwise.route`` sends there) through
      ``ops`` at (E, N) = (1, 33), (37, 40), (1024, 64), (5, 100), K1 and
@@ -806,6 +809,26 @@ def _tail_backward_work(B, N, H, h):
     return n_bytes, n_flops
 
 
+def tail_backward_bounds(B, N, H, h) -> dict:
+    """K3b's least time on the card by a route that takes its three
+    products (the fc recompute, d_wa, d_attn_lhs: 2·HM operations per fc
+    element each) in 3xTF32 on the tensor cores and the rest in float32:
+    the larger of the bytes over the memory rate and the operations over
+    their peaks; beside it the same with the (B, N², h) d_fc scratch
+    written once and read three times (the wide route's stages), and the
+    float32 CUDA-core bound."""
+    n_bytes, n_flops = _tail_backward_work(B, N, H, h)
+    n_product = B * N * N * h * 6 * H * N
+    ops_ms = max(3 * n_product / PEAK_TF32_FLOPS, (n_flops - n_product) / PEAK_F32_FLOPS) * 1e3
+    scratch = 4 * 4 * B * N * N * h
+    times = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3, "operations": ops_ms}
+    by = max(times, key=times.get)
+    f32_ms, f32_by = bound_ms(n_bytes, n_flops)
+    return dict(bound_ms=times[by], bound_by=by, f32_bound_ms=f32_ms, f32_bound_by=f32_by,
+                scratch_bound_ms=max((n_bytes + scratch) / PEAK_BYTES_PER_S * 1e3, ops_ms),
+                bytes=n_bytes, scratch_bytes=n_bytes + scratch, product_flops=n_product)
+
+
 # K3b's three kernels, in launch order, and the stage that writes each cotangent
 TAIL_STAGES = ("rows", "d_wa", "d_attn_lhs")
 TAIL_STAGE_OF = {"attn_lhs": 3, "attn_mI": 1, "wa": 2, "dws": 1, "x_a": 2, "delta": 1,
@@ -832,9 +855,11 @@ def _tail_backward_stage_work(B, N, H, h):
             "d_attn_lhs": (4 * (fc + B * HM * h + B * NN * HM), fc * 2 * HM)}
 
 
-def time_tail_backward_stages(torch, args, dout, N, cycles_per_ms):
-    """Each K3b stage launched alone, at the shape of ``args``: its median
-    device ms, its bound, and for the two products the time of
+def time_tail_backward_stages(torch, args, dout, N, cycles_per_ms, wide=False):
+    """Each K3b stage launched alone, at the shape of ``args``, on the tuned
+    route or the wide one: its median device ms, its bound (the wide
+    route's with each stage's product in 3xTF32 on the tensor cores, and
+    beside it the float32 one), and for the two products the time of
     ``torch.bmm`` on the same operands (cuBLAS, float32 with TF32 off; the
     port never calls it). One whole backward fills the d_fc scratch first."""
     from swarmacb_torch.ops import baseline_tail
@@ -842,7 +867,7 @@ def time_tail_backward_stages(torch, args, dout, N, cycles_per_ms):
     B, _, HM = args[0].shape
     h = args[2].shape[-1]
     H = HM // N
-    d_fc, _, stages = baseline_tail._stage_calls(args, dout, N, B, H, h)
+    d_fc, _, stages = baseline_tail._stage_calls(args, dout, N, B, H, h, wide=wide)
     for launch in stages:
         launch()
     torch.cuda.synchronize()
@@ -851,13 +876,21 @@ def time_tail_backward_stages(torch, args, dout, N, cycles_per_ms):
                "d_attn_lhs": lambda: torch.bmm(d_fc, wa_t)}
     work = _tail_backward_stage_work(B, N, H, h)
     out = {}
+    product = B * N * N * h * 2 * HM            # each stage's one product, 2·HM an fc element
     for name, launch in zip(TAIL_STAGES, stages):
-        b_ms, b_by = bound_ms(*work[name])
+        n_bytes, n_flops = work[name]
+        b_ms, b_by = bound_ms(n_bytes, n_flops)
         lib = library.get(name)
         out[name] = dict(ms=device_ms(torch, launch, cycles_per_ms),
                          library_ms=device_ms(torch, lib, cycles_per_ms) if lib else None,
-                         bound_ms=b_ms, bound_by=b_by, bytes=work[name][0],
-                         flops=work[name][1])
+                         bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flops=n_flops)
+        if wide:
+            times = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
+                     "operations": 1e3 * max(3 * product / PEAK_TF32_FLOPS,
+                                             (n_flops - product) / PEAK_F32_FLOPS)}
+            by = max(times, key=times.get)
+            out[name].update(f32_bound_ms=b_ms, f32_bound_by=b_by, bound_ms=times[by],
+                             bound_by=by)
     return out
 
 
@@ -1369,13 +1402,18 @@ def phase_critic_paths(torch, cycles_per_ms):
 # ── phase 2h: the critic's wide route ────────────────────────────────────
 
 HID_WIDE = 1024                     # --hidden_dim 1024, the width phase 3f trains at
+WIDE_ROLLOUT_B = 16                 # K3f-wide's groups in phase 3f's rollout (--num_envs 16)
 # (B, N, H, h) of phase 2h: the full width, then shapes the tuned kernels
-# refuse for each of their limits (N > 32, h % 4 != 0, H·N % 4 != 0, H > 4)
-WIDE_TAIL_SHAPES = ((E_MAIN, N_MAIN, H_MAIN, HID_WIDE), (5, 33, 3, 130))
+# refuse for each of their limits (N > 32, h % 4 != 0, H·N % 4 != 0, H > 4);
+# for K3, also the edges of its plan (baseline_tail.wide_plan): N > 80 (one
+# counterfactual a block, two row tiles of 80, the rows in device memory)
+# and h not a multiple of the 256-column product tile
+WIDE_TAIL_SHAPES = ((E_MAIN, N_MAIN, H_MAIN, HID_WIDE), (5, 33, 3, 130), (3, 100, 4, HID_WIDE),
+                    (7, N_MAIN, H_MAIN, 1000))
 WIDE_CF_SHAPES = ((E_MAIN, N_MAIN, H_MAIN, HID_WIDE), (5, 33, 8, 136), (5, 7, 3, 6))
 WIDE_KERNELS = {
-    "tail_wide": ("tail_wide_fwd_kernel", "tail_wide_bwd_rows_kernel",
-                  "tail_wide_sums_kernel", "gemm_kernel", "sum_over_groups_kernel"),
+    "tail_wide": ("tail_wide_fwd_kernel", "tail_wide_bwd_rows_kernel", "tc_gemm_kernel",
+                  "tail_wide_sums_kernel", "sum_over_groups_kernel"),
     "cf_attention_wide": ("cf_wide_terms_kernel", "cf_wide_fwd_rows_kernel",
                           "cf_wide_bwd_rows_kernel", "cf_wide_sums_kernel", "gemm_kernel",
                           "sum_over_groups_kernel")}
@@ -1390,7 +1428,9 @@ def phase_wide(torch, ops, card, cycles_per_ms):
     ``ops.fused_tail`` and ``ops.fused_cf_attention`` and their autograd,
     each output against its plain version, each stage's scratch against the
     staged plain version, two calls bit for bit; at the full width each
-    direction timed beside its bound (float32 on the CUDA cores)."""
+    direction timed beside its bound (K3: its route's, 3xTF32 products on
+    the tensor cores, and the float32 one; K5: float32 on the CUDA
+    cores)."""
     print(f"== phase 2h: the critic's wide route (tail_wide.cu, cf_attention_wide.cu) at "
           f"{', '.join(str(s) for s in WIDE_TAIL_SHAPES)} for K3 and "
           f"{', '.join(str(s) for s in WIDE_CF_SHAPES)} for K5, as (B, N, H, h)",
@@ -1474,23 +1514,38 @@ def _wide_tail_at(torch, ops, card, cycles_per_ms, B, N, H, h):
                          cycles_per_ms)
         plain_f = device_ms(torch, lambda: baseline_tail.tail_reference(*saved, N),
                             cycles_per_ms)
+        # the rollout's shape at phase 3f's --num_envs 16 (1,000 of its 1,060 launches)
+        small = [a[:WIDE_ROLLOUT_B].contiguous() for a in saved[:-1]] + [saved[-1]]
+        ms_small = device_ms(torch, lambda: baseline_tail._forward_kernel(small, N, wide=True),
+                             cycles_per_ms)
     ms_b = device_ms(torch, lambda: baseline_tail.backward_kernel(saved, dout, N, wide=True),
                      cycles_per_ms)
     plain_b = device_ms(torch, lambda: torch.autograd.grad(plain_out, args, dout,
                                                            retain_graph=True), cycles_per_ms)
-    n_bytes, n_product, n_rest = _tail_forward_work(B, N, H, h)
-    bf, bf_by = bound_ms(n_bytes, n_product + n_rest)
-    bb, bb_by = bound_ms(*_tail_backward_work(B, N, H, h))
-    print(f"  K3f wide {ms_f:.4f} ms, plain {plain_f:.4f} ms, bound {bf:.4f} ms ({bf_by}, "
-          f"float32); K3b wide {ms_b:.4f} ms, plain backward {plain_b:.4f} ms, bound "
-          f"{bb:.4f} ms ({bb_by}); on {card}", flush=True)
+    bf = tail_forward_bounds(B, N, H, h)
+    bf_small = tail_forward_bounds(WIDE_ROLLOUT_B, N, H, h)
+    bb = tail_backward_bounds(B, N, H, h)
+    print(f"  K3f wide {ms_f:.4f} ms, plain {plain_f:.4f} ms; bound by its route "
+          f"{bf['bound_ms']:.4f} ms ({bf['bound_by']}: 3 x {bf['product_flops'] / 1e9:.2f} "
+          f"GFLOP in TF32), {100 * bf['bound_ms'] / ms_f:.1f} % of it; the float32 bound "
+          f"{bf['f32_bound_ms']:.4f} ms ({bf['f32_bound_by']}); at B={WIDE_ROLLOUT_B} "
+          f"{ms_small:.4f} ms (route bound {bf_small['bound_ms']:.4f} ms, "
+          f"{bf_small['bound_by']}); on {card}", flush=True)
+    print(f"  K3b wide {ms_b:.4f} ms, plain backward {plain_b:.4f} ms; bound by its route "
+          f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}: {bb['bytes'] / 1e9:.3f} GB, 3 x "
+          f"{bb['product_flops'] / 1e9:.2f} GFLOP in TF32), {100 * bb['bound_ms'] / ms_b:.1f} % "
+          f"of it; with the d_fc scratch written once and read three times "
+          f"{bb['scratch_bound_ms']:.4f} ms ({bb['scratch_bytes'] / 1e9:.3f} GB); the float32 "
+          f"bound {bb['f32_bound_ms']:.4f} ms ({bb['f32_bound_by']}); on {card}", flush=True)
     common = dict(route="cuda", source="swarmacb_torch/ops/csrc/tail_wide.cu", library_ms=None)
     return [dict(name="fused_tail_wide", replaces="swarmacb_tpu/ops/baseline_tail.py:201",
-                 max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by,
-                 **common),
+                 max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, bound_ms=bf["bound_ms"],
+                 bound_by=bf["bound_by"], f32_bound_ms=bf["f32_bound_ms"],
+                 ms_rollout_b16=ms_small, **common),
             dict(name="fused_tail_wide_bwd", replaces="swarmacb_tpu/ops/baseline_tail.py:224",
-                 max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by,
-                 **common)]
+                 max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=bb["bound_ms"],
+                 bound_by=bb["bound_by"], f32_bound_ms=bb["f32_bound_ms"],
+                 scratch_bound_ms=bb["scratch_bound_ms"], **common)]
 
 
 def _wide_cf_at(torch, ops, card, cycles_per_ms, B, N, H, h):

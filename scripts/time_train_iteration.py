@@ -5,12 +5,15 @@ one NVIDIA GPU, with the rollout and the update timed apart.
     python3 scripts/time_train_iteration.py [--root DIR]
                                             [--config configs/DirGate_dandelion.yaml]
                                             [--num_envs 1024] [--horizon 200]
+                                            [--hidden_dim H]
 
 Loads ``--config`` through the port's loader, cuts it to ``--num_envs``
-arenas and a ``--horizon``-decision rollout as ``chip_smoke.py`` does,
+arenas and a ``--horizon``-decision rollout as ``chip_smoke.py`` does
+(``--hidden_dim`` sets the networks' width, as ``train_torch.py``'s flag:
+1024 sends the critic tail to the wide route),
 takes a 2-decision warm-up rollout, then times one
 ``POCATrainer.train_iteration`` (host clock, ending in
-``torch.cuda.synchronize()``). ``--root`` times the package of another
+``torch.cuda.synchronize()``) and prints the kernels it launched. ``--root`` times the package of another
 checkout (unpack the parent with ``git archive <commit> | tar -x -C
 runs/parent``); set two versions side by side in one call as parent,
 change, change, parent, one process each. Prints one line with the card's
@@ -35,6 +38,7 @@ def main() -> int:
     ap.add_argument("--config", default="configs/DirGate_dandelion.yaml")
     ap.add_argument("--num_envs", type=int, default=1024)
     ap.add_argument("--horizon", type=int, default=200)
+    ap.add_argument("--hidden_dim", type=int, default=None)
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -45,6 +49,7 @@ def main() -> int:
         print("time_train_iteration: no CUDA device is available", file=sys.stderr)
         return 1
     import swarmacb_torch
+    from swarmacb_torch import ops
     from swarmacb_torch.agents import POCATrainer
     from swarmacb_torch.config import DirectionalGateEnvCfg, load_config
     from swarmacb_torch.env import DirectionalGateEnv
@@ -59,7 +64,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
     _, variant, pcfg, env_ov = load_config(root / args.config)
-    pcfg = dataclasses.replace(pcfg, horizon=args.horizon, seed=0)
+    pcfg = dataclasses.replace(pcfg, horizon=args.horizon, seed=0,
+                               hidden_dim=args.hidden_dim or pcfg.hidden_dim)
     env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
     env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant,
                                                    num_envs=args.num_envs, **env_kw))
@@ -84,11 +90,14 @@ def main() -> int:
     gen.manual_seed(1)
     state, obs = env.reset(gen)
     torch.cuda.synchronize()
+    ops.reset_launches()
     t0 = time.perf_counter()
     trainer.train_iteration(state, obs, trainer.init_actor_carry())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    print(f"{root} {args.config} E={args.num_envs} T={args.horizon}: iteration {wall:.3f} s, "
+    counts = ", ".join(f"{k} {v}" for k, v in ops.launches.items() if v)
+    print(f"{root} {args.config} E={args.num_envs} T={args.horizon} "
+          f"hidden={pcfg.hidden_dim}: launches {counts}; iteration {wall:.3f} s, "
           f"rollout {rollout_s[0]:.3f} s, update {wall - rollout_s[0]:.3f} s; on {card}",
           flush=True)
     return 0

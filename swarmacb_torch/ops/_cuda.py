@@ -25,8 +25,12 @@ kernels of both directions ask for four blocks of 128 threads an SM (128
 registers), and ``chip_smoke.py`` (phases 2d, 2e) and
 ``scripts/time_cf_backward.py`` print what ptxas gave each kernel. The
 critic's wide route (``tail_wide.cu``, ``cf_attention_wide.cu``, which
-share ``wide_common.cuh``) takes no cap; ``chip_smoke.py`` phase 2h prints
-its registers and spills. The env kernels' wide route (``pairwise_wide.cu``;
+share ``wide_common.cuh``) takes no cap: ``tail_wide.cu``'s kernels set
+their budgets with ``__launch_bounds__`` (the rows kernels one block of 256
+threads an SM, the tensor-core product one of 512), and ``chip_smoke.py``
+phase 2h prints their registers and spills. ``tail_forward.cu`` and the
+wide route's products share ``tc_common.cuh`` (cp.async, the TF32 split,
+wgmma). The env kernels' wide route (``pairwise_wide.cu``;
 ``fused_step_wide.cu``, which includes ``fused_step.cu`` for its device
 functions) builds with FMA contraction off, as its tuned kernels do. A
 library's hash covers its source, every ``csrc/*.cuh`` header and every
@@ -98,8 +102,8 @@ SIGNATURES = {
         "fused_step_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "tail_wide": {
-        "tail_wide_forward_launch": [_P] * 9 + [_I, _I, _I, _I, _P],
-        "tail_wide_bwd_rows_launch": [_P] * 12 + [_I, _I, _I, _I, _P],
+        "tail_wide_forward_launch": [_P] * 9 + [_I] * 5 + [_P],
+        "tail_wide_bwd_rows_launch": [_P] * 12 + [_I] * 6 + [_P],
         "tail_wide_bwd_wa_launch": [_P] * 6 + [_I, _I, _I, _I, _P],
         "tail_wide_bwd_attn_launch": [_P] * 3 + [_I, _I, _I, _I, _P],
     },

@@ -41,14 +41,21 @@ N ≤ 32 and H·N % 4 == 0, and the wide route (``csrc/tail_wide.cu``: K3f
 and K3b for every other shape the JAX function takes, any B, N, H and
 h ≥ 1) elsewhere, each with its own launch counters (``fused_tail`` and
 ``fused_tail_bwd``, ``fused_tail_wide`` and ``fused_tail_wide_bwd``). The
-wide route runs in float32 on the CUDA cores with 4-byte loads, one block
-per (b, I), and sums each row over column tiles of at most 512 floats;
-``layernorm_tiled`` is the plain version of its LayerNorm statistics. Its
-backward has the three stages of K3b, joined by the same d_fc scratch,
-with its two batched products in a hand-written kernel of its own. A
-route that fails raises: neither falls back on the other.
+wide route takes its products on the tensor cores in 3×TF32 too: the fc
+rows of P counterfactuals a block (``wide_plan``), in tiles of 256
+columns by 40 rows, with the rank-1 term as extra K columns, kept in shared memory
+where they fit; the rest is float32 on the CUDA cores, and each row's sums
+run over column tiles of at most 512 floats (``layernorm_tiled`` is the
+plain version of those statistics; ``wide_reference_3xtf32`` and
+``tail_backward_reference(..., product=matmul_3xtf32,
+layernorm=layernorm_tiled)`` that of the route's arithmetic). Its backward
+has the three stages of K3b, joined by the same d_fc scratch: the rows,
+then d_wa = attn_lhsᵀ·d_fc and d_attn_lhs = d_fc·waᵀ as batched 3×TF32
+products. A route that fails raises: neither falls back on the other.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -152,18 +159,31 @@ def tail_reference_3xtf32(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N):
     return pool_layernorm(fc, N)
 
 
-def tail_backward_reference(args, dout, N):
+def wide_reference_3xtf32(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N):
+    """Plain version of the wide K3f's arithmetic: the matmul and the
+    rank-1 term in 3×TF32 (``matmul_3xtf32``), each row's statistics over
+    column tiles (``layernorm_tiled``), then the pool. Used by the tests;
+    the main path does not call it."""
+    fc = _fc(attn_lhs, attn_mI, wa, dws, x_a, delta, bias, N, product=matmul_3xtf32)
+    B, _, h = fc.shape
+    return layernorm_tiled(fc)[0].reshape(B, N, N, h).mean(dim=2)
+
+
+def tail_backward_reference(args, dout, N, product=None, layernorm=_layernorm):
     """Plain version of K3b, stage by stage: (d_fc, cotangents).
 
     d_fc (B, N², h) is ∂⟨dout, pooled⟩/∂fc, the quantity the three kernels
     pass on; the seven cotangents of ``args`` follow from it in the
     kernels' stage order (rows; attn_lhsᵀ·d_fc; d_fc·waᵀ) and come back in
     the inputs' order. Used by the tests and ``chip_smoke.py`` to hold each
-    stage of the kernel on its own.
+    stage of the kernel on its own. ``product`` (default ``torch.matmul``)
+    takes the fc recompute's two products, d_wa and d_attn_lhs, and
+    ``layernorm`` the statistics: ``matmul_3xtf32`` and ``layernorm_tiled``
+    give the wide route's arithmetic.
     """
     attn_lhs, attn_mI, wa, dws, x_a, delta, bias = args
     B, _, h = dout.shape
-    y, rstd = _layernorm(_fc(*args, N))
+    y, rstd = layernorm(_fc(*args, N, product=product))
     d_y = (dout / N)[:, :, None, :].expand(B, N, N, h).reshape(B, N * N, h)
     m1 = d_y.mean(-1, keepdim=True)
     m2 = (d_y * y).mean(-1, keepdim=True)
@@ -174,11 +194,12 @@ def tail_backward_reference(args, dout, N):
     d_dws = torch.einsum("bhIn,bIno->bhIo", attn_mI, d4)
     d_attn_mI = torch.einsum("bIno,bhIo->bhIn", d4, dws)
     # 2. attn_lhsᵀ·d_fc, and the sums over I and over groups
-    d_wa = torch.matmul(attn_lhs.transpose(1, 2), d_fc)
+    product = torch.matmul if product is None else product
+    d_wa = product(attn_lhs.transpose(1, 2), d_fc)
     d_xa = d4.sum(dim=1)
     d_bias = d_xa.sum(dim=(0, 1))
     # 3. d_fc·waᵀ
-    d_attn_lhs = torch.matmul(d_fc, wa.transpose(1, 2))
+    d_attn_lhs = product(d_fc, wa.transpose(1, 2))
     return d_fc, [d_attn_lhs, d_attn_mI, d_wa, d_dws, d_xa, d_delta, d_bias]
 
 
@@ -239,33 +260,90 @@ def _ptrs(tensors):
     return [t.data_ptr() for t in tensors]
 
 
-# floats of one (b, I)'s fc rows that the wide forwards keep in shared
-# memory (80 KB at N = 20, h = 1024, two blocks an SM); longer rows go to a
-# (B, N², h) scratch in device memory
+# floats of one (b, I)'s fc rows that the wide K5f (cf_attention_wide.cu)
+# keeps in shared memory (80 KB at N = 20, h = 1024, two blocks an SM);
+# longer rows go to a (B, N², h) scratch in device memory
 WIDE_SHARED_ROWS = 28 * 1024
 
 
 def wide_rows_scratch(B, N, h, dev):
     """None where N·h fc rows fit ``WIDE_SHARED_ROWS`` floats, else the
-    (B, N², h) float32 scratch a wide forward keeps its rows in."""
+    (B, N², h) float32 scratch the wide K5f keeps its rows in."""
     if N * h <= WIDE_SHARED_ROWS:
         return None
     return torch.empty((B, N * N, h), dtype=torch.float32, device=dev)
 
 
+# The rows kernels of the wide K3f and K3b (tail_wide.cu), mirrored here:
+# four warpgroups a block, products in tiles of 256 columns by 40 rows (row
+# tiles of 40 past N = 40) through a ring of 4 stages of 8 K-columns, and a
+# block's rows P·N ≤ 40 (or N where N > 40)
+WIDE_COL_TILE = 256
+WIDE_RING_STAGES = 4
+WIDE_MAX_ROWS = 40
+SMEM_BYTES = 232_448             # shared memory a block may use on the H100
+
+
+class WidePlan(NamedTuple):
+    """How the wide rows kernels cut a shape: ``per_block`` (P)
+    counterfactuals a block; whether the P·N rows of h floats stay in
+    shared memory (else the forward keeps them in a (B, N², h) scratch and
+    the backward builds them in d_fc); the block's shared memory in
+    bytes."""
+    per_block: int
+    rows_in_smem: bool
+    smem_bytes: int
+
+
+def _wide_smem_bytes(N, H, h, P, rows_in_smem):
+    """``rows_smem_bytes`` of tail_wide.cu: the ring (8 rows of A, 256 + 8
+    floats each, and B's two copies, 8 × 40 each, a stage), attn_mI
+    (H × max(40, N): a row tile's rank-1 columns, then in the backward one
+    counterfactual's), the statistics (3·P·N + P) and bias (h), each to
+    whole float4s, and the rows."""
+    def round4(n):
+        return -(-n // 4) * 4
+
+    stage = 8 * (WIDE_COL_TILE + 8) + 2 * 8 * WIDE_MAX_ROWS
+    floats = (WIDE_RING_STAGES * stage + round4(H * max(WIDE_MAX_ROWS, N))
+              + round4(3 * P * N + P) + round4(h))
+    return 4 * (floats + (P * N * h if rows_in_smem else 0))
+
+
+def wide_plan(N, H, h) -> WidePlan:
+    """The plan of the wide K3f and K3b for N agents, H heads and width h:
+    the most counterfactuals a block, up to ``WIDE_MAX_ROWS`` rows, whose
+    rows fit in shared memory beside the ring (fewer passes over wa[b] from
+    L2 a group); where not even one counterfactual's rows fit, as many as
+    fit the row limit, with the rows in device memory. Every shape the
+    route takes has a plan (``tests/test_torch_wide_tail_tf32.py``)."""
+    most = min(N, max(1, WIDE_MAX_ROWS // N))
+    for P in range(most, 0, -1):
+        smem = _wide_smem_bytes(N, H, h, P, True)
+        if smem <= SMEM_BYTES:
+            return WidePlan(P, True, smem)
+    smem = _wide_smem_bytes(N, H, h, most, False)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"fused_tail: no plan of the wide kernels fits N={N}, H={H}, h={h}")
+    return WidePlan(most, False, smem)
+
+
 def _forward_kernel(args, N, wide=False):
     """K3f, on the tuned route or the wide one: pooled (B, N, h). The wide
-    route keeps its fc rows in shared memory at N·h ≤ 28,672 floats (no
-    scratch at B = 1024, N = 20, h = 1024), else in a (B, N², h) scratch."""
+    route keeps its fc rows in shared memory where ``wide_plan`` finds room
+    (2 counterfactuals a block at B = 1024, N = 20, h = 1024: no scratch),
+    else in a (B, N², h) scratch."""
     B, H, h = _check(args, N, wide)
     dev = args[0].device
     out = torch.empty((B, N, h), dtype=torch.float32, device=dev)
     if wide:
-        scratch = wide_rows_scratch(B, N, h, dev)
+        plan = wide_plan(N, H, h)
+        scratch = (None if plan.rows_in_smem
+                   else torch.empty((B, N * N, h), dtype=torch.float32, device=dev))
         _cuda.launch(args[0], "fused_tail (wide)",
                      _cuda.library("tail_wide").tail_wide_forward_launch, *_ptrs(args),
                      None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-                     B, N, H, h)
+                     B, N, H, h, plan.per_block)
         _cuda.launches["fused_tail_wide"] += 1
         return out
     _cuda.launch(args[0], "fused_tail", _cuda.library("tail_forward").tail_forward_launch,
@@ -276,7 +354,8 @@ def _forward_kernel(args, N, wide=False):
 
 def _stage_calls(args, dout, N, B, H, h, wide=False):
     """The outputs of K3b and its three launches, on the tuned route or the
-    wide one (whose entry points take the same arguments), for inputs that
+    wide one (whose entry points take the same arguments, and the rows
+    kernel its ``wide_plan``), for inputs that
     ``backward_kernel`` takes (it checks them; ``chip_smoke.py`` calls this
     to hold and time each stage on its own).
 
@@ -298,10 +377,14 @@ def _stage_calls(args, dout, N, B, H, h, wide=False):
     attn_lhs, wa = args[0], args[2]
     shape = (B, N, H, h)
 
+    # the wide rows kernel also takes its plan: P and where the rows stay
+    plan = wide_plan(N, H, h) if wide else None
+    rows_plan = (plan.per_block, int(plan.rows_in_smem)) if wide else ()
+
     def rows():
         _cuda.launch(dout, f"fused_tail backward{route_name}, stage 1 (rows)", entry("rows"),
                      *_ptrs(args), dout.data_ptr(),
-                     *_ptrs((d_fc, d_attn_mI, d_dws, d_delta)), *shape)
+                     *_ptrs((d_fc, d_attn_mI, d_dws, d_delta)), *shape, *rows_plan)
 
     def wa_product():
         _cuda.launch(dout, f"fused_tail backward{route_name}, stage 2 (d_wa)", entry("wa"),

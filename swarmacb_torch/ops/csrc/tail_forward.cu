@@ -63,7 +63,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"  // cp.async, the TF32 split, wgmma: shared with tail_wide.cu
+
 namespace {
+
+using namespace tc;
 
 constexpr int kRows = 80;                  // fc rows per block: wgmma N
 constexpr int kNBlocks = kRows / 8;        // n8 blocks of the accumulator
@@ -92,14 +96,6 @@ __host__ __device__ inline int res_stride(int h) { return cols_pad(h) + 4; }
 __host__ __device__ inline int stage_floats(int h) {
   return kChunk * wa_stride(h) + 2 * kBFloats;
 }
-// Offset, in floats, of element (row r, column k) of a stage's B operand:
-// core matrices of 8 rows x 4 floats, 128 bytes each, the kRows / 8 row
-// groups of a 4-column group adjacent (SBO 128 bytes), the 4-column groups
-// kRows / 8 * 128 bytes apart (LBO).
-__host__ __device__ inline int b_offset(int r, int k) {
-  return ((k / 4 * kNBlocks + r / 8) * 8 + r % 8) * 4 + k % 4;
-}
-
 // Bytes of shared memory of a block: the ring; the residual region (x_a's
 // N rows, delta's P rows, bias, attn_mI's H rows of the block's fc rows);
 // the row sums; the row table.
@@ -110,94 +106,6 @@ inline size_t smem_bytes(int N, int H, int h) {
                         static_cast<size_t>(H) * kRows +
                         static_cast<size_t>(kMaxWarps + 1) * kRows + kRows;
   return floats * sizeof(float);
-}
-
-// 16-byte asynchronous copy from device to shared memory (cached in L2
-// only). With src_bytes 0 nothing is read and the 16 bytes are zeros.
-__device__ inline void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-// 4-byte asynchronous copy from device to shared memory.
-__device__ inline void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most Pending groups of this thread's copies are in flight.
-template <int Pending>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
-}
-
-// Makes this thread's shared-memory stores visible to wgmma's reads.
-__device__ inline void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// x rounded to TF32 (10 mantissa bits; to nearest, ties away from zero),
-// as float bits whose 13 low mantissa bits are zero.
-__device__ inline uint32_t tf32_round(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo + O(2^-22 |x|), both TF32.
-__device__ inline void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_round(x);
-  lo = tf32_round(x - __uint_as_float(hi));
-}
-
-// Shared-memory descriptor of a K-major, no-swizzle wgmma operand at p.
-__device__ inline uint64_t smem_desc(const float* p) {
-  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  constexpr uint64_t lbo = kNBlocks * 128, sbo = 128;  // bytes
-  return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | ((sbo >> 4) << 32);
-}
-
-__device__ inline void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ inline void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ inline void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// d (64 x 80) += a (64 x 8, this warpgroup's registers) * b (8 x 80, the
-// descriptor's shared memory), in TF32 with a float32 accumulator. a holds,
-// for warp w of the warpgroup, a0 = (16 w + g, t), a1 = (16 w + g + 8, t),
-// a2 = (16 w + g, t + 4), a3 = (16 w + g + 8, t + 4) (g = lane / 4,
-// t = lane % 4); d[4 j + q] is element (16 w + g + 8 (q / 2), 8 j + 2 t +
-// q % 2).
-__device__ inline void wgmma_tf32(float (&d)[4 * kNBlocks], const uint32_t (&a)[4],
-                                  uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
 // Sums each thread's per-row partials over the block's h columns, part[j][e]
@@ -295,7 +203,7 @@ __global__ void __launch_bounds__(kThreads, 1) tail_forward_kernel(
       for (int q = threadIdx.x; q < kRows * (kChunk / 4); q += blockDim.x) {
         const int r = q / (kChunk / 4), k = q % (kChunk / 4) * 4;
         const bool ok = r < rows && k0 + k < HM;
-        cp_async16(sb + b_offset(r, k),
+        cp_async16(sb + b_offset<kNBlocks>(r, k),
                    ok ? a_src + static_cast<size_t>(r) * HM + k0 + k : a_src,
                    ok ? 16 : 0);
       }
@@ -395,7 +303,7 @@ __global__ void __launch_bounds__(kThreads, 1) tail_forward_kernel(
       split_tf32(w[4 * ws + 8], ah[mb][3], al[mb][3]);
     }
     wgmma_fence();
-    const uint64_t d_hi = smem_desc(b_hi), d_lo = smem_desc(b_hi + kBFloats);
+    const uint64_t d_hi = smem_desc<kNBlocks>(b_hi), d_lo = smem_desc<kNBlocks>(b_hi + kBFloats);
     // A warp waits at each wgmma until the tensor cores take it, so the
     // block's other work for the next chunks goes between the products.
 #pragma unroll

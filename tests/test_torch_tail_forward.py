@@ -22,6 +22,8 @@ card. Here, from inputs made with numpy from a seed:
   entry point.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -167,7 +169,11 @@ def test_forward_source_is_registered_without_a_register_cap():
         "tail_forward_launch": [_cuda._P] * 8 + [_cuda._I] * 4 + [_cuda._P]}
     assert not any("maxrregcount" in f for f in _cuda.SOURCES["tail_forward"])
     source = (_cuda.CSRC / "tail_forward.cu").read_text(encoding="utf-8")
-    assert "__launch_bounds__" in source and "wgmma.mma_async" in source
-    assert "cvt.rna.tf32.f32" in source
+    # with the primitives it shares with the wide route (tc_common.cuh)
+    included = re.findall(r'^#include "([^"]+)"', source, re.M)
+    assert included == ["tc_common.cuh"]
+    code = source + "".join((_cuda.CSRC / f).read_text(encoding="utf-8") for f in included)
+    assert "__launch_bounds__" in source and "wgmma.mma_async" in code
+    assert "cvt.rna.tf32.f32" in code
     assert "fused_tail_fwd" not in (_cuda.CSRC / "baseline_tail.cu").read_text(
         encoding="utf-8")

@@ -218,22 +218,33 @@ def test_route_on_meta_tensors(monkeypatch, N, H, h, tail, cf):
 
 def test_wide_sources_are_registered():
     """``tail_wide.cu``: the forward (the seven inputs, the rows scratch or
-    null, the output) and the three backward stages, which take the tuned
-    K3b's arguments; ``cf_attention_wide.cu``: stage 0 and the backward rows
-    as the tuned K5b's, the forward rows with the rows scratch, the sums
-    (terms, d_fc, d_delta, d_num, dU2, d_xa, the partial, d_bias) and the
-    products (dU2 in place of d_delta). No register cap, and the shared
-    device code in ``wide_common.cuh``."""
+    null, the output, the shape and the plan's counterfactuals a block), the
+    backward rows (the tuned K3b's arguments, then the plan's counterfactuals
+    a block and whether the rows stay in shared memory) and the two
+    products, which take the tuned K3b's arguments; ``cf_attention_wide.cu``:
+    stage 0 and the backward rows as the tuned K5b's, the forward rows with
+    the rows scratch, the sums (terms, d_fc, d_delta, d_num, dU2, d_xa, the
+    partial, d_bias) and the products (dU2 in place of d_delta). No register
+    cap, and the shared device code in ``wide_common.cuh``; ``tail_wide.cu``'s
+    products on the tensor cores (``tc_gemm``, which ``wide_common.cuh``
+    builds on ``tc_common.cuh``, shared with ``tail_forward.cu``)."""
     from swarmacb_torch.ops import _cuda
 
     ptr, num, real = _cuda._P, _cuda._I, _cuda._F
     shape = [num] * 4
+    tuned_rows = _cuda.SIGNATURES["baseline_tail"]["tail_bwd_rows_launch"]
     assert _cuda.SIGNATURES["tail_wide"] == {
-        "tail_wide_forward_launch": [ptr] * 9 + shape + [ptr],
-        "tail_wide_bwd_rows_launch": _cuda.SIGNATURES["baseline_tail"]["tail_bwd_rows_launch"],
+        "tail_wide_forward_launch": [ptr] * 9 + shape + [num, ptr],
+        "tail_wide_bwd_rows_launch": tuned_rows[:-1] + [num, num, ptr],
         "tail_wide_bwd_wa_launch": _cuda.SIGNATURES["baseline_tail"]["tail_bwd_wa_launch"],
         "tail_wide_bwd_attn_launch": _cuda.SIGNATURES["baseline_tail"]["tail_bwd_attn_launch"],
     }
+    tail_wide = (_cuda.CSRC / "tail_wide.cu").read_text(encoding="utf-8")
+    assert "tc_gemm(" in tail_wide and " gemm(" not in tail_wide
+    assert '#include "tc_common.cuh"' in (_cuda.CSRC / "wide_common.cuh").read_text(
+        encoding="utf-8")
+    assert '#include "tc_common.cuh"' in (_cuda.CSRC / "tail_forward.cu").read_text(
+        encoding="utf-8")
     tuned = _cuda.SIGNATURES["cf_attention"]
     assert _cuda.SIGNATURES["cf_attention_wide"] == {
         "cf_wide_base_launch": tuned["cf_bwd_base_launch"],
