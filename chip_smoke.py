@@ -68,13 +68,19 @@ Phases, each of which must pass for the run to pass:
      ``cf_attention_wide.cu``: the shapes ``route`` sends past the tuned
      kernels' limits) at B = 1024, N = 20, H = 4, h = 1024 and at ragged
      shapes (for K3 also the edges of ``baseline_tail.wide_plan``: N = 100,
-     h = 1000), through ``ops.fused_tail``, ``ops.fused_cf_attention`` and
-     their autograd: each forward and cotangent against its plain version,
-     each stage's scratch against the staged plain version, two calls bit
+     h = 1000; for K5 those of ``cf_attention.cf_wide_plan``: one
+     counterfactual a block at h = 2048, the rows in device memory at
+     h = 3000, dout / N there too at h = 30000, N = 130, whose products
+     read E_aa and E_sa from device memory, and N = 900, whose products
+     read every row from there), through ``ops.fused_tail``,
+     ``ops.fused_cf_attention`` and their autograd: each forward and
+     cotangent against its plain version, each stage's scratch against the
+     staged plain version, two calls bit
      for bit, ptxas's registers and spills, and at h = 1024 each direction
      timed beside its bound (K3's products run in 3xTF32 on the tensor
-     cores: beside the float32 bound, its route's; K3f-wide also at the
-     rollout's B = 16). Phase 2i holds the env kernels' wide route
+     cores: beside the float32 bound, its route's; K5's beside the
+     algorithm's bound and the staged route's byte bound; K3f-wide and
+     K5f-wide also at the rollout's B = 16). Phase 2i holds the env kernels' wide route
      (``pairwise_wide.cu``, ``fused_step_wide.cu``: the robot counts past
      the tuned kernels' 32 that ``ops.pairwise.route`` sends there) through
      ``ops`` at (E, N) = (1, 33), (37, 40), (1024, 64), (5, 100), K1 and
@@ -1058,17 +1064,18 @@ def _cf_backward_stage_work(B, N, H, h):
     }
 
 
-def time_cf_backward_stages(torch, args, dout, d, cycles_per_ms):
-    """Each K5b stage launched alone, at the shape of ``args``: its median
-    device ms and its bound, and for stages 0 and 3 the time of one
-    ``torch.bmm`` of the stage's products on the same operands (cuBLAS,
-    float32 with TF32 off; the port never calls it): [E_aa; E_sa]·wa_h for
-    the base products, [d_num; dU2]·wa_hᵀ for the products' d_Eaa and
-    d_Esa. One whole backward fills the scratch first."""
+def time_cf_backward_stages(torch, args, dout, d, cycles_per_ms, wide=False):
+    """Each K5b stage launched alone, on the tuned route or the wide one
+    (``cf_attention_wide.cu``), at the shape of ``args``: its median device
+    ms and its bound, and for stages 0 and 3 the time of one ``torch.bmm``
+    of the stage's products on the same operands (cuBLAS, float32 with TF32
+    off; the port never calls it): [E_aa; E_sa]·wa_h for the base products,
+    [d_num; dU2]·wa_hᵀ for the products' d_Eaa and d_Esa. One whole
+    backward fills the scratch first."""
     from swarmacb_torch.ops import cf_attention
 
     B, H, N, h = args[4].shape
-    scratch, grads, stages = cf_attention._stage_calls(args, dout, d, B, N, H, h)
+    scratch, grads, stages = cf_attention._stage_calls(args, dout, d, B, N, H, h, wide=wide)
     for launch in stages:
         launch()
     torch.cuda.synchronize()
@@ -1093,7 +1100,7 @@ def time_cf_backward_stages(torch, args, dout, d, cycles_per_ms):
 
 def ptxas_report(log: str, kernels) -> dict[str, str]:
     """Registers, spills and shared memory of each named kernel in an nvcc
-    log; a template's instances by their int argument, as
+    log; a template's instances by their int or bool argument, as
     ``tail_bwd_wa_kernel<1>``."""
     lines = log.splitlines()
     report = {}
@@ -1101,8 +1108,7 @@ def ptxas_report(log: str, kernels) -> dict[str, str]:
         name = next((k for k in kernels if "Compiling entry" in line and k in line), None)
         if name is None:
             continue
-        instance = (re.search(r"ILi(\d+)E", line)
-                    or re.search(r"I\w*?\d(Store|Accumulate|DsAa|DsSa)E", line))
+        instance = re.search(r"IL[ib](\d+)E", line) or re.search(r"I\w*?\d(Store)E", line)
         if instance:
             name += f"<{instance.group(1)}>"
         end = next((j for j in range(i + 1, len(lines)) if "Compiling entry" in lines[j]),
@@ -1132,16 +1138,16 @@ def _cf_forward_stage_work(B, N, H, h):
                      B * N * N * h * (5 * H + 3 + 7))}
 
 
-def time_cf_forward_stages(torch, args, d, cycles_per_ms):
-    """Each K5f stage launched alone, at the shape of ``args``: its median
-    device ms and its bound, for stage 0 the time of one ``torch.bmm`` of
-    its products on the same operands ([E_aa; E_sa]·wa_h; cuBLAS, float32
-    with TF32 off; the port never calls it). One whole forward fills the
-    scratch first."""
+def time_cf_forward_stages(torch, args, d, cycles_per_ms, wide=False):
+    """Each K5f stage launched alone, on the tuned route or the wide one,
+    at the shape of ``args``: its median device ms and its bound, for stage
+    0 the time of one ``torch.bmm`` of its products on the same operands
+    ([E_aa; E_sa]·wa_h; cuBLAS, float32 with TF32 off; the port never calls
+    it). One whole forward fills the scratch first."""
     from swarmacb_torch.ops import cf_attention
 
     B, H, N, h = args[4].shape
-    scratch, _, stages = cf_attention._forward_stage_calls(args, d, B, N, H, h)
+    scratch, _, stages = cf_attention._forward_stage_calls(args, d, B, N, H, h, wide=wide)
     for launch in stages:
         launch()
     torch.cuda.synchronize()
@@ -1410,13 +1416,23 @@ WIDE_ROLLOUT_B = 16                 # K3f-wide's groups in phase 3f's rollout (-
 # and h not a multiple of the 256-column product tile
 WIDE_TAIL_SHAPES = ((E_MAIN, N_MAIN, H_MAIN, HID_WIDE), (5, 33, 3, 130), (3, 100, 4, HID_WIDE),
                     (7, N_MAIN, H_MAIN, 1000))
-WIDE_CF_SHAPES = ((E_MAIN, N_MAIN, H_MAIN, HID_WIDE), (5, 33, 8, 136), (5, 7, 3, 6))
+# for K5, also the edges of its plan (cf_attention.cf_wide_plan): one
+# counterfactual a block (h = 2048), the rows and their statistics in
+# device memory (h = 3000, not a multiple of 4), dout / N read from device
+# memory too (h = 30000), N = 130, whose products read E_aa and E_sa from
+# device memory, and N = 900, past which no products tile fits (their rows
+# then come from device memory too)
+WIDE_CF_SHAPES = ((E_MAIN, N_MAIN, H_MAIN, HID_WIDE), (5, 33, 8, 136), (5, 7, 3, 6),
+                  (3, N_MAIN, H_MAIN, 2048), (2, N_MAIN, 3, 3000), (1, 2, 1, 30000),
+                  (1, 130, 1, 8), (1, 900, 1, 8))
 WIDE_KERNELS = {
     "tail_wide": ("tail_wide_fwd_kernel", "tail_wide_bwd_rows_kernel", "tc_gemm_kernel",
                   "tail_wide_sums_kernel", "sum_over_groups_kernel"),
-    "cf_attention_wide": ("cf_wide_terms_kernel", "cf_wide_fwd_rows_kernel",
-                          "cf_wide_bwd_rows_kernel", "cf_wide_sums_kernel", "gemm_kernel",
-                          "sum_over_groups_kernel")}
+    "cf_attention_wide": ("cf_wide_terms_kernel", "cf_wide_base_kernel",
+                          "cf_wide_fwd_rows_kernel", "cf_wide_bwd_rows_kernel",
+                          "cf_wide_sums_kernel", "sum_over_groups_kernel",
+                          "cf_wide_products_kernel", "cf_wide_products_dwa_kernel",
+                          "cf_wide_products_ds_kernel")}
 WIDE_COUNTERS = ("fused_tail", "fused_tail_bwd", "fused_tail_wide", "fused_tail_wide_bwd",
                  "fused_cf_attention", "fused_cf_attention_bwd", "fused_cf_attention_wide",
                  "fused_cf_attention_wide_bwd")
@@ -1632,23 +1648,31 @@ def _wide_cf_at(torch, ops, card, cycles_per_ms, B, N, H, h):
                          cycles_per_ms)
         plain_f = device_ms(torch, lambda: cf_attention.cf_reference(*saved, d),
                             cycles_per_ms)
+        # the rollout's shape at phase 3f's --num_envs 16
+        small = [a[:WIDE_ROLLOUT_B].contiguous() for a in saved[:-1]] + [saved[-1]]
+        ms_small = device_ms(torch, lambda: cf_attention.forward_kernel(small, d, wide=True),
+                             cycles_per_ms)
     ms_b = device_ms(torch, lambda: cf_attention.backward_kernel(saved, dout, d, wide=True),
                      cycles_per_ms)
     plain_b = device_ms(torch, lambda: torch.autograd.grad(plain_out, args, dout,
                                                            retain_graph=True), cycles_per_ms)
     bf, bf_by = bound_ms(*_cf_forward_work(B, N, H, h))
     bb, bb_by = bound_ms(*_cf_backward_work(B, N, H, h))
-    print(f"  K5f wide {ms_f:.4f} ms, plain {plain_f:.4f} ms, bound {bf:.4f} ms ({bf_by}); "
+    # the staged route's bound: each stage's inputs, outputs and scratch moved once
+    rf, _ = bound_ms(sum(w[0] for w in _cf_forward_stage_work(B, N, H, h).values()), 0)
+    rb, _ = bound_ms(sum(w[0] for w in _cf_backward_stage_work(B, N, H, h).values()), 0)
+    print(f"  K5f wide {ms_f:.4f} ms, plain {plain_f:.4f} ms, bound {bf:.4f} ms ({bf_by}), "
+          f"the staged route's byte bound {rf:.4f} ms; at B={WIDE_ROLLOUT_B} {ms_small:.4f} ms; "
           f"K5b wide {ms_b:.4f} ms, plain backward {plain_b:.4f} ms, bound {bb:.4f} ms "
-          f"({bb_by}); on {card}", flush=True)
+          f"({bb_by}), the staged route's byte bound {rb:.4f} ms; on {card}", flush=True)
     common = dict(route="cuda", source="swarmacb_torch/ops/csrc/cf_attention_wide.cu",
                   library_ms=None)
     return [dict(name="fused_cf_attention_wide", replaces="swarmacb_tpu/ops/cf_attention.py:267",
                  max_abs_err=err_f, ms=ms_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by,
-                 **common),
+                 route_bound_ms=rf, ms_rollout_b16=ms_small, **common),
             dict(name="fused_cf_attention_wide_bwd",
                  replaces="swarmacb_tpu/ops/cf_attention.py:290", max_abs_err=err_b, ms=ms_b,
-                 plain_ms=plain_b, bound_ms=bb, bound_by=bb_by, **common)]
+                 plain_ms=plain_b, bound_ms=bb, bound_by=bb_by, route_bound_ms=rb, **common)]
 
 
 # ── phase 2g: K4, the fused env step ─────────────────────────────────────

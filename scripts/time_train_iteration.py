@@ -6,11 +6,14 @@ one NVIDIA GPU, with the rollout and the update timed apart.
                                             [--config configs/DirGate_dandelion.yaml]
                                             [--num_envs 1024] [--horizon 200]
                                             [--hidden_dim H]
+                                            [--fused_attention {config,on,off}]
 
 Loads ``--config`` through the port's loader, cuts it to ``--num_envs``
 arenas and a ``--horizon``-decision rollout as ``chip_smoke.py`` does
 (``--hidden_dim`` sets the networks' width, as ``train_torch.py``'s flag:
-1024 sends the critic tail to the wide route),
+1024 sends the critic tail to the wide route; ``--fused_attention`` as
+``train_torch.py``'s flag: "on" puts the fused attention, K5f and K5b, in
+place of the tail, "config" defers to the YAML),
 takes a 2-decision warm-up rollout, then times one
 ``POCATrainer.train_iteration`` (host clock, ending in
 ``torch.cuda.synchronize()``) and prints the kernels it launched. ``--root`` times the package of another
@@ -39,6 +42,7 @@ def main() -> int:
     ap.add_argument("--num_envs", type=int, default=1024)
     ap.add_argument("--horizon", type=int, default=200)
     ap.add_argument("--hidden_dim", type=int, default=None)
+    ap.add_argument("--fused_attention", default="config", choices=["config", "on", "off"])
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -66,6 +70,8 @@ def main() -> int:
     _, variant, pcfg, env_ov = load_config(root / args.config)
     pcfg = dataclasses.replace(pcfg, horizon=args.horizon, seed=0,
                                hidden_dim=args.hidden_dim or pcfg.hidden_dim)
+    if args.fused_attention != "config":
+        pcfg = dataclasses.replace(pcfg, fused_attention=args.fused_attention == "on")
     env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
     env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant,
                                                    num_envs=args.num_envs, **env_kw))
@@ -97,7 +103,8 @@ def main() -> int:
     wall = time.perf_counter() - t0
     counts = ", ".join(f"{k} {v}" for k, v in ops.launches.items() if v)
     print(f"{root} {args.config} E={args.num_envs} T={args.horizon} "
-          f"hidden={pcfg.hidden_dim}: launches {counts}; iteration {wall:.3f} s, "
+          f"hidden={pcfg.hidden_dim} fused_attention={pcfg.fused_attention}: "
+          f"launches {counts}; iteration {wall:.3f} s, "
           f"rollout {rollout_s[0]:.3f} s, update {wall - rollout_s[0]:.3f} s; on {card}",
           flush=True)
     return 0

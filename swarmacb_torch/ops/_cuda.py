@@ -25,9 +25,10 @@ kernels of both directions ask for four blocks of 128 threads an SM (128
 registers), and ``chip_smoke.py`` (phases 2d, 2e) and
 ``scripts/time_cf_backward.py`` print what ptxas gave each kernel. The
 critic's wide route (``tail_wide.cu``, ``cf_attention_wide.cu``, which
-share ``wide_common.cuh``) takes no cap: ``tail_wide.cu``'s kernels set
-their budgets with ``__launch_bounds__`` (the rows kernels one block of 256
-threads an SM, the tensor-core product one of 512), and ``chip_smoke.py``
+share ``wide_common.cuh``) takes no cap: the kernels set their budgets
+with ``__launch_bounds__`` (one rows block an SM: 256 threads in
+``tail_wide.cu``, 512 in ``cf_attention_wide.cu``; the tensor-core product
+one block of 512), and ``chip_smoke.py``
 phase 2h prints their registers and spills. ``tail_forward.cu`` and the
 wide route's products share ``tc_common.cuh`` (cp.async, the TF32 split,
 wgmma). The env kernels' wide route (``pairwise_wide.cu``;
@@ -108,10 +109,10 @@ SIGNATURES = {
         "tail_wide_bwd_attn_launch": [_P] * 3 + [_I, _I, _I, _I, _P],
     },
     "cf_attention_wide": {
-        "cf_wide_base_launch": [_P] * 7 + [_I, _I, _I, _I, _F, _P],
-        "cf_wide_fwd_rows_launch": [_P] * 9 + [_I, _I, _I, _I, _P],
-        "cf_wide_bwd_rows_launch": [_P] * 15 + [_I, _I, _I, _I, _F, _P],
-        "cf_wide_bwd_sums_launch": [_P] * 8 + [_I, _I, _I, _I, _P],
+        "cf_wide_base_launch": [_P] * 8 + [_I, _I, _I, _I, _F, _P],
+        "cf_wide_fwd_rows_launch": [_P] * 10 + [_I] * 5 + [_P],
+        "cf_wide_bwd_rows_launch": [_P] * 18 + [_I] * 7 + [_F, _P],
+        "cf_wide_bwd_sums_launch": [_P] * 6 + [_I, _I, _I, _I, _P],
         "cf_wide_bwd_products_launch": [_P] * 8 + [_I, _I, _I, _I, _F, _P],
     },
     "pairwise_wide": {

@@ -260,20 +260,6 @@ def _ptrs(tensors):
     return [t.data_ptr() for t in tensors]
 
 
-# floats of one (b, I)'s fc rows that the wide K5f (cf_attention_wide.cu)
-# keeps in shared memory (80 KB at N = 20, h = 1024, two blocks an SM);
-# longer rows go to a (B, N², h) scratch in device memory
-WIDE_SHARED_ROWS = 28 * 1024
-
-
-def wide_rows_scratch(B, N, h, dev):
-    """None where N·h fc rows fit ``WIDE_SHARED_ROWS`` floats, else the
-    (B, N², h) float32 scratch the wide K5f keeps its rows in."""
-    if N * h <= WIDE_SHARED_ROWS:
-        return None
-    return torch.empty((B, N * N, h), dtype=torch.float32, device=dev)
-
-
 # The rows kernels of the wide K3f and K3b (tail_wide.cu), mirrored here:
 # four warpgroups a block, products in tiles of 256 columns by 40 rows (row
 # tiles of 40 past N = 40) through a ring of 4 stages of 8 K-columns, and a

@@ -48,21 +48,23 @@ counters (``fused_cf_attention`` and ``fused_cf_attention_bwd``,
 ``fused_cf_attention_wide`` and ``fused_cf_attention_wide_bwd``). The wide
 route has the stages of the plain versions above (stage 0, then the rows
 forward; or rows, sums and products backward), in float32 on the CUDA
-cores with 4-byte loads, its products in a hand-written batched-product
-kernel, each row's sums over column tiles of at most 512 floats
-(``baseline_tail.layernorm_tiled``). A route that fails raises: neither
-falls back on the other.
+cores, each row's sums over column tiles of at most 512 floats
+(``baseline_tail.layernorm_tiled``); its rows blocks take one or two
+counterfactuals and keep their fc rows in shared memory as
+``cf_wide_plan`` says; what does not fit on chip goes through device
+memory. A route that fails raises: neither falls back on the other.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import _cuda
-from .baseline_tail import _layernorm, pool_layernorm, wide_rows_scratch
+from .baseline_tail import SMEM_BYTES, _layernorm, pool_layernorm
 
 
 def cf_reference(S_aa, S_as, S_sa, S_ss, wa, dws, x_a, delta, bias, d):
@@ -235,6 +237,78 @@ def route(N, H, h) -> str:
     return "tuned" if h % 4 == 0 and h <= 512 and N <= 32 and H <= 4 else "wide"
 
 
+# The rows kernels of the wide K5f and K5b (cf_attention_wide.cu), mirrored
+# here: blocks of 512 threads, at most two counterfactuals a block, the
+# dot products of 8 rows meeting in shared memory at a time
+WIDE_THREADS = 512
+WIDE_MAX_PER_BLOCK = 2
+WIDE_RED_ROWS = 8
+
+
+class CfWidePlan(NamedTuple):
+    """How the wide rows kernels cut a shape: ``per_block`` (P)
+    counterfactuals a block; whether the P·N rows of h floats stay in
+    shared memory (else the forward keeps them in a (B, N², h) scratch and
+    the backward builds them in d_fc, and their statistics, 3·P·N + P
+    floats a block, go to a scratch); whether the block's coefficients
+    (1/Z, corr/Z, rep/Z of its rows and heads) and, in the backward,
+    dout / N of its counterfactuals stay there too; each direction's
+    shared memory in bytes."""
+    per_block: int
+    rows_in_smem: bool
+    coef_in_smem: bool
+    dy_in_smem: bool
+    fwd_smem_bytes: int
+    bwd_smem_bytes: int
+
+
+def _wide_head_floats(N, H, h, P, stats_in_smem, coef_in_smem, dy_in_smem):
+    """``rows_head_floats`` of cf_attention_wide.cu: the warps' dot-product
+    sums (two buffers of 8 rows of 512 floats), the statistics (3·P·N + P),
+    the coefficients (P·N·3·Hp, Hp = H in whole float4s) and in the
+    backward dout / N of each counterfactual (P·h), each to whole float4s."""
+    def round4(n):
+        return -(-n // 4) * 4
+
+    return (2 * WIDE_RED_ROWS * WIDE_THREADS
+            + (round4(3 * P * N + P) if stats_in_smem else 0)
+            + (P * N * 3 * round4(H) if coef_in_smem else 0)
+            + (P * round4(h) if dy_in_smem else 0))
+
+
+def cf_wide_plan(N, H, h) -> CfWidePlan:
+    """The plan of the wide K5f and K5b rows kernels for N agents, H heads
+    and width h: the most counterfactuals a block, up to two, whose rows fit
+    in shared memory beside the statistics, the coefficients and the
+    backward's dout / N (each base row is then read once for them); where
+    not even one counterfactual's rows fit, two, with the rows and their
+    statistics in device memory, and the coefficients (``coef_fits`` in the
+    source), then dout / N in shared memory where they fit, else in device
+    memory. Every shape gets a plan."""
+    most = min(N, WIDE_MAX_PER_BLOCK)
+
+    def nbytes(P, rows, coef, dy):  # the statistics live where the rows do
+        return 4 * (_wide_head_floats(N, H, h, P, rows, coef, dy) + (P * N * h if rows else 0))
+
+    for P in range(most, 0, -1):
+        if nbytes(P, True, True, True) <= SMEM_BYTES:
+            return CfWidePlan(P, True, True, True, nbytes(P, True, True, False),
+                              nbytes(P, True, True, True))
+    coef = nbytes(most, False, True, False) <= SMEM_BYTES
+    dy = nbytes(most, False, coef, True) <= SMEM_BYTES
+    return CfWidePlan(most, False, coef, dy, nbytes(most, False, coef, False),
+                      nbytes(most, False, coef, dy))
+
+
+def _stats_scratch(empty, plan, B, N):
+    """The rows kernels' statistics where the rows are in device memory:
+    3·P·N + P floats for each of the B·⌈N/P⌉ blocks; else None."""
+    if plan.rows_in_smem:
+        return None
+    P = plan.per_block
+    return empty(B * -(-N // P) * (3 * P * N + P))
+
+
 def _check(args, wide=False):
     """(B, N, H, h) of the nine inputs; raises on what the route's kernels
     do not take: shape, dtype, device, layout, and the widths that
@@ -288,16 +362,28 @@ def _empty(dev):
     return lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
 
 
-def _base_stage(lib, args, terms, base, shape, sqrt_d, what, wide=False):
-    """A callable that launches stage 0 of both directions (terms, base),
-    on the tuned route or the wide one (same arguments)."""
+def _base_stage(lib, args, scratch, shape, sqrt_d, what, wide=False):
+    """A callable that launches stage 0 of both directions (terms, base; on
+    the wide route also coef), on the tuned route or the wide one."""
     S_aa, S_as, S_sa, S_ss, wa = args[:5]
+    outs = ((scratch["terms"], scratch["coef"], scratch["base"]) if wide
+            else (scratch["terms"], scratch["base"]))
     entry = lib.cf_wide_base_launch if wide else lib.cf_bwd_base_launch
 
     def launch():
         _cuda.launch(wa, f"fused_cf_attention {what}, stage 0 (base)", entry,
-                     *_ptrs((S_aa, S_as, S_sa, S_ss, wa, terms, base)), *shape, sqrt_d)
+                     *_ptrs((S_aa, S_as, S_sa, S_ss, wa, *outs)), *shape, sqrt_d)
     return launch
+
+
+def _stage0_scratch(empty, B, N, H, h, wide):
+    """Stage 0's scratch: the terms (B, H, 5, N, N) and the base products
+    (B, H, 2, N, h); on the wide route also the rows kernels' coefficients
+    1/Z, corr/Z and rep/Z (B, N, N, 3, H rounded up to a multiple of 4)."""
+    scratch = {"terms": empty(B, H, 5, N, N), "base": empty(B, H, 2, N, h)}
+    if wide:
+        scratch["coef"] = empty(B, N, N, 3, -(-H // 4) * 4)
+    return scratch
 
 
 def _library(wide):
@@ -310,52 +396,57 @@ def _forward_stage_calls(args, d, B, N, H, h, wide=False):
     ``chip_smoke.py`` calls this to hold and time each stage on its own).
 
     Returns (scratch, pooled, stages): ``scratch`` the stage-0 scratch by
-    name (``terms``, ``base``; on the wide route also ``rows`` where the fc
-    rows do not stay in shared memory), ``pooled`` the (B, N, h) output,
+    name (``terms``, ``base``; on the wide route also ``coef``, and ``rows``
+    and their ``stats`` where ``cf_wide_plan`` does not keep the fc rows in
+    shared memory), ``pooled`` the (B, N, h) output,
     and ``stages`` two callables, each of which launches one stage on the
     current stream and raises if its launch failed; stage 1 reads what
     stage 0 wrote.
     """
-    dev = args[0].device
-    empty = _empty(dev)
-    scratch = {"terms": empty(B, H, 5, N, N), "base": empty(B, H, 2, N, h)}
+    empty = _empty(args[0].device)
+    scratch = _stage0_scratch(empty, B, N, H, h, wide)
     terms, base = scratch["terms"], scratch["base"]
     pooled = empty(B, N, h)
     lib = _library(wide)
     wa, dws, x_a, delta, bias = args[4:]
     shape = (B, N, H, h)
     if wide:
-        rows_scratch = wide_rows_scratch(B, N, h, dev)
-        if rows_scratch is not None:
-            scratch["rows"] = rows_scratch
+        plan = cf_wide_plan(N, H, h)
+        if not plan.rows_in_smem:
+            scratch["rows"] = empty(B, N * N, h)
+        stats = _stats_scratch(empty, plan, B, N)
+        if stats is not None:
+            scratch["stats"] = stats
+        optional = [None if t is None else t.data_ptr() for t in (scratch.get("rows"), stats)]
 
         def rows():
             _cuda.launch(wa, "fused_cf_attention forward (wide), stage 1 (rows)",
                          lib.cf_wide_fwd_rows_launch,
-                         *_ptrs((terms, base, wa, dws, x_a, delta, bias)),
-                         None if rows_scratch is None else rows_scratch.data_ptr(),
-                         pooled.data_ptr(), *shape)
+                         *_ptrs((scratch["coef"], base, wa, dws, x_a, delta, bias)),
+                         *optional, pooled.data_ptr(), *shape, plan.per_block)
     else:
         def rows():
             _cuda.launch(wa, "fused_cf_attention forward, stage 1 (rows)",
                          lib.cf_fwd_rows_launch,
                          *_ptrs((terms, base, wa, dws, x_a, delta, bias, pooled)), *shape)
 
-    return scratch, pooled, (_base_stage(lib, args, terms, base, shape, math.sqrt(d),
-                                         "forward", wide), rows)
+    return scratch, pooled, (_base_stage(lib, args, scratch, shape, math.sqrt(d), "forward",
+                                         wide), rows)
 
 
 def forward_kernel(args, d, wide=False):
     """K5f, on the tuned route or the wide one: pooled (B, N, h) of the
     nine inputs ``args``.
 
-    Two kernels joined by scratch, each a fresh ``torch.empty``: the terms
+    Two stages joined by scratch, each a fresh ``torch.empty``: the terms
     (20·B·H·N² bytes, 32.8 MB at the main path's B = 1024, N = 20, H = 4)
     and the base products (8·B·H·N·h bytes, 335.5 MB at h = 512, 671.1 MB
     on the wide route at h = 1024), freed when the call returns; the wide
-    route keeps its fc rows in shared memory at N·h ≤ 28,672 floats, else
-    in a (B, N², h) scratch. Tensors that are not CUDA, and shapes
-    ``_check`` refuses, raise before any launch.
+    route adds the coefficients (12·B·N²·⌈H/4⌉·4 bytes, 19.7 MB) and keeps
+    its fc rows in shared memory where ``cf_wide_plan`` finds room (two
+    counterfactuals a block at N = 20, h = 1024), else in a (B, N², h)
+    scratch. Tensors that are not CUDA, and shapes ``_check`` refuses,
+    raise before any launch.
     """
     B, N, H, h = _check(args, wide)
     _, pooled, stages = _forward_stage_calls(args, d, B, N, H, h, wide)
@@ -372,8 +463,10 @@ def _stage_calls(args, dout, d, B, N, H, h, wide=False):
 
     Returns (scratch, grads, stages): ``scratch`` the stages' scratch by
     name (``terms``, ``base``, ``d_fc``, ``d_scores``, ``d_num``,
-    ``bias_part``, and on the wide route ``dU2``, d_delta over each head's
-    Z2; shapes in ``cf_backward_reference`` and the kernel sources), grads
+    ``bias_part``, and on the wide route ``coef``, ``dots``, the rows'
+    three dot products of each head (B, N, N, 3, H), and ``stats`` where
+    ``cf_wide_plan`` does not keep the rows in shared memory; shapes in
+    ``cf_backward_reference`` and the kernel sources), grads
     the nine cotangents in the inputs' order, and ``stages`` four
     callables, each of which launches one stage on the current stream and
     raises if a launch failed. They must run in order: each stage reads
@@ -382,11 +475,9 @@ def _stage_calls(args, dout, d, B, N, H, h, wide=False):
     grads = [torch.empty_like(t) for t in args]
     dS_aa, dS_as, dS_sa, dS_ss, d_wa, d_dws, d_xa, d_delta, d_bias = grads
     empty = _empty(dout.device)
-    scratch = {"terms": empty(B, H, 5, N, N), "base": empty(B, H, 2, N, h),
-               "d_fc": empty(B, N, N, h), "d_scores": empty(B, H, 2, N, N),
-               "d_num": empty(B, H, N, h), "bias_part": empty(B, h)}
-    if wide:
-        scratch["dU2"] = empty(B, H, N, h)
+    scratch = _stage0_scratch(empty, B, N, H, h, wide)
+    scratch.update(d_fc=empty(B, N, N, h), d_scores=empty(B, H, 2, N, N),
+                   d_num=empty(B, H, N, h), bias_part=empty(B, h))
     terms, base, d_fc, d_scores, d_num, bias_part = (
         scratch[k] for k in ("terms", "base", "d_fc", "d_scores", "d_num", "bias_part"))
     lib = _library(wide)
@@ -394,36 +485,41 @@ def _stage_calls(args, dout, d, B, N, H, h, wide=False):
     shape, sqrt_d = (B, N, H, h), math.sqrt(d)
     what = "fused_cf_attention backward" + (" (wide)" if wide else "")
 
-    def rows():
-        _cuda.launch(dout, f"{what}, stage 1 (rows)",
-                     lib.cf_wide_bwd_rows_launch if wide else lib.cf_bwd_rows_launch,
-                     *_ptrs((terms, base, wa, dws, x_a, delta, bias, dout, d_fc, dS_as,
-                             dS_ss, d_wa, d_dws, d_delta, d_scores)), *shape, sqrt_d)
-
     if wide:
-        dU2 = scratch["dU2"]
+        # the rows kernel also takes the scratch of its dot products and its plan
+        scratch["dots"] = empty(B, N, N, 3, H)
+        plan = cf_wide_plan(N, H, h)
+        stats = _stats_scratch(empty, plan, B, N)
+        if stats is not None:
+            scratch["stats"] = stats
 
-        def sums():
-            _cuda.launch(dout, f"{what}, stage 2 (sums)", lib.cf_wide_bwd_sums_launch,
-                         *_ptrs((terms, d_fc, d_delta, d_num, dU2, d_xa, bias_part,
-                                 d_bias)), *shape)
-
-        def products():
-            _cuda.launch(dout, f"{what}, stage 3 (products)", lib.cf_wide_bwd_products_launch,
-                         *_ptrs((terms, wa, d_num, dU2, d_scores, dS_aa, dS_sa, d_wa)),
-                         *shape, sqrt_d)
+        def rows():
+            _cuda.launch(dout, f"{what}, stage 1 (rows)", lib.cf_wide_bwd_rows_launch,
+                         *_ptrs((terms, scratch["coef"], base, wa, dws, x_a, delta, bias, dout,
+                                 d_fc, scratch["dots"])),
+                         None if stats is None else stats.data_ptr(),
+                         *_ptrs((dS_as, dS_ss, d_wa, d_dws, d_delta, d_scores)), *shape,
+                         plan.per_block, int(plan.rows_in_smem), int(plan.dy_in_smem), sqrt_d)
     else:
-        def sums():
-            _cuda.launch(dout, f"{what}, stage 2 (sums)", lib.cf_bwd_sums_launch,
-                         *_ptrs((terms, d_fc, d_num, d_xa, bias_part, d_bias)), *shape)
+        def rows():
+            _cuda.launch(dout, f"{what}, stage 1 (rows)", lib.cf_bwd_rows_launch,
+                         *_ptrs((terms, base, wa, dws, x_a, delta, bias, dout, d_fc, dS_as,
+                                 dS_ss, d_wa, d_dws, d_delta, d_scores)), *shape, sqrt_d)
 
-        def products():
-            _cuda.launch(dout, f"{what}, stage 3 (products)", lib.cf_bwd_products_launch,
-                         *_ptrs((terms, wa, d_num, d_delta, d_scores, dS_aa, dS_sa, d_wa)),
-                         *shape, sqrt_d)
+    # stages 2 and 3 take the same arguments on both routes
+    def sums():
+        _cuda.launch(dout, f"{what}, stage 2 (sums)",
+                     lib.cf_wide_bwd_sums_launch if wide else lib.cf_bwd_sums_launch,
+                     *_ptrs((terms, d_fc, d_num, d_xa, bias_part, d_bias)), *shape)
 
-    return scratch, grads, (_base_stage(lib, args, terms, base, shape, sqrt_d, "backward",
-                                        wide), rows, sums, products)
+    def products():
+        _cuda.launch(dout, f"{what}, stage 3 (products)",
+                     lib.cf_wide_bwd_products_launch if wide else lib.cf_bwd_products_launch,
+                     *_ptrs((terms, wa, d_num, d_delta, d_scores, dS_aa, dS_sa, d_wa)),
+                     *shape, sqrt_d)
+
+    return scratch, grads, (_base_stage(lib, args, scratch, shape, sqrt_d, "backward", wide),
+                            rows, sums, products)
 
 
 def backward_kernel(args, dout, d, wide=False):
@@ -436,10 +532,11 @@ def backward_kernel(args, dout, d, wide=False):
     and score scratch (28·B·H·N² bytes, 45.9 MB at B = 1024, N = 20, H = 4)
     and a (B, h) d_bias partial: at the main path's B = 1024, N = 20,
     h = 512 that is 838.9, 335.5 and 167.8 MB, ~1.39 GB in all. The wide
-    route adds dU2 (4·B·H·N·h bytes); at h = 1024 its scratch is 1.68 GB
-    of d_fc, 671.1 MB of base products, 335.5 MB each of d_num and dU2 and
-    45.9 MB of terms and scores, ~3.07 GB. Tensors that are not CUDA, and
-    shapes ``_check`` refuses, raise before any launch.
+    route adds the coefficients and the dots (12·B·N²·⌈H/4⌉·4 and
+    12·B·N²·H bytes); at h = 1024 its scratch is 1.68 GB of d_fc, 671.1 MB
+    of base products, 335.5 MB of d_num and 85.2 MB of terms, scores,
+    coefficients and dots, ~2.77 GB. Tensors that are not CUDA, and shapes
+    ``_check`` refuses, raise before any launch.
     """
     if args[0].device.type != "cuda":
         raise ValueError("fused_cf_attention backward: the kernels take CUDA "

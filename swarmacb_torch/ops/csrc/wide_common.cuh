@@ -4,26 +4,20 @@
 //
 // The wide route takes every shape the JAX functions take: any B, N, H and
 // h >= 1, with 4-byte loads, so neither h nor H * N needs to be a multiple
-// of 4. A rows block owns one (group b, counterfactual I) and its N rows of
-// h columns; every sum over a row runs over column tiles of at most kTile
-// floats, the tiles' sums added in order (the plain version of that
-// arithmetic is baseline_tail.layernorm_tiled). LayerNorm statistics take
-// two passes, the mean and then the mean of squared deviations, as the JAX
-// package's _ln_stats does. Every sum has a fixed order and there are no
-// atomics, so two calls give the same bits.
+// of 4. A rows block owns the N rows of h columns of each of its
+// counterfactuals (group b, I); every sum over a row runs over column
+// tiles of at most kTile floats, the tiles' sums added in order (the plain
+// version of that arithmetic is baseline_tail.layernorm_tiled). LayerNorm
+// statistics take two passes, the mean and then the mean of squared
+// deviations, as the JAX package's _ln_stats does. Every sum has a fixed
+// order and there are no atomics, so two calls give the same bits.
 //
-// Two batched products, each operand read through its own strides, so that
-// one kernel takes A, its transpose, B and its transpose; what a product
-// does with its outputs is an epilogue:
-//   gemm_kernel (cf_attention_wide.cu) runs on the CUDA cores in float32: a
-//   64 x 64 tile of outputs a block of 256 threads, 4 x 4 a thread, K-slices
-//   of 16 staged in shared memory through 4-byte loads. Each K-slice is
-//   summed on its own and then added to the total, so a long sum
-//   (K = h = 1024) rounds as a blocked one, not as one running sum.
-//   tc_gemm_kernel (tail_wide.cu) runs on the tensor cores in 3xTF32
-//   (tc_common.cuh): a 256 x 8 NB tile of outputs (NB = 5 or 10) a block of
-//   four warpgroups, through tc_mainloop, which tail_wide.cu's row kernels
-//   share.
+// A batched product, each operand read through its own strides, so that
+// one kernel takes A, its transpose, B and its transpose; what the product
+// does with its outputs is an epilogue: tc_gemm_kernel (tail_wide.cu) runs
+// on the tensor cores in 3xTF32 (tc_common.cuh): a 256 x 8 NB tile of
+// outputs (NB = 5 or 10) a block of four warpgroups, through tc_mainloop,
+// which tail_wide.cu's row kernels share.
 // Sums over many groups (d_bias over B) are compensated (Neumaier).
 
 #pragma once
@@ -133,17 +127,7 @@ __device__ void layernorm_backward_with(float* rows, Dy dy, int N, int h,
   __syncthreads();
 }
 
-// layernorm_backward_with d_y = dout[o] / N.
-__device__ void layernorm_backward(float* rows, const float* dout, int N,
-                                   int h, const float* s_mu,
-                                   const float* s_rstd, float* s_m2,
-                                   float* s_m1) {
-  const float rows_n = static_cast<float>(N);
-  layernorm_backward_with(rows, [&](int o) { return dout[o] / rows_n; }, N, h, s_mu, s_rstd,
-                          s_m2, s_m1);
-}
-
-// ── The batched product ────────────────────────────────────────────────────
+// ── Operands and epilogues of the batched product ──────────────────────────
 
 // An operand of a batched product: element (z, row, col) at
 // p[z * zs + row * rs + col * cs].
@@ -160,93 +144,6 @@ struct Store {  // C = A B
     p[z * zs + i * rs + j * cs] = v;
   }
 };
-
-struct Accumulate {  // C = C + A B
-  float* p;
-  long long zs, rs, cs;
-  __device__ void operator()(long long z, int i, int j, float v) const {
-    float* c = p + z * zs + i * rs + j * cs;
-    *c = *c + v;
-  }
-};
-
-constexpr int kGemmTile = 64;     // rows and columns of outputs a block
-constexpr int kGemmK = 16;        // depth of a staged K-slice
-constexpr int kGemmThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kGemmStride = kGemmTile + 4;  // staged row: whole float4s
-
-// out(z, i, j) = sum_k A(z, i, k) B(z, k, j) for i < M, j < Nc, summed in
-// order of k, then handed to the epilogue. Blocks run z-major over the
-// tiles_m x tiles_n tiles of each z. A staged K-slice is loaded with
-// consecutive threads on consecutive addresses of whichever index of the
-// operand is contiguous.
-template <class Epilogue>
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(
-    Operand A, Operand B, int M, int Nc, int K, int tiles_m, int tiles_n,
-    Epilogue epi) {
-  __shared__ __align__(16) float s_a[kGemmK][kGemmStride];
-  __shared__ __align__(16) float s_b[kGemmK][kGemmStride];
-  const int tiles = tiles_m * tiles_n;
-  const long long z = blockIdx.x / tiles;
-  const int t = blockIdx.x % tiles;
-  const int i0 = (t / tiles_n) * kGemmTile, j0 = (t % tiles_n) * kGemmTile;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const float* a = A.p + z * A.zs;
-  const float* b = B.p + z * B.zs;
-  const bool a_down = A.rs == 1;  // A's rows contiguous: threads go down them
-  const bool b_across = B.cs == 1;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kGemmK) {
-    float part[4][4] = {};
-    for (int q = tid; q < kGemmTile * kGemmK; q += kGemmThreads) {
-      int i = a_down ? q % kGemmTile : q / kGemmK;
-      int k = a_down ? q / kGemmTile : q % kGemmK;
-      s_a[k][i] = (i0 + i < M && k0 + k < K)
-                      ? a[(i0 + i) * A.rs + (k0 + k) * A.cs] : 0.f;
-      const int j = b_across ? q % kGemmTile : q / kGemmK;
-      k = b_across ? q / kGemmTile : q % kGemmK;
-      s_b[k][j] = (j0 + j < Nc && k0 + k < K)
-                      ? b[(k0 + k) * B.rs + (j0 + j) * B.cs] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kGemmK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&s_a[k][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&s_b[k][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) part[i][j] += ar[i] * br[j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gi = i0 + ty * 4 + i, gj = j0 + tx * 4 + j;
-      if (gi < M && gj < Nc) epi(z, gi, gj, acc[i][j]);
-    }
-}
-
-// Launches gemm_kernel over `batch` products of M x Nc outputs, depth K.
-template <class Epilogue>
-cudaError_t gemm(Operand A, Operand B, long long batch, int M, int Nc, int K,
-                 Epilogue epi, cudaStream_t stream) {
-  const int tiles_m = (M + kGemmTile - 1) / kGemmTile;
-  const int tiles_n = (Nc + kGemmTile - 1) / kGemmTile;
-  const long long blocks = batch * tiles_m * tiles_n;
-  if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
-  gemm_kernel<<<static_cast<unsigned>(blocks), kGemmThreads, 0, stream>>>(
-      A, B, M, Nc, K, tiles_m, tiles_n, epi);
-  return cudaGetLastError();
-}
 
 // A compensated sum (Neumaier): the running sum and the rounding it lost.
 struct CompensatedSum {

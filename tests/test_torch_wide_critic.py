@@ -222,12 +222,16 @@ def test_wide_sources_are_registered():
     backward rows (the tuned K3b's arguments, then the plan's counterfactuals
     a block and whether the rows stay in shared memory) and the two
     products, which take the tuned K3b's arguments; ``cf_attention_wide.cu``:
-    stage 0 and the backward rows as the tuned K5b's, the forward rows with
-    the rows scratch, the sums (terms, d_fc, d_delta, d_num, dU2, d_xa, the
-    partial, d_bias) and the products (dU2 in place of d_delta). No register
-    cap, and the shared device code in ``wide_common.cuh``; ``tail_wide.cu``'s
-    products on the tensor cores (``tc_gemm``, which ``wide_common.cuh``
-    builds on ``tc_common.cuh``, shared with ``tail_forward.cu``)."""
+    stage 0 as the tuned K5b's with the coefficients after the terms, the
+    forward rows (coef, base, wa, dws, x_a, delta, bias, the rows scratch or
+    null, the statistics scratch or null, pooled, the shape and the plan's
+    counterfactuals a block), the backward rows (the tuned K5b's with coef
+    after the terms and the dots and statistics scratch after d_fc, then the
+    plan: counterfactuals a block, whether the rows and dout / N stay in
+    shared memory), and the sums and products as the tuned K5b's. No register cap, and the shared device code in
+    ``wide_common.cuh``; ``tail_wide.cu``'s products on the tensor cores
+    (``tc_gemm``, which ``wide_common.cuh`` builds on ``tc_common.cuh``,
+    shared with ``tail_forward.cu``)."""
     from swarmacb_torch.ops import _cuda
 
     ptr, num, real = _cuda._P, _cuda._I, _cuda._F
@@ -247,11 +251,12 @@ def test_wide_sources_are_registered():
         encoding="utf-8")
     tuned = _cuda.SIGNATURES["cf_attention"]
     assert _cuda.SIGNATURES["cf_attention_wide"] == {
-        "cf_wide_base_launch": tuned["cf_bwd_base_launch"],
-        "cf_wide_fwd_rows_launch": [ptr] * 9 + shape + [ptr],
-        "cf_wide_bwd_rows_launch": tuned["cf_bwd_rows_launch"],
-        "cf_wide_bwd_sums_launch": [ptr] * 8 + shape + [ptr],
-        "cf_wide_bwd_products_launch": [ptr] * 8 + shape + [real, ptr],
+        "cf_wide_base_launch": [ptr] + tuned["cf_bwd_base_launch"],
+        "cf_wide_fwd_rows_launch": [ptr] * 10 + shape + [num, ptr],
+        "cf_wide_bwd_rows_launch": [ptr] * 3 + tuned["cf_bwd_rows_launch"][:-2]
+        + [num] * 3 + [real, ptr],
+        "cf_wide_bwd_sums_launch": tuned["cf_bwd_sums_launch"],
+        "cf_wide_bwd_products_launch": tuned["cf_bwd_products_launch"],
     }
     for name in ("tail_wide", "cf_attention_wide"):
         assert _cuda.SOURCES[name] == ()
