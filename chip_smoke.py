@@ -83,15 +83,17 @@ Phases, each of which must pass for the run to pass:
      K5f-wide also at the rollout's B = 16). Phase 2i holds the env kernels' wide route
      (``pairwise_wide.cu``, ``fused_step_wide.cu``: the robot counts past
      the tuned kernels' 32 that ``ops.pairwise.route`` sends there) through
-     ``ops`` at (E, N) = (1, 33), (37, 40), (1024, 64), (5, 100), K1 and
-     K2 also at (32768, 64) and at (2, 4100), K4 past its shared-memory
-     staging at (3, 300): each against its plain version (K1's RAB sums to
+     ``ops`` at (E, N) = (1, 33), (37, 40), (1024, 64), (3, 65), (5, 100),
+     K1 and K2 also at (32768, 64) and (2, 4100), K4 past its
+     shared-memory staging at (3, 300): each against its plain version (K1's RAB sums to
      the scale of their terms; K4's observations but where a neighbour lies
      within the two sets of poses' gap of a sensor's switch, each switch
      found printed with its pair), two calls bit for
      bit, the wide counter moved and the tuned one not, ptxas's registers
      and spills, each timed at (1024, 64) beside its plain version and its
-     bound (K1 and K2 also at (32768, 64)); then 20 daisy ``step_lanes``
+     bound and at (32768, 64) beside its bound (K4 there held to the plain
+     step too, a yaw beyond K4_TOL to the plain step with the RAB
+     attraction terms as the kernel takes them); then 20 daisy ``step_lanes``
      steps at E = 1024, N = 40, each one K4-wide launch;
   3. the slice: ``configs/DirGate_dandelion.yaml`` through the port's
      loader, cut to E = 1024 arenas and a 200-decision horizon, drives
@@ -380,15 +382,38 @@ def _tie_poses(rng, cfg, E, N):
     return pos, q.view(np.int32).astype(np.int64) - int(T.view(np.int32))
 
 
+def _segments_in_reach(px, py, seg, prox_range):
+    """How many (robot, wall segment) pairs the wide kernels' wall test
+    keeps, robots at ``px``, ``py`` (numpy, any shape), segments ``seg``
+    (S, 4) as (ax, ay, sx, sy): those where not |num| > fl(fl(1.001·|s|)
+    ·t_reach), num the numerator of t, t_reach = prox_range·(1 + 2⁻²⁰), in
+    float32 as the kernels take them. Every other pair has a hit distance
+    past the range for every ray."""
+    f32 = np.float32
+    seg = np.asarray(seg, f32)
+    ax, ay, sx, sy = (seg[:, k] for k in range(4))
+    t_reach = f32(prox_range) * f32(1.0 + 2.0 ** -20)
+    s_wall = (np.sqrt(sx * sx + sy * sy) * f32(1.001)) * t_reach
+    px, py = (np.asarray(a, f32).reshape(-1, 1) for a in (px, py))
+    n = 0
+    for r0 in range(0, px.shape[0], 1 << 16):
+        x, y = px[r0:r0 + (1 << 16)], py[r0:r0 + (1 << 16)]
+        num = (ax - x) * sy - (ay - y) * sx
+        n += int((~(np.abs(num) > s_wall)).sum())
+    return n
+
+
 def _sensor_work(pos, yaw, cfg, walls):
     """Bytes and float32 operations of one pairwise_sensors call on these
     inputs, the least the function needs, with what depends on the data
-    counted on this data. Per ordered pair: the squared distance and both
-    distances (13); per pair inside the proximity reach, the clipped reading
-    and the 8-ray cone test (44); per pair inside the RAB range, the bearing
-    and the four sums (22). Walls, ``walls`` (S, 4) as numpy: per robot and
-    segment, the offset to its start and the numerator of t with its
-    magnitude, which no ray changes (6); per ray and segment, the
+    counted on this data. Per ordered pair: the offsets and the squared
+    distance (5); per pair inside the proximity reach, its distance, the
+    clipped reading and the 8-ray cone test (46); per pair inside the RAB
+    range, its distance, the bearing and the four sums (24). Walls,
+    ``walls`` (S, 4) as numpy: per robot and segment, the offset to its
+    start and the numerator of t with its magnitude, which no ray changes,
+    and the test whether any ray can reach the segment (7,
+    ``_segments_in_reach``); per ray and segment that passes it, the
     denominator, its test and ε, and the range test |num| ≤ |den|·reach
     that spares the divisions of a ray that cannot hit (9); per candidate
     passing that, t and its two bounds (3); per t that passes, u's
@@ -429,8 +454,11 @@ def _sensor_work(pos, yaw, cfg, walls):
         n_u += int(t_ok.sum())
         n_hit += int((t_ok & (u >= 0) & (u <= 1)).sum())
     n_seg = walls.shape[0]
-    flops = (13 * E * N * N + 44 * n_prox + 22 * n_rab
-             + E * N * ((6 + 8 * 9) * n_seg + 65) + 3 * n_t + 6 * n_u + 3 * n_hit)
+    n_reach = _segments_in_reach(pos[..., 0], pos[..., 1],
+                                 np.concatenate([walls[:, :2], walls[:, 2:] - walls[:, :2]], 1),
+                                 cfg.prox_range)
+    flops = (5 * E * N * (N - 1) + 46 * n_prox + 24 * n_rab + E * N * (7 * n_seg + 65)
+             + 8 * 9 * n_reach + 3 * n_t + 6 * n_u + 3 * n_hit)
     n_bytes = 4 * (E * N * 3 + 24 + 4 * n_seg) + 4 * E * N * 15
     return n_bytes, flops
 
@@ -1851,21 +1879,80 @@ def _pose_budget(torch, got, want, k, keep, tag):
     return robot, {"prox": torch.cat(prox), "rab_proj": rab_i.repeat(4, 1)}
 
 
-def _k4_work(E, N, n_seg, n_face, sensor_passes, want_obs, obs24, discrete):
-    """Bytes and float32 operations of one K4 call, as the algorithm needs
-    them. Bytes: each input tile read once and each output tile written
-    once. Operations (transcendentals, square roots and divisions count
-    one each) per sensor pass: per ordered pair of robots, the offsets,
-    distances, the clipped reading and the 8-ray cone test (49), the RAB
-    bearing by rsqrt and its four sums (37); per robot and wall segment,
-    the 8-ray intersection (178); per robot, the ray directions (48), the
-    light sensor (66) and the aggregates (78). Per robot once: the
-    behaviour modules (120, discrete), integration and wrap (12), the face
-    push-out (9 per face), the gate clamp (16), the ground colours and
-    reward (14); per unordered pair, the push-out (16)."""
-    sensor = N * N * (49 + 37) + N * (178 * n_seg + 48 + 66 + 78)
+def _k4_counts(torch, k, args, want_obs, E):
+    """What one K4 call on ``args`` (``_k4_state``'s) needs that depends on
+    the data, over its first E arenas, from the plain version's arithmetic:
+    for the sensor pass (on the poses given in the discrete forms, on the
+    step's new poses in the continuous form with observations, none
+    otherwise) the ordered pairs inside the proximity reach (0 < d_p < range
+    + r), those inside the RAB range, and the (robot, wall segment) pairs
+    that ``_segments_in_reach`` keeps; and the unordered pairs that touch
+    (d < 2r) where the push-out starts (``fused_step.drive``'s positions)."""
+    from swarmacb_torch.ops import fused_step
+
+    tiles, acts, draws, spawn, cfg = args
+    N = cfg.num_agents
+    px, py, yaw = (tiles[n][:, :E] for n in ("px", "py", "yaw"))
+    cos_y, sin_y = torch.cos(yaw), torch.sin(yaw)
+    if cfg.discrete_actions:
+        sb = fused_step.sensor_block(px, py, cos_y, sin_y, k, N)
+        left, right, _ = fused_step.behaviours(
+            sb, acts[:, :E], [tiles[n][:, :E] for n in fused_step.MACHINE_TILES],
+            [d[:, :E] for d in draws], k)
+        del sb
+        sensed = (px, py)
+    else:
+        left, right = (a[:, :E] for a in acts)
+        sensed = None
+        if want_obs:
+            new = fused_step.fused_env_step_plain(*args, want_obs=False)[0]
+            sensed = (new["px"][:, :E], new["py"][:, :E])
+    x1, y1, _ = fused_step.drive(px, py, yaw, cos_y, sin_y, left, right, k)
+    off = ~torch.eye(N, dtype=torch.bool, device=px.device)[..., None]
+    upper = torch.ones(N, N, dtype=torch.bool, device=px.device).triu(1)[..., None]
+    out = dict(prox=0, rab=0, reach=0, touch=0)
+    for e0 in range(0, E, 4096):
+        sl = slice(e0, e0 + 4096)
+        if sensed is not None:
+            x, y = (t[:, sl] for t in sensed)
+            dx, dy = x[None] - x[:, None], y[None] - y[:, None]
+            d2 = dx * dx + dy * dy
+            d_p = torch.sqrt(d2 + 1e-12)
+            out["prox"] += int(((d_p < k.prox_plus_r) & (d_p >= 1e-4) & off).sum())
+            out["rab"] += int(((torch.sqrt(d2 + 1e-8) < k.rab_range) & off).sum())
+            del dx, dy, d2, d_p
+        cx, cy = (t[:, sl] for t in (x1, y1))
+        cdx, cdy = cx[None] - cx[:, None], cy[None] - cy[:, None]
+        out["touch"] += int(((torch.sqrt(cdx * cdx + cdy * cdy + 1e-8) < k.two_r) & upper).sum())
+    if sensed is not None:
+        out["reach"] = _segments_in_reach(*(t.cpu().numpy() for t in sensed), k.segments,
+                                          k.prox_range)
+    return out
+
+
+def _k4_work(E, N, n_seg, n_face, sensor_passes, want_obs, obs24, discrete, counts):
+    """Bytes and float32 operations of one K4 call, the least the function
+    needs on this data, ``counts`` from ``_k4_counts``. Bytes: each input
+    tile read once and each output tile written once. Operations
+    (transcendentals, square roots and divisions count one each) per
+    sensor pass: per ordered pair of robots, the offsets and the squared
+    distance (5); per pair inside the proximity reach, its distance, the
+    clipped reading and the 8-ray cone test (44); per pair inside the RAB
+    range, its distance, the bearing by rsqrt and its four sums (37); per
+    robot and wall segment, the offset, the numerator of t and the test
+    whether any ray can reach it (7); per segment that passes, the 8-ray
+    intersection (178); per robot, the ray directions (48), the light
+    sensor (66) and the aggregates (78). Per robot once: the behaviour
+    modules (120, discrete), integration and wrap (12), the face push-out
+    (9 per face), the gate clamp (16), the ground colours and reward (14).
+    The push-out: per unordered pair, the offsets, the squared distance
+    and its test (6); per pair that touches, the push into both sums
+    (10)."""
+    sensor = (5 * E * N * (N - 1) + 44 * counts["prox"] + 37 * counts["rab"]
+              + 7 * E * N * n_seg + 178 * counts["reach"] + E * N * (48 + 66 + 78))
     robot = (120 if discrete else 0) + 12 + 9 * n_face + 16 + 14
-    flops = E * (sensor_passes * sensor + N * robot + 16 * N * (N - 1) // 2)
+    flops = (sensor_passes * sensor + E * N * robot + 6 * E * N * (N - 1) // 2
+             + 10 * counts["touch"])
     rows_in = 4 + (9 + 4 if discrete else 2) + 3                  # N-row tiles
     rows_out = 4 + (9 if discrete else 0)
     if want_obs:
@@ -1901,7 +1988,53 @@ def _k4_free_run(torch, fn, env, k, tiles, rng_seed, steps):
     return cur
 
 
-def _k4_hold(torch, ops, variant, want_obs, E, N, tag, pose_budget=False):
+def _k4_yaw_as_kernel(torch, k, args, sel, division):
+    """The plain step's new yaw of the robots ``sel`` (an (n, 2) tensor of
+    (robot, arena)) of a discrete form, with their RAB attraction sums
+    (rab_x, rab_y) taken in index order from +0, as the kernels take them,
+    and, with ``division``, each term's weight alpha / (1 + d) taken by one
+    IEEE division, as the kernels take it (the plain version's ``k.alpha /
+    (1.0 + dist_r)`` is PyTorch's reciprocal of the divisor times alpha, two
+    roundings); every other operation the plain version's own, for the
+    terms, the behaviours and the drive, then the spawn's yaw where the
+    arena resets."""
+    from swarmacb_torch.ops import fused_step
+
+    tiles, acts, draws, spawn, cfg = args
+    N = cfg.num_agents
+    i, e = sel[:, 0], sel[:, 1]
+    px, py, yaw = (tiles[n] for n in ("px", "py", "yaw"))
+    cos_y, sin_y = torch.cos(yaw), torch.sin(yaw)
+    sb = fused_step.sensor_block(px, py, cos_y, sin_y, k, N)
+    pick = {n: v[i, e] for n, v in sb.items() if torch.is_tensor(v)}
+    # the terms of robot i's neighbours j, (N, n), as sensor_block takes them
+    dx = px[:, e] - px[i, e]
+    dy = py[:, e] - py[i, e]
+    d2 = dx * dx + dy * dy
+    dist_r = torch.sqrt(d2 + 1e-8)
+    not_self = torch.arange(N, device=px.device)[:, None] != i[None]
+    in_f = ((dist_r < k.rab_range) & not_self).to(px.dtype)
+    cy, sy = cos_y[i, e], sin_y[i, e]
+    inv_hyp = fused_step._nr_rsqrt(d2 + 1e-12)
+    alpha_w = (torch.full_like(dist_r, k.alpha) / (1.0 + dist_r) if division
+               else k.alpha / (1.0 + dist_r))
+    terms = (alpha_w * ((dx * cy + dy * sy) * inv_hyp) * in_f,
+             alpha_w * ((-dx * sy + dy * cy) * inv_hyp) * in_f)
+    for name, t in zip(("rab_x", "rab_y"), terms):
+        acc = torch.zeros_like(t[0])
+        for j in range(N):
+            acc = acc + t[j]
+        pick[name] = acc
+    left, right, _ = fused_step.behaviours(
+        pick, acts[i, e], [tiles[n][i, e] for n in fused_step.MACHINE_TILES],
+        [d[i, e] for d in draws], k)
+    _, _, nyaw = fused_step.drive(px[i, e], py[i, e], yaw[i, e], cy, sy, left, right, k)
+    done = (tiles["sc"][0, e] + 1) >= (k.max_episode_length - 1)
+    return torch.where(done, spawn[2][i, e], nyaw)
+
+
+def _k4_hold(torch, ops, variant, want_obs, E, N, tag, pose_budget=False,
+             yaw_order=False):
     """K4 (``ops.fused_env_step``, whichever route N takes) against its plain
     version in one form at (E, N), from ``_k4_state``: two calls the same
     bits, integer and boolean tiles exact but for ties, floats within
@@ -1911,8 +2044,14 @@ def _k4_hold(torch, ops, variant, want_obs, E, N, tag, pose_budget=False):
     bits) are held to the plain step's within K4_TOL plus
     ``_pose_budget``'s first-order effect of those gaps, a robot at a
     sensor switch exempt, and to the plain sensors of the kernel's own
-    poses within K4_TOL; the max |Δ| returned takes the latter. Returns
-    (env, constants, args, max |Δ|)."""
+    poses within K4_TOL; the max |Δ| returned takes the latter. With
+    ``yaw_order`` (a discrete form), a robot whose new yaw parts from the
+    plain step's by more than K4_TOL is held instead, within K4_TOL, to
+    ``_k4_yaw_as_kernel``'s: the plain step with its RAB attraction terms
+    and sums taken as the kernel takes them, which the steering turns into
+    a heading; the same with the plain version's terms in the kernel's
+    order is printed beside it.
+    Returns (env, constants, args, max |Δ|)."""
     from swarmacb_torch.ops import fused_step
 
     env, k, tiles, acts, draws, spawn = _k4_state(torch, variant, E, N, SEED + 11)
@@ -1967,6 +2106,32 @@ def _k4_hold(torch, ops, variant, want_obs, E, N, tag, pose_budget=False):
             if name in budget:
                 print(f"  {tag} {name}: largest budget {float(b[sel].max()):.3e}, median "
                       f"{float(b[sel].median()):.3e}", flush=True)
+        elif name == "yaw" and yaw_order:
+            diff = (g.double() - w.double()).abs()
+            beyond = sel & (diff > K4_TOL[name])
+            far = beyond.nonzero()
+            err = float(diff[sel].max())
+            ok = True
+            if len(far):
+                gf = g[far[:, 0], far[:, 1]]
+                em_order, em = (_k4_yaw_as_kernel(torch, k, args, far, division)
+                                for division in (False, True))
+                gap_order, gap = ((gf.double() - x.double()).abs() for x in (em_order, em))
+                ok = bool((gap <= K4_TOL[name]).all())
+                mods = torch.bincount(args[1][far[:, 0], far[:, 1]].long(), minlength=6)
+                print(f"  {tag} yaw: {len(far)} of {int(sel.sum())} robots beyond "
+                      f"{K4_TOL[name]:g} of the plain step (largest {err:.3e}; robots of each "
+                      f"module {mods.tolist()}); the plain step with its RAB sums in index "
+                      f"order: within {float(gap_order.max()):.3e} of the kernel's there, "
+                      f"{int((gf == em_order).sum())} bit for bit; and with each term's "
+                      f"alpha / (1 + d) one division, as the kernel: within "
+                      f"{float(gap.max()):.3e}, {int((gf == em).sum())} bit for bit",
+                      flush=True)
+                near = sel & ~beyond
+                err = max(float(diff[near].max()) if bool(near.any()) else 0.0,
+                          float(gap.max()))
+            worst = max(worst, err)
+            rule += ", or of the plain step with the RAB terms as the kernel takes them"
         else:
             err, ok = max_err(g[sel], w[sel], K4_TOL[name], rtol)
             worst = max(worst, err)
@@ -2019,7 +2184,8 @@ def phase_fused_step(torch, ops, cycles_per_ms):
         n_bytes, n_flops = _k4_work(
             E, N, len(k.segments), len(k.faces),
             1 if (cfg.discrete_actions or want_obs) else 0, want_obs,
-            variant in ("dandelion", "daisy"), cfg.discrete_actions)
+            variant in ("dandelion", "daisy"), cfg.discrete_actions,
+            _k4_counts(torch, k, args, want_obs, E))
         b_ms, b_by = bound_ms(n_bytes, n_flops)
         forms[(variant, want_obs, E, N)].update(ms=ms, bound_ms=b_ms, bound_by=b_by)
         work = f"bound {b_ms:.6f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, {n_flops / 1e9:.4f} GFLOP)"
@@ -2057,8 +2223,9 @@ def phase_fused_step(torch, ops, cycles_per_ms):
 
 N_WIDE = 64                         # robots of the timed wide shapes
 # (E, N) of phase 2i: one arena past the tuned kernels' 32 robots, a ragged
-# E, the timed shape, a count past 96 (four robot passes of a K4 block)
-WIDE_ENV_SHAPES = ((1, 33), (37, 40), (E_MAIN, N_WIDE), (5, 100))
+# E, the timed shape, a count just past a K4-wide block's 64 robot rows and
+# K1-wide's word of 64 neighbours, and one of two passes and two words
+WIDE_ENV_SHAPES = ((1, 33), (37, 40), (E_MAIN, N_WIDE), (3, 65), (5, 100))
 # thousands of robots for K1 and K2, and K4 past its shared-memory staging
 # (its block buffers live in a global scratch past 256 robots): held, not
 # timed
@@ -2120,9 +2287,11 @@ def phase_env_wide(torch, ops, cfg, walls, cycles_per_ms):
     """K1, K2 and K4 at robot counts past the tuned kernels' 32
     (``pairwise_wide.cu``, ``fused_step_wide.cu``), through ``ops``: each
     against its plain version at WIDE_ENV_SHAPES and WIDE_ENV_GLOBAL, two
-    calls bit for bit, the wide counter moved and the tuned one not; K1 and
-    K2 also at (E_BENCH, N_WIDE); each timed at (E_MAIN, N_WIDE) beside its
-    plain version and its bound, K1 and K2 also at (E_BENCH, N_WIDE); then
+    calls bit for bit, the wide counter moved and the tuned one not; each
+    also at (E_BENCH, N_WIDE) (K4 in daisy's form with observations, its
+    yaw with ``_k4_hold``'s ``yaw_order``); each
+    timed at (E_MAIN, N_WIDE) beside its plain version and its bound, and
+    at (E_BENCH, N_WIDE) beside its bound; then
     LANES_RUN_STEPS daisy ``step_lanes`` steps at N_LANES_RUN, each one
     K4-wide launch. Returns the JSON rows and that run's launches."""
     from swarmacb_torch.config import DirectionalGateEnvCfg
@@ -2131,7 +2300,7 @@ def phase_env_wide(torch, ops, cfg, walls, cycles_per_ms):
 
     t0 = time.perf_counter()
     print(f"== phase 2i: the env kernels' wide route (pairwise_wide.cu, fused_step_wide.cu) at "
-          f"(E, N) in {WIDE_ENV_SHAPES}, at {WIDE_ENV_GLOBAL}, K1 and K2 also at ({E_BENCH}, {N_WIDE})", flush=True)
+          f"(E, N) in {WIDE_ENV_SHAPES}, at {WIDE_ENV_GLOBAL}, and at ({E_BENCH}, {N_WIDE})", flush=True)
     for source, kernels in WIDE_ENV_KERNELS.items():
         for name, info in ptxas_report(_cuda.build_log(source), kernels).items():
             print(f"  ptxas {source} {name}: {info}", flush=True)
@@ -2211,25 +2380,34 @@ def phase_env_wide(torch, ops, cfg, walls, cycles_per_ms):
     def k4_at(variant, want_obs, E, N):
         tag = f"K4-wide {variant}{'' if want_obs else ' (no obs)'} E={E} N={N}"
         ops.reset_launches()
-        env, k, args, e = _k4_hold(torch, ops, variant, want_obs, E, N, tag, pose_budget=True)
+        # at E_BENCH a few robots' yaw parts from the plain step's by more
+        # than K4_TOL: held there to the plain step with the RAB attraction
+        # terms and sums as the kernel takes them (``_k4_yaw_as_kernel``)
+        env, k, args, e = _k4_hold(torch, ops, variant, want_obs, E, N, tag,
+                                   pose_budget=True, yaw_order=E == E_BENCH)
+        err["K4"] = max(err["K4"], e)
         check(ops.launches["fused_env_step_wide"] == 2 and ops.launches["fused_env_step"] == 0,
               f"{tag}: the wide route ran (fused_env_step_wide "
               f"{ops.launches['fused_env_step_wide']}, fused_env_step "
               f"{ops.launches['fused_env_step']})")
-        err["K4"] = max(err["K4"], e)
         if N != N_WIDE or not want_obs or variant != "daisy":
             return
-        cfg4 = env.cfg
+        counts = _k4_counts(torch, k, args, True, E)
         n_bytes, n_flops = _k4_work(E, N, len(k.segments), len(k.faces), 1, True, True,
-                                    cfg4.discrete_actions)
+                                    env.cfg.discrete_actions, counts)
         b_ms, b_by = bound_ms(n_bytes, n_flops)
         t = dict(ms=device_ms(torch, lambda: ops.fused_env_step(*args), cycles_per_ms),
-                 plain_ms=device_ms(torch, lambda: fused_step.fused_env_step_plain(*args),
-                                    cycles_per_ms), bound_ms=b_ms, bound_by=b_by)
+                 bound_ms=b_ms, bound_by=b_by)
+        if E == E_MAIN:   # the plain version is not timed at 32 times the size
+            t["plain_ms"] = device_ms(torch, lambda: fused_step.fused_env_step_plain(*args),
+                                      cycles_per_ms)
         timed[("K4", E)] = t
-        print(f"  K4-wide daisy E={E} N={N}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
-              f"{n_flops / 1e9:.4f} GFLOP)", flush=True)
+        print(f"  K4-wide daisy E={E} N={N}: kernel {t['ms']:.4f} ms"
+              + (f", plain {t['plain_ms']:.4f} ms" if "plain_ms" in t else "")
+              + f", bound {b_ms:.6f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
+              f"{n_flops / 1e9:.4f} GFLOP; pairs in proximity reach {counts['prox']}, in RAB "
+              f"range {counts['rab']}, touching {counts['touch']}; robot-segment pairs in "
+              f"reach {counts['reach']} of {E * N * len(k.segments)})", flush=True)
 
     for E, N in WIDE_ENV_SHAPES:
         k1_at(E, N)
@@ -2239,6 +2417,7 @@ def phase_env_wide(torch, ops, cfg, walls, cycles_per_ms):
         k4_at(variant, want_obs, *WIDE_ENV_SHAPES[1])
     k1_at(E_BENCH, N_WIDE)
     k2_at(E_BENCH, N_WIDE)
+    k4_at("daisy", True, E_BENCH, N_WIDE)
     # thousands of robots: K1 on a grid, whose sums stay short, K2 on spread
     # and tie positions (packed, each push would sum thousands of overlaps)
     k1_at(*WIDE_ENV_GLOBAL["K1"], poses=_grid_poses)

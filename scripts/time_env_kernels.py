@@ -37,10 +37,12 @@ card. For each E (daisy, N = 20):
     the events by the host's launches; ``scripts/profile_torch_rollout.py``
     traces its device time.
 
-With ``--wide N`` it times instead K1 and K2 alone at N robots an arena,
-where N > 32 takes their wide route (``pairwise_wide.cu``): K1 on
-``chip_smoke``'s spread poses, K2 on its spread and packed inputs, each
-with a SHA-256 of its outputs' bytes.
+With ``--wide N`` it times instead K1, K2 and K4 alone at N robots an
+arena, where N > 32 takes their wide route (``pairwise_wide.cu``,
+``fused_step_wide.cu``): K1 on ``chip_smoke``'s spread poses, K2 on its
+spread and packed inputs, K4 on ``chip_smoke._k4_state``'s daisy tiles
+with observations (the fused rollout's form), each with a SHA-256 of its
+outputs' bytes.
 
 Prints the card's name and power limit, the launch floor (an empty
 kernel, ``torch.cuda._sleep(0)``, under the same timing), ptxas's
@@ -79,9 +81,14 @@ def time_k2(torch, cs, ops, cyc, robot_radius, inputs):
     return dict(ms=times, sha256=digest.hexdigest()[:16])
 
 
+def _digest(tensors):
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in tensors)).hexdigest()[:16]
+
+
 def time_wide(torch, cs, ops, cyc, E_list, N, out):
-    """K1 and K2 through their wrappers at (E, N) for each E of ``E_list``
-    (daisy's env otherwise): device ms and a SHA-256 of the outputs."""
+    """K1, K2 and K4 through their wrappers at (E, N) for each E of
+    ``E_list`` (daisy's env otherwise): device ms and a SHA-256 of the
+    outputs."""
     import numpy as np
 
     from swarmacb_torch.config import DirectionalGateEnvCfg
@@ -98,8 +105,7 @@ def time_wide(torch, cs, ops, cyc, E_list, N, out):
                   rab_range=cfg.rab_range, alpha_rab=cfg.alpha_parameter,
                   wall_segments=env.wall_segments)
         k1 = lambda: ops.pairwise_sensors(pos, yaw, **kw)  # noqa: E731
-        digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in k1()))
-        res["k1"] = dict(ms=cs.device_ms(torch, k1, cyc), sha256=digest.hexdigest()[:16])
+        res["k1"] = dict(ms=cs.device_ms(torch, k1, cyc), sha256=_digest(k1()))
         print(f"  E={E} N={N} K1 through its wrapper {res['k1']['ms']:.4f} ms, output "
               f"sha256 {res['k1']['sha256']}", flush=True)
         packed = cs._packed_poses(np.random.default_rng(cs.SEED + 1), cfg, E, N)
@@ -108,7 +114,14 @@ def time_wide(torch, cs, ops, cyc, E_list, N, out):
                                               [torch.from_numpy(p_np).cuda()])
             print(f"  E={E} N={N} K2 through its wrapper, {kind} inputs: {row['ms'][0]:.4f} "
                   f"ms, output sha256 {row['sha256']}", flush=True)
-        del env, pos, yaw
+        kenv, _, tiles, acts, draws, spawn = cs._k4_state(torch, "daisy", E, N, cs.SEED + 11)
+        k4 = lambda: ops.fused_env_step(tiles, acts, draws, spawn, kenv.cfg)  # noqa: E731
+        new, reward, done, obs = k4()
+        res["k4"] = dict(ms=cs.device_ms(torch, k4, cyc),
+                         sha256=_digest([*new.values(), reward, done, *obs]))
+        print(f"  E={E} N={N} K4 daisy through its wrapper {res['k4']['ms']:.4f} ms, output "
+              f"sha256 {res['k4']['sha256']}", flush=True)
+        del env, pos, yaw, kenv, tiles, acts, draws, spawn, new, obs
         torch.cuda.empty_cache()
 
 
@@ -119,7 +132,7 @@ def main() -> int:
                     help="checkout whose swarmacb_torch is timed")
     ap.add_argument("--label", default="")
     ap.add_argument("--wide", type=int, default=0, metavar="N",
-                    help="time only K1 and K2, at N robots an arena")
+                    help="time only K1, K2 and K4, at N robots an arena")
     args = ap.parse_args()
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -148,7 +161,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"{card}; timing {root} {args.label}", flush=True)
     sources = ((("pairwise_wide", ("pairwise_sensors_wide_kernel",
-                                   "robot_collisions_wide_kernel")),) if args.wide else
+                                   "robot_collisions_wide_kernel")),
+                ("fused_step_wide", ("fused_step_wide_kernel",))) if args.wide else
                (("pairwise", ("pairwise_sensors_kernel", "robot_collisions_kernel")),
                 ("fused_step", ("fused_step_kernel",))))
     _cuda.build([name for name, _ in sources])

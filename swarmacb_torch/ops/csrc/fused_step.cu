@@ -103,72 +103,83 @@ struct Sensors {
   float psum_x, psum_y, pval, pvx, pvy, lvx, lvy, ztilde, w_x, w_y, rab_x, rab_y;
 };
 
-// All sensors of robot i, its pose (xi, yi, cy, sy) and its arena's
-// positions in shared memory, robot j at s_x[j * kGroup]
-// (ops/fused_step.py: sensor_block).
-__device__ void sensor_block(const Consts& c, const float* s_x, const float* s_y,
-                             int i, int N, int n_seg, float xi, float yi,
-                             float cy, float sy, Sensors& o) {
-  float wdx[kSensors], wdy[kSensors];
+// The pieces of sensor_block, each inlined where it is used: the tuned
+// form below runs them over every pair and segment, fused_step_wide.cu's
+// sensor_block_sparse over those that can count.
+
+// The 8 ray directions of heading (cy, sy); every reading starts at 0.
+__device__ __forceinline__ void sensor_rays(const Consts& c, float cy, float sy, float* wdx,
+                                            float* wdy, Sensors& o) {
 #pragma unroll
   for (int s = 0; s < kSensors; ++s) {
     wdx[s] = c.cos_a[s] * cy - c.sin_a[s] * sy;
     wdy[s] = c.cos_a[s] * sy + c.sin_a[s] * cy;
     o.prox[s] = 0.f;
   }
+}
 
-  // other robots: proximity cone test and range-and-bearing
-  float count = 0.f, w_x = 0.f, w_y = 0.f, a_x = 0.f, a_y = 0.f;
-  for (int j = 0; j < N; ++j) {
-    const float dx = s_x[j * kGroup] - xi;
-    const float dy = s_y[j * kGroup] - yi;
-    const float d2 = dx * dx + dy * dy;
+// The pair (i, j), offset (dx, dy) = robot j's position less robot i's,
+// ``other`` = (j != i): its proximity cone test into o.prox and its RAB
+// terms into the range count and the four sums.
+__device__ __forceinline__ void sensor_pair(const Consts& c, const float* wdx, const float* wdy,
+                                            float dx, float dy, bool other, float cy, float sy,
+                                            Sensors& o, float& count, float& w_x, float& w_y,
+                                            float& a_x, float& a_y) {
+  const float d2 = dx * dx + dy * dy;
 
-    const float dist_p = sqrtf(d2 + 1e-12f);
-    const bool base = (dist_p < c.prox_plus_r) && !(dist_p < 1e-4f);
-    const float reading_val = fminf(fmaxf(1.0f - dist_p / c.prox_plus_r, 0.f), 1.f);
-    const float cone_rhs = 0.9659f * (dist_p + 1e-8f);
+  const float dist_p = sqrtf(d2 + 1e-12f);
+  const bool base = (dist_p < c.prox_plus_r) && !(dist_p < 1e-4f);
+  const float reading_val = fminf(fmaxf(1.0f - dist_p / c.prox_plus_r, 0.f), 1.f);
+  const float cone_rhs = 0.9659f * (dist_p + 1e-8f);
 #pragma unroll
-    for (int s = 0; s < kSensors; ++s) {
-      const float dot = wdx[s] * dx + wdy[s] * dy;
-      if (base && dot > cone_rhs) o.prox[s] = fmaxf(o.prox[s], reading_val);
-    }
-
-    const float dist_r = sqrtf(d2 + 1e-8f);
-    const float in_f = (dist_r < c.rab_range && j != i) ? 1.f : 0.f;
-    count += in_f;
-    const float inv_dist = 1.0f / (dist_r + 1e-8f);
-    const float body_x = dx * cy + dy * sy;
-    const float body_y = (-dx) * sy + dy * cy;
-    const float inv_hyp = nr_rsqrt(d2 + 1e-12f);
-    const float cos_b = body_x * inv_hyp;
-    const float sin_b = body_y * inv_hyp;
-    w_x += inv_dist * cos_b * in_f;
-    w_y += inv_dist * sin_b * in_f;
-    const float alpha_w = c.alpha / (1.0f + dist_r);
-    a_x += alpha_w * cos_b * in_f;
-    a_y += alpha_w * sin_b * in_f;
+  for (int s = 0; s < kSensors; ++s) {
+    const float dot = wdx[s] * dx + wdy[s] * dy;
+    if (base && dot > cone_rhs) o.prox[s] = fmaxf(o.prox[s], reading_val);
   }
 
-  // walls: 8 rays x n_seg segments
-  for (int k = 0; k < n_seg; ++k) {
-    const float ax = c.seg[4 * k], ay = c.seg[4 * k + 1];
-    const float sx_s = c.seg[4 * k + 2], sy_s = c.seg[4 * k + 3];
-    const float rel_x = ax - xi;
-    const float rel_y = ay - yi;
-#pragma unroll
-    for (int s = 0; s < kSensors; ++s) {
-      const float denom = wdx[s] * sy_s - wdy[s] * sx_s;
-      const bool valid = fabsf(denom) > 1e-8f;
-      const float inv_denom = 1.0f / (denom + 1e-12f);
-      const float t = (rel_x * sy_s - rel_y * sx_s) * inv_denom;
-      const float u = (rel_x * wdy[s] - rel_y * wdx[s]) * inv_denom;
-      const bool hit = valid && t >= 0.f && t <= c.prox_range && u >= 0.f && u <= 1.f;
-      const float w_read = hit ? 1.0f - t * c.inv_range : 0.f;
-      o.prox[s] = fmaxf(o.prox[s], w_read);
-    }
-  }
+  const float dist_r = sqrtf(d2 + 1e-8f);
+  const float in_f = (dist_r < c.rab_range && other) ? 1.f : 0.f;
+  count += in_f;
+  const float inv_dist = 1.0f / (dist_r + 1e-8f);
+  const float body_x = dx * cy + dy * sy;
+  const float body_y = (-dx) * sy + dy * cy;
+  const float inv_hyp = nr_rsqrt(d2 + 1e-12f);
+  const float cos_b = body_x * inv_hyp;
+  const float sin_b = body_y * inv_hyp;
+  w_x += inv_dist * cos_b * in_f;
+  w_y += inv_dist * sin_b * in_f;
+  const float alpha_w = c.alpha / (1.0f + dist_r);
+  a_x += alpha_w * cos_b * in_f;
+  a_y += alpha_w * sin_b * in_f;
+}
 
+// Wall segment k against the 8 rays from (xi, yi), into o.prox.
+__device__ __forceinline__ void sensor_segment(const Consts& c, const float* wdx,
+                                               const float* wdy, int k, float xi, float yi,
+                                               Sensors& o) {
+  const float ax = c.seg[4 * k], ay = c.seg[4 * k + 1];
+  const float sx_s = c.seg[4 * k + 2], sy_s = c.seg[4 * k + 3];
+  const float rel_x = ax - xi;
+  const float rel_y = ay - yi;
+#pragma unroll
+  for (int s = 0; s < kSensors; ++s) {
+    const float denom = wdx[s] * sy_s - wdy[s] * sx_s;
+    const bool valid = fabsf(denom) > 1e-8f;
+    const float inv_denom = 1.0f / (denom + 1e-12f);
+    const float t = (rel_x * sy_s - rel_y * sx_s) * inv_denom;
+    const float u = (rel_x * wdy[s] - rel_y * wdx[s]) * inv_denom;
+    const bool hit = valid && t >= 0.f && t <= c.prox_range && u >= 0.f && u <= 1.f;
+    const float w_read = hit ? 1.0f - t * c.inv_range : 0.f;
+    o.prox[s] = fmaxf(o.prox[s], w_read);
+  }
+}
+
+// The light sensor from (xi, yi), the aggregates of the readings and the
+// RAB outputs from the pair sums.
+__device__ __forceinline__ void sensor_finish(const Consts& c, const float* wdx,
+                                              const float* wdy, float xi, float yi, float count,
+                                              float w_x, float w_y, float a_x, float a_y,
+                                              Sensors& o) {
   // light
   const float lxr = c.light_x - xi;
   const float lyr = c.light_y - yi;
@@ -210,6 +221,27 @@ __device__ void sensor_block(const Consts& c, const float* s_x, const float* s_y
   o.w_y = w_y;
   o.rab_x = a_x;
   o.rab_y = a_y;
+}
+
+// All sensors of robot i, its pose (xi, yi, cy, sy) and its arena's
+// positions in shared memory, robot j at s_x[j * kGroup]
+// (ops/fused_step.py: sensor_block).
+__device__ void sensor_block(const Consts& c, const float* s_x, const float* s_y,
+                             int i, int N, int n_seg, float xi, float yi,
+                             float cy, float sy, Sensors& o) {
+  float wdx[kSensors], wdy[kSensors];
+  sensor_rays(c, cy, sy, wdx, wdy, o);
+
+  // other robots: proximity cone test and range-and-bearing
+  float count = 0.f, w_x = 0.f, w_y = 0.f, a_x = 0.f, a_y = 0.f;
+  for (int j = 0; j < N; ++j)
+    sensor_pair(c, wdx, wdy, s_x[j * kGroup] - xi, s_y[j * kGroup] - yi, j != i, cy, sy, o,
+                count, w_x, w_y, a_x, a_y);
+
+  // walls: 8 rays x n_seg segments
+  for (int k = 0; k < n_seg; ++k) sensor_segment(c, wdx, wdy, k, xi, yi, o);
+
+  sensor_finish(c, wdx, wdy, xi, yi, count, w_x, w_y, a_x, a_y, o);
 }
 
 __device__ void wheels_from_vector(float vx, float vy, float ms, float& l, float& r) {

@@ -42,9 +42,11 @@ itself, ADVICE.md:6.)
 
 The CUDA kernel is ``csrc/fused_step.cu``, tuned for arenas of up to 32
 robots; past that an arena takes the wide route, ``csrc/fused_step_wide.cu``
-(the same tick, the robots of a block taken in turn), by N alone
-(``route``). The wrapper dispatches by the device of the tiles: a CPU tile
-takes the plain version, a CUDA tile the kernel, or it raises.
+(the same tick, up to 64 robot rows a block; the pairs beyond
+``sensor_skip_d2`` and ``pairwise.collision_skip_d2`` and the wall segments
+no ray can reach passed over, exactly), by N alone (``route``). The wrapper
+dispatches by the device of the tiles: a CPU tile takes the plain version, a
+CUDA tile the kernel, or it raises.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ import torch
 
 from ..env import geometry
 from . import _cuda
-from .pairwise import route
+from .pairwise import collision_skip_d2, least_d2, route
 
 LANES = 128
 # Wall segments and faces of the constants table. The env's arena is the
@@ -143,6 +145,14 @@ class Constants:
 @functools.lru_cache(maxsize=None)
 def constants(cfg) -> Constants:
     return Constants(cfg)
+
+
+def sensor_skip_d2(k: Constants) -> float:
+    """K4-wide's sensor threshold: a pair whose float32 d2 = dx² + dy² lies
+    in [it, FLT_MAX] fails both the proximity test (sqrt(d2 + 1e-12) <
+    prox_range + r) and the RAB range (sqrt(d2 + 1e-8) < rab_range), the
+    larger of their two ``least_d2``."""
+    return max(least_d2(k.prox_plus_r, 1e-12), least_d2(k.rab_range, 1e-8))
 
 
 # ── the plain version ─────────────────────────────────────────────────────
@@ -354,23 +364,10 @@ def _obs_tiles(sb, k: Constants, obs24: bool):
             sb["ztilde"], torch.cat(rp))
 
 
-def fused_env_step_plain(lanes, actions, draws, spawn, cfg, *, want_obs=True):
-    """The plain version of K4 (fused_step.py:384-528); the arguments and
-    results of ``fused_env_step``."""
-    k = constants(cfg)
-    N = cfg.num_agents
-    discrete = cfg.discrete_actions
-    px, py, yaw, prev = lanes["px"], lanes["py"], lanes["yaw"], lanes["prev"]
-    cos_y = torch.cos(yaw)
-    sin_y = torch.sin(yaw)
-
-    if discrete:
-        sb = sensor_block(px, py, cos_y, sin_y, k, N)
-        left, right, machines = behaviours(
-            sb, actions, [lanes[n] for n in MACHINE_TILES], draws, k)
-    else:
-        left, right = actions
-
+def drive(px, py, yaw, cos_y, sin_y, left, right, k: Constants):
+    """A step's motion before the robots meet: differential drive with the
+    branchless yaw wrap, the wall push-out and the gate clamp. Returns the
+    positions the robot push-out starts from and the new yaw."""
     # differential drive + branchless yaw wrap (per-step |Δyaw| < 0.5 rad)
     v = 0.5 * (left + right)
     npx = px + v * cos_y * k.dt
@@ -400,6 +397,27 @@ def fused_env_step_plain(lanes, actions, draws, spawn, cfg, *, want_obs=True):
     near_r = (k.robot_radius - torch.abs(dx_r) > 0) & in_wall_y & (npx > 0)
     sign_r = torch.where(dx_r < 0, -1.0, 1.0)        # sign with 0 → +1 (ref)
     npx = torch.where(near_r, k.gate_hw + sign_r * k.robot_radius, npx)
+    return npx, npy, nyaw
+
+
+def fused_env_step_plain(lanes, actions, draws, spawn, cfg, *, want_obs=True):
+    """The plain version of K4 (fused_step.py:384-528); the arguments and
+    results of ``fused_env_step``."""
+    k = constants(cfg)
+    N = cfg.num_agents
+    discrete = cfg.discrete_actions
+    px, py, yaw, prev = lanes["px"], lanes["py"], lanes["yaw"], lanes["prev"]
+    cos_y = torch.cos(yaw)
+    sin_y = torch.sin(yaw)
+
+    if discrete:
+        sb = sensor_block(px, py, cos_y, sin_y, k, N)
+        left, right, machines = behaviours(
+            sb, actions, [lanes[n] for n in MACHINE_TILES], draws, k)
+    else:
+        left, right = actions
+
+    npx, npy, nyaw = drive(px, py, yaw, cos_y, sin_y, left, right, k)
 
     # robot push-out: one Jacobi pass over the pairs j > i
     cdx = npx[:, None, :] - npx[None, :, :]
@@ -511,7 +529,8 @@ def _launch(lanes, actions, draws, spawn, cfg, want_obs):
             int(want_obs), k.max_episode_length)
     if route(N) == "wide":
         lib = _cuda.library("fused_step_wide")
-        _cuda.launch(lanes["px"], "fused_env_step_wide", lib.fused_step_wide_launch, *args)
+        _cuda.launch(lanes["px"], "fused_env_step_wide", lib.fused_step_wide_launch, *args,
+                     sensor_skip_d2(k), collision_skip_d2(cfg.robot_radius))
         _cuda.launches["fused_env_step_wide"] += 1
     else:
         lib = _cuda.library("fused_step")

@@ -11,7 +11,10 @@ Counterpart of ``swarmacb_tpu/ops/pairwise.py``. Two kernels in
     ``collision_skip_d2(robot_radius)``.
 
 Past 32 robots an arena takes the wide route, ``csrc/pairwise_wide.cu``:
-the same two passes, simply, for any robot count (``route``).
+the same two passes for any robot count (``route``). Its sensor kernel
+takes each pair's squared distance once and passes over, exactly, the
+pairs beyond the sensors' reach (``least_d2``) and the wall segments no
+ray can reach.
 
 Each wrapper dispatches by the device of its input: a CPU tensor goes to
 the plain PyTorch version (the env's own sensor and physics functions), a
@@ -57,6 +60,35 @@ def pairwise_sensors_plain(pos, yaw, *, prox_range, robot_radius, rab_range,
     ztilde, rab_proj, attr_x, attr_y = sensors.compute_rab(
         pos, yaw, rab_range, alpha_rab)
     return prox, ztilde, rab_proj, attr_x, attr_y
+
+
+@functools.lru_cache(maxsize=None)
+def least_d2(reach, eps) -> float:
+    """The least float32 q >= 0 with sqrt(q + eps) >= reach, each operation
+    rounded to float32 as the kernels take it (reach and eps rounded to
+    float32 first); the smallest positive float where q = 0 already
+    passes, so that a threshold is always positive. The sum and the square
+    root round monotonically, so every float32 q at or above it passes and
+    every one below fails: a pair whose squared distance lies below it is
+    within ``reach`` by the kernels' own test, exactly. Found by bisection
+    over the bit patterns of the non-negative floats."""
+    f32 = np.float32
+    r, e = f32(reach), f32(eps)
+
+    def passes(bits):
+        q = np.array([bits], np.uint32).view(np.float32)
+        return bool(np.sqrt(q + e)[0] >= r)
+
+    lo, hi = 0, 0x7F800000       # +inf passes
+    if passes(lo):
+        return float(np.array([1], np.uint32).view(np.float32)[0])
+    while hi - lo > 1:           # passes(hi) and not passes(lo)
+        mid = (lo + hi) // 2
+        if passes(mid):
+            hi = mid
+        else:
+            lo = mid
+    return float(np.array([hi], np.uint32).view(np.float32)[0])
 
 
 def _check_cuda(name, *tensors):
@@ -133,16 +165,21 @@ def pairwise_sensors(pos, yaw, *, prox_range, robot_radius, rab_range,
     rab_proj = torch.empty((E, N, 4), dtype=torch.float32, device=pos.device)
     attr_x = torch.empty((E, N), dtype=torch.float32, device=pos.device)
     attr_y = torch.empty((E, N), dtype=torch.float32, device=pos.device)
-    wide = route(N) == "wide"
-    lib = _cuda.library("pairwise_wide" if wide else "pairwise")
-    name = "pairwise_sensors_wide" if wide else "pairwise_sensors"
-    entry = lib.pairwise_sensors_wide_launch if wide else lib.pairwise_sensors_launch
-    _cuda.launch(pos, name, entry,
-                 pos.data_ptr(), yaw.data_ptr(), consts.data_ptr(), S,
-                 prox.data_ptr(), ztilde.data_ptr(), rab_proj.data_ptr(),
-                 attr_x.data_ptr(), attr_y.data_ptr(), E, N, float(prox_range),
-                 float(prox_range + robot_radius), float(rab_range), float(alpha_rab))
-    _cuda.launches[name] += 1
+    args = (pos.data_ptr(), yaw.data_ptr(), consts.data_ptr(), S,
+            prox.data_ptr(), ztilde.data_ptr(), rab_proj.data_ptr(),
+            attr_x.data_ptr(), attr_y.data_ptr(), E, N, float(prox_range),
+            float(prox_range + robot_radius), float(rab_range), float(alpha_rab))
+    if route(N) == "wide":
+        lib = _cuda.library("pairwise_wide")
+        # the proximity test's and the RAB range's thresholds on d2 (their
+        # epsilons under the square roots: sensors.py)
+        _cuda.launch(pos, "pairwise_sensors_wide", lib.pairwise_sensors_wide_launch, *args,
+                     least_d2(prox_range + robot_radius, 1e-12), least_d2(rab_range, 1e-8))
+        _cuda.launches["pairwise_sensors_wide"] += 1
+    else:
+        lib = _cuda.library("pairwise")
+        _cuda.launch(pos, "pairwise_sensors", lib.pairwise_sensors_launch, *args)
+        _cuda.launches["pairwise_sensors"] += 1
     return prox, ztilde, rab_proj, attr_x, attr_y
 
 
