@@ -91,9 +91,10 @@ Phases, each of which must pass for the run to pass:
      found printed with its pair), two calls bit for
      bit, the wide counter moved and the tuned one not, ptxas's registers
      and spills, each timed at (1024, 64) beside its plain version and its
-     bound and at (32768, 64) beside its bound (K4 there held to the plain
-     step too, a yaw beyond K4_TOL to the plain step with the RAB
-     attraction terms as the kernel takes them); then 20 daisy ``step_lanes``
+     bound (K2 also on packed inputs, its mark loops' worst case) and at
+     (32768, 64) beside its bound (K4 there held to the plain step too);
+     K2 with a NaN and infinite coordinates, and refusing positions that
+     are not 8-byte aligned; then 20 daisy ``step_lanes``
      steps at E = 1024, N = 40, each one K4-wide launch;
   3. the slice: ``configs/DirGate_dandelion.yaml`` through the port's
      loader, cut to E = 1024 arenas and a 200-decision horizon, drives
@@ -1988,53 +1989,7 @@ def _k4_free_run(torch, fn, env, k, tiles, rng_seed, steps):
     return cur
 
 
-def _k4_yaw_as_kernel(torch, k, args, sel, division):
-    """The plain step's new yaw of the robots ``sel`` (an (n, 2) tensor of
-    (robot, arena)) of a discrete form, with their RAB attraction sums
-    (rab_x, rab_y) taken in index order from +0, as the kernels take them,
-    and, with ``division``, each term's weight alpha / (1 + d) taken by one
-    IEEE division, as the kernels take it (the plain version's ``k.alpha /
-    (1.0 + dist_r)`` is PyTorch's reciprocal of the divisor times alpha, two
-    roundings); every other operation the plain version's own, for the
-    terms, the behaviours and the drive, then the spawn's yaw where the
-    arena resets."""
-    from swarmacb_torch.ops import fused_step
-
-    tiles, acts, draws, spawn, cfg = args
-    N = cfg.num_agents
-    i, e = sel[:, 0], sel[:, 1]
-    px, py, yaw = (tiles[n] for n in ("px", "py", "yaw"))
-    cos_y, sin_y = torch.cos(yaw), torch.sin(yaw)
-    sb = fused_step.sensor_block(px, py, cos_y, sin_y, k, N)
-    pick = {n: v[i, e] for n, v in sb.items() if torch.is_tensor(v)}
-    # the terms of robot i's neighbours j, (N, n), as sensor_block takes them
-    dx = px[:, e] - px[i, e]
-    dy = py[:, e] - py[i, e]
-    d2 = dx * dx + dy * dy
-    dist_r = torch.sqrt(d2 + 1e-8)
-    not_self = torch.arange(N, device=px.device)[:, None] != i[None]
-    in_f = ((dist_r < k.rab_range) & not_self).to(px.dtype)
-    cy, sy = cos_y[i, e], sin_y[i, e]
-    inv_hyp = fused_step._nr_rsqrt(d2 + 1e-12)
-    alpha_w = (torch.full_like(dist_r, k.alpha) / (1.0 + dist_r) if division
-               else k.alpha / (1.0 + dist_r))
-    terms = (alpha_w * ((dx * cy + dy * sy) * inv_hyp) * in_f,
-             alpha_w * ((-dx * sy + dy * cy) * inv_hyp) * in_f)
-    for name, t in zip(("rab_x", "rab_y"), terms):
-        acc = torch.zeros_like(t[0])
-        for j in range(N):
-            acc = acc + t[j]
-        pick[name] = acc
-    left, right, _ = fused_step.behaviours(
-        pick, acts[i, e], [tiles[n][i, e] for n in fused_step.MACHINE_TILES],
-        [d[i, e] for d in draws], k)
-    _, _, nyaw = fused_step.drive(px[i, e], py[i, e], yaw[i, e], cy, sy, left, right, k)
-    done = (tiles["sc"][0, e] + 1) >= (k.max_episode_length - 1)
-    return torch.where(done, spawn[2][i, e], nyaw)
-
-
-def _k4_hold(torch, ops, variant, want_obs, E, N, tag, pose_budget=False,
-             yaw_order=False):
+def _k4_hold(torch, ops, variant, want_obs, E, N, tag, pose_budget=False):
     """K4 (``ops.fused_env_step``, whichever route N takes) against its plain
     version in one form at (E, N), from ``_k4_state``: two calls the same
     bits, integer and boolean tiles exact but for ties, floats within
@@ -2044,13 +1999,7 @@ def _k4_hold(torch, ops, variant, want_obs, E, N, tag, pose_budget=False,
     bits) are held to the plain step's within K4_TOL plus
     ``_pose_budget``'s first-order effect of those gaps, a robot at a
     sensor switch exempt, and to the plain sensors of the kernel's own
-    poses within K4_TOL; the max |Δ| returned takes the latter. With
-    ``yaw_order`` (a discrete form), a robot whose new yaw parts from the
-    plain step's by more than K4_TOL is held instead, within K4_TOL, to
-    ``_k4_yaw_as_kernel``'s: the plain step with its RAB attraction terms
-    and sums taken as the kernel takes them, which the steering turns into
-    a heading; the same with the plain version's terms in the kernel's
-    order is printed beside it.
+    poses within K4_TOL; the max |Δ| returned takes the latter.
     Returns (env, constants, args, max |Δ|)."""
     from swarmacb_torch.ops import fused_step
 
@@ -2106,32 +2055,6 @@ def _k4_hold(torch, ops, variant, want_obs, E, N, tag, pose_budget=False,
             if name in budget:
                 print(f"  {tag} {name}: largest budget {float(b[sel].max()):.3e}, median "
                       f"{float(b[sel].median()):.3e}", flush=True)
-        elif name == "yaw" and yaw_order:
-            diff = (g.double() - w.double()).abs()
-            beyond = sel & (diff > K4_TOL[name])
-            far = beyond.nonzero()
-            err = float(diff[sel].max())
-            ok = True
-            if len(far):
-                gf = g[far[:, 0], far[:, 1]]
-                em_order, em = (_k4_yaw_as_kernel(torch, k, args, far, division)
-                                for division in (False, True))
-                gap_order, gap = ((gf.double() - x.double()).abs() for x in (em_order, em))
-                ok = bool((gap <= K4_TOL[name]).all())
-                mods = torch.bincount(args[1][far[:, 0], far[:, 1]].long(), minlength=6)
-                print(f"  {tag} yaw: {len(far)} of {int(sel.sum())} robots beyond "
-                      f"{K4_TOL[name]:g} of the plain step (largest {err:.3e}; robots of each "
-                      f"module {mods.tolist()}); the plain step with its RAB sums in index "
-                      f"order: within {float(gap_order.max()):.3e} of the kernel's there, "
-                      f"{int((gf == em_order).sum())} bit for bit; and with each term's "
-                      f"alpha / (1 + d) one division, as the kernel: within "
-                      f"{float(gap.max()):.3e}, {int((gf == em).sum())} bit for bit",
-                      flush=True)
-                near = sel & ~beyond
-                err = max(float(diff[near].max()) if bool(near.any()) else 0.0,
-                          float(gap.max()))
-            worst = max(worst, err)
-            rule += ", or of the plain step with the RAB terms as the kernel takes them"
         else:
             err, ok = max_err(g[sel], w[sel], K4_TOL[name], rtol)
             worst = max(worst, err)
@@ -2288,10 +2211,9 @@ def phase_env_wide(torch, ops, cfg, walls, cycles_per_ms):
     (``pairwise_wide.cu``, ``fused_step_wide.cu``), through ``ops``: each
     against its plain version at WIDE_ENV_SHAPES and WIDE_ENV_GLOBAL, two
     calls bit for bit, the wide counter moved and the tuned one not; each
-    also at (E_BENCH, N_WIDE) (K4 in daisy's form with observations, its
-    yaw with ``_k4_hold``'s ``yaw_order``); each
-    timed at (E_MAIN, N_WIDE) beside its plain version and its bound, and
-    at (E_BENCH, N_WIDE) beside its bound; then
+    also at (E_BENCH, N_WIDE) (K4 in daisy's form with observations); each
+    timed at (E_MAIN, N_WIDE) beside its plain version and its bound (K2
+    also on packed inputs), and at (E_BENCH, N_WIDE) beside its bound; then
     LANES_RUN_STEPS daisy ``step_lanes`` steps at N_LANES_RUN, each one
     K4-wide launch. Returns the JSON rows and that run's launches."""
     from swarmacb_torch.config import DirectionalGateEnvCfg
@@ -2366,25 +2288,23 @@ def phase_env_wide(torch, ops, cfg, walls, cycles_per_ms):
                   f"K2-wide E={E} N={N} {kind}: max|Δ| {e:.3e} (tolerance 1e-06), two calls "
                   f"bit-identical, largest push {moved:.3e}")
             del got, again, want
-            if N == N_WIDE and kind == "spread":
+            # timed on spread inputs at both E, and at E_MAIN on packed ones,
+            # the mark loops' worst case (most pairs touch)
+            if N == N_WIDE and (kind == "spread" or (kind == "packed" and E == E_MAIN)):
                 b_ms, b_by = bound_ms(*_collision_work(p_np, r))
                 t = dict(ms=device_ms(torch, call, cycles_per_ms), bound_ms=b_ms, bound_by=b_by)
                 if E == E_MAIN:
                     t["plain_ms"] = device_ms(
                         torch, lambda: physics.resolve_robot_collisions(p, r), cycles_per_ms)
-                timed[("K2", E)] = t
-                print(f"  K2-wide E={E} N={N} spread: kernel {t['ms']:.4f} ms"
+                timed[("K2" if kind == "spread" else "K2 packed", E)] = t
+                print(f"  K2-wide E={E} N={N} {kind}: kernel {t['ms']:.4f} ms"
                       + (f", plain {t['plain_ms']:.4f} ms" if "plain_ms" in t else "")
                       + f", bound {b_ms:.6f} ms ({b_by})", flush=True)
 
     def k4_at(variant, want_obs, E, N):
         tag = f"K4-wide {variant}{'' if want_obs else ' (no obs)'} E={E} N={N}"
         ops.reset_launches()
-        # at E_BENCH a few robots' yaw parts from the plain step's by more
-        # than K4_TOL: held there to the plain step with the RAB attraction
-        # terms and sums as the kernel takes them (``_k4_yaw_as_kernel``)
-        env, k, args, e = _k4_hold(torch, ops, variant, want_obs, E, N, tag,
-                                   pose_budget=True, yaw_order=E == E_BENCH)
+        env, k, args, e = _k4_hold(torch, ops, variant, want_obs, E, N, tag, pose_budget=True)
         err["K4"] = max(err["K4"], e)
         check(ops.launches["fused_env_step_wide"] == 2 and ops.launches["fused_env_step"] == 0,
               f"{tag}: the wide route ran (fused_env_step_wide "
@@ -2422,6 +2342,27 @@ def phase_env_wide(torch, ops, cfg, walls, cycles_per_ms):
     # and tie positions (packed, each push would sum thousands of overlaps)
     k1_at(*WIDE_ENV_GLOBAL["K1"], poses=_grid_poses)
     k2_at(*WIDE_ENV_GLOBAL["K2"], kinds=("spread", "tie"))
+    # K2-wide: robots off the finite plane give NaN where the plain version
+    # does, and positions that are not 8-byte aligned are refused (the
+    # kernel loads a robot as one float2)
+    E, N = WIDE_ENV_SHAPES[1]
+    p_np = _collision_inputs(cfg, E, N)["tie"]
+    p_np[1, 0, 0], p_np[3, 2, 1], p_np[2, N - 1, 0] = np.nan, np.inf, -np.inf
+    p = torch.from_numpy(p_np).to(DEVICE)
+    got, want = ops.resolve_robot_collisions(p, r), physics.resolve_robot_collisions(p, r)
+    fin = ~want.isnan()
+    e, ok = max_err(got[fin], want[fin], 1e-6, 0.0)
+    err["K2"] = max(err["K2"], e)
+    check(bool(torch.equal(got.isnan(), want.isnan())) and ok,
+          f"K2-wide E={E} N={N} with a NaN and two infinite coordinates: NaN in the same "
+          f"{int(want.isnan().sum())} places as the plain version, elsewhere max|Δ| {e:.3e}")
+    odd = torch.empty(2 * E * N + 1, device=DEVICE)[1:].view(E, N, 2)
+    try:
+        ops.resolve_robot_collisions(odd, r)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "K2-wide refuses positions that are not 8-byte aligned")
     k4_at("daisy", True, *WIDE_ENV_GLOBAL["K4"])
 
     # a daisy run on the fused env path at N_LANES_RUN robots: K4-wide alone
@@ -2454,6 +2395,9 @@ def phase_env_wide(torch, ops, cfg, walls, cycles_per_ms):
                    max_abs_err=err[key], **timed[(key, E_MAIN)])
         if (key, E_BENCH) in timed:
             row.update(_bench_keys(timed[(key, E_BENCH)]))
+        if (f"{key} packed", E_MAIN) in timed:   # K2 on packed inputs
+            packed = timed[(f"{key} packed", E_MAIN)]
+            row.update(packed_ms=packed["ms"], packed_bound_ms=packed["bound_ms"])
         rows.append(row)
     return rows, run
 
@@ -4037,7 +3981,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys}, "status": status,
                                    **{k: r[k] for k in ("f32_bound_ms", "route_bound_ms",
                                                         f"e{E_BENCH}_ms",
-                                                        f"e{E_BENCH}_bound_ms")
+                                                        f"e{E_BENCH}_bound_ms", "packed_ms",
+                                                        "packed_bound_ms")
                                       if k in r}}
                                   for r in rows]}), flush=True)
     if failures:

@@ -5,6 +5,7 @@ step of one checkout, timed on one NVIDIA GPU, to set two versions of the
 port side by side.
 
     python3 scripts/time_env_kernels.py [--E 1024 32768] [--root DIR] [--label L] [--wide N]
+                                        [--k2-forms]
 
 ``--root`` times the package of another checkout (for instance the parent
 commit, unpacked with ``git archive``) through its public entry points,
@@ -42,7 +43,12 @@ arena, where N > 32 takes their wide route (``pairwise_wide.cu``,
 ``fused_step_wide.cu``): K1 on ``chip_smoke``'s spread poses, K2 on its
 spread and packed inputs, K4 on ``chip_smoke._k4_state``'s daisy tiles
 with observations (the fused rollout's form), each with a SHA-256 of its
-outputs' bytes.
+outputs' bytes. With ``--wide N --k2-forms`` it times K2-wide in each of
+the forms of ``K2_FORMS`` too, builds of this checkout's
+``pairwise_wide.cu`` with another block size, or with the block's arenas
+staged in shared memory in place of the reads from global memory (a text
+patch of the source, for N up to the block's robots), on the same inputs,
+with ptxas's report and a digest of each.
 
 Prints the card's name and power limit, the launch floor (an empty
 kernel, ``torch.cuda._sleep(0)``, under the same timing), ptxas's
@@ -67,6 +73,23 @@ HERE = Path(__file__).resolve().parents[1]
 
 GATE_STEPS = 300   # the gate crowd forms within ~100 steps and holds
 STRIDE = 20        # K2 is timed on every STRIDE-th step's positions
+
+# K2-wide's forms for ``--k2-forms``: (robots a block, the block's arenas
+# staged in shared memory); the source's own is the first
+K2_FORMS = ((128, False), (64, False), (256, False), (128, True))
+K2_ROBOTS_LINE = "constexpr int kCollisionRobots = 128;"
+# the staged form, where whole arenas fit a block: one coalesced load a
+# thread, a barrier, then the neighbours read from shared memory
+K2_STAGED_PATCH = (
+    ("  if (!(a < A && e0 + a < E && i < N)) return;  // a lane past the block's robots\n"
+     "  const float2* arena = reinterpret_cast<const float2*>(pos) + (e0 + a) * N;\n",
+     "  __shared__ float2 s_p[kCollisionRobots];\n"
+     "  if (threadIdx.x < min(static_cast<long long>(A), E - e0) * N)\n"
+     "    s_p[threadIdx.x] = reinterpret_cast<const float2*>(pos)[e0 * N + threadIdx.x];\n"
+     "  __syncthreads();\n"
+     "  if (!(a < A && e0 + a < E && i < N)) return;  // a lane past the block's robots\n"
+     "  const float2* arena = s_p + a * N;\n"),
+)
 
 
 def time_k2(torch, cs, ops, cyc, robot_radius, inputs):
@@ -125,6 +148,80 @@ def time_wide(torch, cs, ops, cyc, E_list, N, out):
         torch.cuda.empty_cache()
 
 
+def k2_form_libraries(cs, forms):
+    """Build and load ``pairwise_wide.cu`` in each of ``forms`` (one nvcc
+    each, all at once, with the package's flags); returns {form: (library,
+    ptxas report of robot_collisions_wide_kernel)}."""
+    import ctypes
+
+    from swarmacb_torch.ops import _cuda
+
+    src = (_cuda.CSRC / "pairwise_wide.cu").read_text(encoding="utf-8")
+    assert src.count(K2_ROBOTS_LINE) == 1, "the source's block size line moved"
+    out_dir = _cuda.BUILD_DIR / "k2_forms"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc, procs = _cuda._nvcc(), {}
+    for robots, staged in forms:
+        text = src.replace(K2_ROBOTS_LINE, f"constexpr int kCollisionRobots = {robots};")
+        if staged:
+            for old, new in K2_STAGED_PATCH:
+                assert text.count(old) == 1, f"the source moved: {old!r}"
+                text = text.replace(old, new)
+        tag = f"k2_{robots}_{'staged' if staged else 'global'}"
+        cu = out_dir / f"{tag}.cu"
+        cu.write_text(text)
+        lib = out_dir / f"lib{tag}.so"
+        cmd = [nvcc, *_cuda._COMMON_FLAGS, *_cuda.SOURCES["pairwise_wide"], "-o", str(lib),
+               str(cu)]
+        procs[(robots, staged)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True), lib)
+    libs = {}
+    for form, (proc, path) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc, K2-wide form {form}:\n{log}")
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in _cuda.SIGNATURES["pairwise_wide"].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[form] = (lib, cs.ptxas_report(log, ("robot_collisions_wide_kernel",)))
+    return libs
+
+
+def time_k2_forms(torch, cs, ops, cyc, E_list, N, out):
+    """K2-wide in each of K2_FORMS, through its wrapper with the form's
+    library in the package's place, on spread and packed inputs at (E, N)
+    for each E: device ms and a SHA-256 of the outputs."""
+    import numpy as np
+
+    from swarmacb_torch.config import DirectionalGateEnvCfg
+    from swarmacb_torch.ops import _cuda
+
+    libs = k2_form_libraries(cs, K2_FORMS)
+    own = _cuda.library("pairwise_wide")
+    cfg = DirectionalGateEnvCfg(num_agents=N)
+    rows = out["k2_forms"] = []
+    try:
+        for (robots, staged), (lib, report) in libs.items():
+            if staged and N > robots:   # the staged form holds whole arenas only
+                continue
+            _cuda._libs["pairwise_wide"] = lib
+            form = f"{robots} robots a block, {'arenas staged' if staged else 'global reads'}"
+            print(f"  K2-wide form: {form}; ptxas {report}", flush=True)
+            for E in E_list:
+                spread = cs._arena_poses(np.random.default_rng(cs.SEED), cfg, E, N)[0]
+                packed = cs._packed_poses(np.random.default_rng(cs.SEED + 1), cfg, E, N)
+                for kind, p_np in (("spread", spread), ("packed", packed)):
+                    row = time_k2(torch, cs, ops, cyc, cfg.robot_radius,
+                                  [torch.from_numpy(p_np).cuda()])
+                    rows.append(dict(robots=robots, staged=staged, E=E, kind=kind,
+                                     ms=row["ms"][0], sha256=row["sha256"], ptxas=report))
+                    print(f"    E={E} N={N} {kind}: {row['ms'][0]:.4f} ms, output sha256 "
+                          f"{row['sha256']}", flush=True)
+    finally:
+        _cuda._libs["pairwise_wide"] = own
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--E", type=int, nargs="+", default=[1024, 32768])
@@ -133,6 +230,8 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--wide", type=int, default=0, metavar="N",
                     help="time only K1, K2 and K4, at N robots an arena")
+    ap.add_argument("--k2-forms", action="store_true",
+                    help="with --wide: also time K2-wide in each form of K2_FORMS")
     args = ap.parse_args()
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -176,6 +275,8 @@ def main() -> int:
         out = dict(card=card, root=str(root), label=args.label, floor_ms=floor, N=args.wide,
                    E={})
         time_wide(torch, cs, ops, cyc, args.E, args.wide, out)
+        if args.k2_forms:
+            time_k2_forms(torch, cs, ops, cyc, args.E, args.wide, out)
         print(json.dumps(out), flush=True)
         return 0
 

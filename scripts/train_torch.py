@@ -74,7 +74,7 @@ from swarmacb_torch.config.loader import load_config, print_config  # noqa: E402
 from swarmacb_torch.device import resolve_device  # noqa: E402
 from swarmacb_torch.env import make_env  # noqa: E402
 from swarmacb_torch.parallel import digest, make_mesh  # noqa: E402
-from swarmacb_torch.utils import make_writer  # noqa: E402
+from swarmacb_torch.utils import make_writer, print_line  # noqa: E402
 
 # --mp_stages auto: the bf16 stages each variant was checked with over a
 # full training run (scripts/train.py); a variant outside the table has
@@ -399,9 +399,8 @@ def run(argv=None, rank=None, init_method=None):
             trainer.train(checkpointer=ckpt)
         if mesh is not None:
             params = [*trainer.actor.parameters(), *trainer.critic.parameters()]
-            print(f"[train] rank {mesh.rank}/{mesh.world} ({mesh.backend}, {mesh.device}): "
-                  f"step {trainer.global_step:,}, parameter digest {digest(params)}",
-                  flush=True)
+            print_line(f"[train] rank {mesh.rank}/{mesh.world} ({mesh.backend}, {mesh.device}): "
+                       f"step {trainer.global_step:,}, parameter digest {digest(params)}")
     finally:
         for w in writers:
             if w is not None:

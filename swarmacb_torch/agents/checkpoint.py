@@ -31,6 +31,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.networks import Actor, DiscreteActor, RecurrentDiscreteActor
+from ..utils.logging import print_line
 
 STATE_FILE = "state.pt"
 METADATA_FILE = "metadata.json"
@@ -94,7 +95,7 @@ class Checkpointer:
         path.mkdir(parents=True)
         torch.save(state, path / STATE_FILE)
         (path / METADATA_FILE).write_text(json.dumps(meta))
-        print(f"[POCA] Saved → {path}")
+        print_line(f"[POCA] Saved → {path}")
         if not (final or quarantine):
             self._rotate()
         return path
@@ -123,11 +124,11 @@ class Checkpointer:
                 restorable.append(p)
             else:
                 shutil.rmtree(p, ignore_errors=True)
-                print(f"[POCA] Removed unrestorable checkpoint → {p.name}")
+                print_line(f"[POCA] Removed unrestorable checkpoint → {p.name}")
         while len(restorable) > self.keep:
             old = restorable.pop(0)
             shutil.rmtree(old, ignore_errors=True)
-            print(f"[POCA] Removed old checkpoint → {old.name}")
+            print_line(f"[POCA] Removed old checkpoint → {old.name}")
 
     # ── restore ───────────────────────────────────────────────────
     @staticmethod
@@ -152,7 +153,7 @@ class Checkpointer:
         meta = self.load_metadata(path)
         trainer.global_step = int(meta["global_step"])
         trainer.update_count = int(meta["update_count"])
-        print(f"[POCA] Loaded ← {path}  (step {trainer.global_step})")
+        print_line(f"[POCA] Loaded ← {path}  (step {trainer.global_step})")
         return meta
 
     @classmethod

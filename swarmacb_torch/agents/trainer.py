@@ -76,6 +76,7 @@ from ..env.directional_gate import DirectionalGateEnv
 from ..env import lanes as laneslib
 from ..models.networks import (Actor, DiscreteActor, POCACritic,
                                RecurrentDiscreteActor)
+from ..utils.logging import print_line
 from . import buffer as buf
 from . import losses
 from .buffer import Rollout
@@ -795,10 +796,10 @@ class POCATrainer:
             sps = self.global_step / elapsed if elapsed > 0 else 0.0
             sps_inst = decisions / iter_dt if iter_dt > 0 else 0.0
             if progress and self.is_main:
-                print(f"[POCA] step={self.global_step:,} upd={self.update_count} "
-                      f"pg={m['policy_loss']:.3f} vf={m['value_loss']:.3f} "
-                      f"bl={m['baseline_loss']:.3f} ent={m['entropy']:.3f} "
-                      f"SPS={sps:,.0f} (inst {sps_inst:,.0f})", flush=True)
+                print_line(f"[POCA] step={self.global_step:,} upd={self.update_count} "
+                           f"pg={m['policy_loss']:.3f} vf={m['value_loss']:.3f} "
+                           f"bl={m['baseline_loss']:.3f} ent={m['entropy']:.3f} "
+                           f"SPS={sps:,.0f} (inst {sps_inst:,.0f})")
             # a NaN loss means diverged training: stop at the iteration it
             # appears instead of burning the rest of the budget
             bad = [k for k in ("policy_loss", "value_loss", "baseline_loss")

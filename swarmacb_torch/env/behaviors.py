@@ -55,7 +55,9 @@ def compute_wheels_from_vector(dx, dy, max_speed: float):
     right = torch.where(front, ones, cos_a)
     max_val = torch.clamp(torch.maximum(torch.abs(left), torch.abs(right)),
                           min=1e-5)
-    scale = max_speed / max_val
+    # one IEEE division (a Python scalar over a tensor is PyTorch's
+    # reciprocal times the scalar)
+    scale = torch.full_like(max_val, max_speed) / max_val
     left = left * scale
     right = right * scale
     left = torch.where(near_zero, torch.zeros_like(left), left)

@@ -202,7 +202,9 @@ def compute_rab(pos, yaw, rab_range: float, alpha_rab: float):
     rab_proj = (w_x[..., None] * rab_cos[None, None, :]
                 + w_y[..., None] * rab_sin[None, None, :])
 
-    alpha_w = alpha_rab / (1.0 + dist)
+    # one IEEE division, as the JAX package and the kernels take it (a
+    # Python scalar over a tensor is PyTorch's reciprocal times the scalar)
+    alpha_w = torch.full_like(dist, alpha_rab) / (1.0 + dist)
     rab_attr_x = (alpha_w * cos_b * in_f).sum(-1)
     rab_attr_y = (alpha_w * sin_b * in_f).sum(-1)
     return ztilde, rab_proj, rab_attr_x, rab_attr_y

@@ -118,7 +118,7 @@ SIGNATURES = {
     "pairwise_wide": {
         "pairwise_sensors_wide_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
                                          _I, _I, _F, _F, _F, _F, _F, _F, _P],
-        "robot_collisions_wide_launch": [_P, _P, _I, _I, _F, _P],
+        "robot_collisions_wide_launch": [_P, _P, _I, _I, _F, _F, _P],
     },
     "fused_step_wide": {
         "fused_step_wide_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

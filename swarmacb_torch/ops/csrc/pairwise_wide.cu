@@ -11,7 +11,7 @@
 //
 // Each thread reads the arena's positions, 8 bytes a robot, straight from
 // global memory, where L1 and L2 serve the re-reads (staging them in shared
-// memory was slower); nothing refuses an N >= 1.
+// memory was slower for both kernels); nothing refuses an N >= 1.
 //
 // pairwise_sensors_wide_kernel: eight lanes a robot, one a sensor ray, 32
 // robots of one arena a block, the blocks of an arena side by side in a
@@ -53,13 +53,20 @@
 // another order than the plain version's, each term within a few 2^-24 of
 // its atan2 form (``chip_smoke.py`` holds them to 1e-5 + 1e-5·Σ|term|).
 //
-// robot_collisions_wide_kernel: a block works on one arena (blockIdx.x),
-// its robots split over blockIdx.y and, past the grid, looped; one thread a
-// robot, 128 a block, a loop over every neighbour in ascending j. Each pair
-// is evaluated in full: the push
-// of a pair that cannot touch is +0 or -0 and leaves an accumulator that
-// started at +0 as it was (the proof is at robot_collisions_kernel in
-// pairwise.cu), so the sums are the tuned kernel's bits.
+// robot_collisions_wide_kernel: one thread a robot. Where an arena fits a
+// block (N <= kCollisionRobots), a block takes the most whole arenas it
+// holds, kCollisionRobots / N, so that few lanes idle (the tuned kernel's
+// idea; at N = 64, E = 1024 that is 512 blocks of 128 threads); past that,
+// the arena's robots span ceil(N / kCollisionRobots) blocks, side by side in
+// a one-dimensional grid. On spread poses about 0.2 of a robot's 63
+// neighbours touch it, so each word of 32 neighbours takes two loops, as in
+// the tuned kernel: a fully unrolled one that marks the pairs that can
+// touch by one comparison of bit patterns, then the marked pairs, lowest
+// first, through the pair's full arithmetic; each sum keeps its terms in
+// ascending j, and the skip is exact (the proof is at the kernel), so the
+// outputs are the bits of the form that evaluates every pair. Where every
+// pair touches (robots packed in a crowd) the marks are overhead on the
+// full arithmetic, and such inputs run slower than that form (PERF.md §6).
 //
 // Numerics as in pairwise.cu and the plain PyTorch version
 // (swarmacb_torch/env/sensors.py, physics.py): every formula operation by
@@ -79,8 +86,9 @@ constexpr int kMaxSeg = 64;           // wall segments
 constexpr int kConstHead = 2 * kSensors + 2 * kRabProj;
 constexpr int kSensorRobots = 32;     // robots a block of the sensor pass
 constexpr int kChunk = 64;            // neighbours a mask word
-constexpr int kCollisionThreads = 128;
-constexpr int kMaxGridY = 65535;
+constexpr int kCollisionRobots = 128;  // robots a block of the push-out
+constexpr int kWord = 32;             // neighbours a mark word of the push-out
+constexpr unsigned kFltMaxBits = 0x7f7fffffu;
 constexpr float kMinHyp2 = 0x1p-100f; // below it, the bearing by atan2f
 
 __device__ __forceinline__ float nr_rsqrt(float x) {
@@ -258,21 +266,102 @@ __global__ void __launch_bounds__(kSensorRobots * kSensors) pairwise_sensors_wid
     attr_y[r] = a_y;
 }
 
-// Single Jacobi pass of elastic push-out (physics.resolve_robot_collisions):
+// True where q is a float in [lo, FLT_MAX], lo > 0 given by its bits: one
+// unsigned comparison. q is a sum of squares and 1e-8, so it is positive,
+// +inf or NaN; positive floats order as their bit patterns do, and
+// bits(q) - bits(lo) lies in [0, bits(FLT_MAX) - bits(lo)] exactly where q
+// does in [lo, FLT_MAX]: below lo the difference wraps, and +inf and NaN of
+// either sign lie above.
+__device__ __forceinline__ bool finite_at_least(float q, unsigned lo_bits) {
+  return __float_as_uint(q) - lo_bits <= kFltMaxBits - lo_bits;
+}
+
+// Single Jacobi pass of elastic push-out (physics.resolve_robot_collisions).
+// Thread i reads only pre-push positions and writes out of place:
 //   out_i = (x_i + sum_{j>i} half(i, j)) - sum_{j<i} half(j, i),
-// each sum in ascending j, half(j, i) taken as -half(i, j) (exact).
-__global__ void __launch_bounds__(kCollisionThreads) robot_collisions_wide_kernel(
-    const float* __restrict__ pos, float* __restrict__ out, int N, float min_dist) {
-  const size_t e = blockIdx.x;
-  const float* arena = pos + e * N * 2;
-  for (int i = blockIdx.y * blockDim.x + threadIdx.x; i < N; i += gridDim.y * blockDim.x) {
-    const float xi = arena[2 * i], yi = arena[2 * i + 1];
-    float hx_own = 0.f, hy_own = 0.f;      // pairs (i, j), j > i
-    float hx_other = 0.f, hy_other = 0.f;  // pairs (j, i), j < i
-    for (int j = 0; j < N; ++j) {
-      if (j == i) continue;
-      const float dx = xi - arena[2 * j];
-      const float dy = yi - arena[2 * j + 1];
+//   half(a, b) = 0.5 * max(2r - d_ab, 0) * (x_a - x_b) / (d_ab + 1e-8),
+//   d_ab = sqrt(|x_a - x_b|^2 + 1e-8).
+// Thread i computes t = half(i, j) from dx = x_i - x_j and adds it to `own`
+// where j > i, or takes it from `other` where j < i. Both give the bits of
+// the two sums above: (-dx)^2 = dx^2, so d_ij = d_ji; negation is exact, so
+// half(i, j) = -half(j, i) bit for bit; acc - (-h) = acc + h in IEEE
+// arithmetic; and each sum takes its terms in ascending j, since the words
+// and the marked pairs within a word go in ascending j.
+//
+// The skip. Let m = fl32(2r) (min_dist) and skip_d2 the least float at or
+// above m^2 (``pairwise.collision_skip_d2``, exact). For each word of 32
+// neighbours, a fully unrolled loop computes q = dx*dx + dy*dy + 1e-8,
+// rounded as the pair's full arithmetic rounds it (-fmad=false), and marks
+// the pair unless skip_d2 <= q <= FLT_MAX (``finite_at_least``); the pair
+// (i, i) is not marked; then the marked pairs, lowest first, take the full
+// path. For an unmarked pair j != i:
+//   - q >= skip_d2 >= m^2, so sqrt(q) >= m; sqrtf rounds correctly and
+//     monotonically and m is a float, so dist = sqrtf(q) >= m and m - dist
+//     is +0 or negative (x - x is +0 in round-to-nearest), and the overlap
+//     fmaxf(m - dist, 0) is +0;
+//   - q is finite, so dx and dy are, dist + 1e-8 >= m > 0 and the normal
+//     dx / (dist + 1e-8) is finite: the term (+0 * n) * 0.5 is +0 or -0;
+//   - an accumulator starts at +0 and is never -0 (in round-to-nearest a
+//     sum is -0 only when both addends are, a difference x - y only when x
+//     is -0 and y is +0), and adding or taking away a zero leaves such a
+//     value as it was.
+// So the skipped term changes no bit. A NaN q fails the test and is marked,
+// and NaN propagates through the full path as in the plain version; so
+// does an infinite q, where an infinite offset makes the normal inf / inf =
+// NaN. The pair (i, i), which the plain version's dense matrix holds with a
+// zero weight, gives a zero term where x_i and y_i are finite, NaN in both
+// coordinates where either is not (x_i - x_i is NaN there): handled after
+// the loops, as it is in the form that evaluates every pair.
+//
+// blockDim.x: the block's robots rounded up to whole warps (where arenas
+// fit a block: A = kCollisionRobots / N arenas; else kCollisionRobots
+// robots of one arena). pos and out are 8-byte aligned (the launch checks),
+// so that each robot is one float2 load.
+__global__ void __launch_bounds__(kCollisionRobots) robot_collisions_wide_kernel(
+    const float* __restrict__ pos, float* __restrict__ out, int E, int N, float min_dist,
+    float skip_d2) {
+  // the block's robots: whole arenas e0 .. e0 + A - 1 (robot i of arena
+  // e0 + a), or robots i0 .. i0 + kCollisionRobots - 1 of one arena e0
+  const bool whole = N <= kCollisionRobots;
+  const int A = whole ? kCollisionRobots / N : 1;
+  const int spans = whole ? 1 : (N + kCollisionRobots - 1) / kCollisionRobots;
+  const long long e0 = static_cast<long long>(blockIdx.x / spans) * A;
+  const int a = whole ? threadIdx.x / N : 0;
+  const int i = whole ? threadIdx.x - a * N : (blockIdx.x % spans) * kCollisionRobots + threadIdx.x;
+  if (!(a < A && e0 + a < E && i < N)) return;  // a lane past the block's robots
+  const float2* arena = reinterpret_cast<const float2*>(pos) + (e0 + a) * N;
+  const float2 pi = arena[i];
+  const unsigned skip_bits = __float_as_uint(skip_d2);
+  float2 own = make_float2(0.f, 0.f);    // pairs (i, j), j > i
+  float2 other = make_float2(0.f, 0.f);  // pairs (j, i), j < i
+  for (int j0 = 0; j0 < N; j0 += kWord) {
+    unsigned mark = 0;  // bit k: the pair (i, j0 + k) can touch
+    if (j0 + kWord <= N) {
+#pragma unroll
+      for (int k = 0; k < kWord; ++k) {
+        const float2 pj = arena[j0 + k];
+        const float dx = pi.x - pj.x;
+        const float dy = pi.y - pj.y;
+        const float q = dx * dx + dy * dy + 1e-8f;
+        if (!finite_at_least(q, skip_bits)) mark |= 1u << k;
+      }
+    } else {  // the arena's last, partial word: past N, robot N - 1, masked off
+#pragma unroll
+      for (int k = 0; k < kWord; ++k) {
+        const float2 pj = arena[min(j0 + k, N - 1)];
+        const float dx = pi.x - pj.x;
+        const float dy = pi.y - pj.y;
+        const float q = dx * dx + dy * dy + 1e-8f;
+        if (!finite_at_least(q, skip_bits)) mark |= 1u << k;
+      }
+      mark &= (1u << (N - j0)) - 1;
+    }
+    if (i >= j0 && i < j0 + kWord) mark &= ~(1u << (i - j0));  // the pair (i, i)
+    for (; mark != 0; mark &= mark - 1) {
+      const int j = j0 + __ffs(mark) - 1;
+      const float2 pj = arena[j];
+      const float dx = pi.x - pj.x;
+      const float dy = pi.y - pj.y;
       const float dist = sqrtf(dx * dx + dy * dy + 1e-8f);
       const float overlap = fmaxf(min_dist - dist, 0.f);
       const float nx = dx / (dist + 1e-8f);
@@ -280,24 +369,17 @@ __global__ void __launch_bounds__(kCollisionThreads) robot_collisions_wide_kerne
       const float tx = overlap * nx * 0.5f;
       const float ty = overlap * ny * 0.5f;
       if (j > i) {
-        hx_own += tx;
-        hy_own += ty;
+        own.x += tx;
+        own.y += ty;
       } else {
-        hx_other -= tx;
-        hy_other -= ty;
+        other.x -= tx;
+        other.y -= ty;
       }
     }
-    // the pair (i, i) of the plain version's dense matrix: zero where x_i
-    // and y_i are finite, NaN in both coordinates where either is not
-    if (!(fabsf(xi) <= FLT_MAX && fabsf(yi) <= FLT_MAX)) hx_own = hy_own = NAN;
-    out[2 * (e * N + i)] = (xi + hx_own) - hx_other;
-    out[2 * (e * N + i) + 1] = (yi + hy_own) - hy_other;
   }
-}
-
-inline int grid_y(int N, int per_block) {
-  const int blocks = (N + per_block - 1) / per_block;
-  return blocks < kMaxGridY ? blocks : kMaxGridY;
+  if (!(fabsf(pi.x) <= FLT_MAX && fabsf(pi.y) <= FLT_MAX)) own.x = own.y = NAN;
+  reinterpret_cast<float2*>(out)[(e0 + a) * N + i] =
+      make_float2((pi.x + own.x) - other.x, (pi.y + own.y) - other.y);
 }
 
 }  // namespace
@@ -325,12 +407,25 @@ int pairwise_sensors_wide_launch(const float* pos, const float* yaw, const float
   return static_cast<int>(cudaGetLastError());
 }
 
-int robot_collisions_wide_launch(const float* pos, float* out, int E, int N,
-                                 float min_dist, void* stream) {
-  if (N < 1 || E < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(E, grid_y(N, kCollisionThreads));
-  robot_collisions_wide_kernel<<<grid, kCollisionThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(pos, out, N, min_dist);
+// skip_d2: ``pairwise.collision_skip_d2(robot_radius)``, positive. Where
+// arenas fit a block, ceil(E / A) blocks of A arenas; else
+// ceil(N / kCollisionRobots) blocks an arena.
+int robot_collisions_wide_launch(const float* pos, float* out, int E, int N, float min_dist,
+                                 float skip_d2, void* stream) {
+  if (N < 1 || E < 1 || !(skip_d2 > 0.f) ||
+      reinterpret_cast<uintptr_t>(pos) % alignof(float2) != 0 ||
+      reinterpret_cast<uintptr_t>(out) % alignof(float2) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool whole = N <= kCollisionRobots;
+  const int A = whole ? kCollisionRobots / N : 1;
+  const long long blocks = whole ? (static_cast<long long>(E) + A - 1) / A
+                                 : static_cast<long long>(E) *
+                                       ((N + kCollisionRobots - 1) / kCollisionRobots);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = whole ? (A * N + 31) / 32 * 32 : kCollisionRobots;
+  robot_collisions_wide_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(pos, out, E, N, min_dist,
+                                                                      skip_d2);
   return static_cast<int>(cudaGetLastError());
 }
 

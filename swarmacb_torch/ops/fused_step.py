@@ -170,6 +170,13 @@ def _div_by(x, c: float):
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
+def _over(c: float, x):
+    """c / x as one IEEE division, as the kernels and the JAX package take
+    it. (PyTorch takes a Python scalar over a tensor as the tensor's
+    reciprocal times the scalar: two roundings.)"""
+    return torch.full_like(x, c) / x
+
+
 def sensor_block(px, py, cos_y, sin_y, k: Constants, N: int):
     """All sensors of (N, Ep) pose tiles (fused_step.py:141-247); returns a
     dict of tiles. Pair tensors are (N, N, Ep), indexed [i, j]."""
@@ -251,7 +258,7 @@ def sensor_block(px, py, cos_y, sin_y, k: Constants, N: int):
     sin_b = body_y * inv_hyp
     w_x = (inv_dist * cos_b * in_f).sum(dim=1)
     w_y = (inv_dist * sin_b * in_f).sum(dim=1)
-    alpha_w = k.alpha / (1.0 + dist_r)
+    alpha_w = _over(k.alpha, 1.0 + dist_r)
     rab_x = (alpha_w * cos_b * in_f).sum(dim=1)
     rab_y = (alpha_w * sin_b * in_f).sum(dim=1)
 
@@ -271,7 +278,7 @@ def _wheels_from_vector(vx, vy, max_speed):
     left = torch.where(front, cos_t, ones)
     right = torch.where(front, ones, cos_t)
     max_val = torch.clamp(torch.maximum(torch.abs(left), torch.abs(right)), min=1e-5)
-    scale = max_speed / max_val
+    scale = _over(max_speed, max_val)
     zeros = torch.zeros_like(cos_t)
     return (torch.where(near_zero, zeros, left * scale),
             torch.where(near_zero, zeros, right * scale))

@@ -14,7 +14,8 @@ Past 32 robots an arena takes the wide route, ``csrc/pairwise_wide.cu``:
 the same two passes for any robot count (``route``). Its sensor kernel
 takes each pair's squared distance once and passes over, exactly, the
 pairs beyond the sensors' reach (``least_d2``) and the wall segments no
-ray can reach.
+ray can reach; its collision kernel stages the arenas in shared memory and
+skips the pairs the tuned one skips, word by word of 32 neighbours.
 
 Each wrapper dispatches by the device of its input: a CPU tensor goes to
 the plain PyTorch version (the env's own sensor and physics functions), a
@@ -185,10 +186,10 @@ def pairwise_sensors(pos, yaw, *, prox_range, robot_radius, rab_range,
 
 @functools.lru_cache(maxsize=None)
 def collision_skip_d2(robot_radius) -> float:
-    """The collision kernel's skip threshold: the least float32 at or above
+    """The collision kernels' skip threshold: the least float32 at or above
     (fl32(2r))². A pair whose float32 squared distance (ε included) reaches
     it has sqrt ≥ fl32(2r), hence no overlap and a push of exactly zero
-    (the proof is in ``csrc/pairwise.cu``). The square of a float32 is exact
+    (the proof is in ``csrc/pairwise.cu`` and ``csrc/pairwise_wide.cu``). The square of a float32 is exact
     in float64, so the value is exact."""
     m2 = float(np.float32(2.0 * robot_radius)) ** 2
     t = np.float32(m2)
@@ -206,19 +207,19 @@ def resolve_robot_collisions(pos, robot_radius):
     if pos.shape != (E, N, 2) or N < 1:
         raise ValueError(f"resolve_robot_collisions: pos must be (E, N>=1, 2), "
                          f"got {tuple(pos.shape)}")
+    if pos.data_ptr() % 8 != 0:
+        raise ValueError("resolve_robot_collisions: pos must be 8-byte aligned "
+                         "(the kernels load each robot as one float2)")
     out = torch.empty_like(pos)
+    args = (pos.data_ptr(), out.data_ptr(), E, N, float(2.0 * robot_radius),
+            collision_skip_d2(robot_radius))
     if route(N) == "wide":
         lib = _cuda.library("pairwise_wide")
         _cuda.launch(pos, "resolve_robot_collisions_wide", lib.robot_collisions_wide_launch,
-                     pos.data_ptr(), out.data_ptr(), E, N, float(2.0 * robot_radius))
+                     *args)
         _cuda.launches["resolve_robot_collisions_wide"] += 1
         return out
-    if pos.data_ptr() % 8 != 0:
-        raise ValueError("resolve_robot_collisions: pos must be 8-byte aligned "
-                         "(the tuned kernel loads each robot as one float2)")
     lib = _cuda.library("pairwise")
-    _cuda.launch(pos, "resolve_robot_collisions", lib.robot_collisions_launch,
-                 pos.data_ptr(), out.data_ptr(), E, N, float(2.0 * robot_radius),
-                 collision_skip_d2(robot_radius))
+    _cuda.launch(pos, "resolve_robot_collisions", lib.robot_collisions_launch, *args)
     _cuda.launches["resolve_robot_collisions"] += 1
     return out

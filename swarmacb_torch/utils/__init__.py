@@ -1,5 +1,5 @@
-"""Utilities: the summary writer."""
+"""Utilities: the summary writer, whole-line prints."""
 
-from .logging import JsonlWriter, make_writer
+from .logging import JsonlWriter, make_writer, print_line
 
-__all__ = ["JsonlWriter", "make_writer"]
+__all__ = ["JsonlWriter", "make_writer", "print_line"]

@@ -10,8 +10,19 @@ the same ``add_scalar`` API writes ``scalars.jsonl`` in the log directory.
 from __future__ import annotations
 
 import json
+import sys
 import time
 from pathlib import Path
+
+
+def print_line(line: str) -> None:
+    """``line`` and its newline on standard output in one write, flushed.
+    The ranks of a data-parallel run share their parent's standard output;
+    where it is unbuffered (PYTHONUNBUFFERED, ``python -u``) ``print``
+    writes the text and the newline apart, and another rank's line can
+    land between them. One write of a short line to a pipe is atomic."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
 
 
 class JsonlWriter:

@@ -1,12 +1,13 @@
-"""The launch plans and the exact skips of the env's wide route (K1-wide in
-``csrc/pairwise_wide.cu``, K4-wide in ``csrc/fused_step_wide.cu``), on the
-CPU, where no kernel runs.
+"""The launch plans and the exact skips of the env's wide route (K1-wide and
+K2-wide in ``csrc/pairwise_wide.cu``, K4-wide in
+``csrc/fused_step_wide.cu``), on the CPU, where no kernel runs.
 
-On the card K4-wide takes up to 64 robot rows a block and K1-wide 32
-robots a block of eight lanes each (each launch computes its grid; the
-plans are mirrored here, ``k4_plan`` and ``k1_plan``, from the sources'
-constants); both take each pair's squared distance
-once and pass over what cannot count: the pairs at or past a threshold
+On the card K4-wide takes up to 64 robot rows a block, K1-wide 32 robots a
+block of eight lanes each, and K2-wide whole arenas a block of up to 128
+robots, or 128 robots of one arena (each launch computes its grid; the
+plans are mirrored here, ``k4_plan``, ``k1_plan`` and ``k2_plan``, from the
+sources' constants); each takes each pair's squared distance
+once and passes over what cannot count: the pairs at or past a threshold
 (``pairwise.least_d2``, ``fused_step.sensor_skip_d2``,
 ``pairwise.collision_skip_d2``) and the wall
 segments whose hit distance exceeds the range for every ray.
@@ -24,7 +25,10 @@ each edge of the plans. Here:
       skips and without: the same bits on spread poses, on pairs within 8
       float32 steps of each threshold, and with an infinite or NaN
       coordinate and a non-finite heading (NaN where the full sums have
-      it); and K1-wide's bearing (rsqrt and a Newton step) within
+      it); K2-wide's push-out (words of 32 neighbours, the marked pairs in
+      ascending j) against the form that evaluates every pair, bit for bit
+      on spread, packed and tie inputs and with infinite and NaN
+      coordinates, at N = 33 … 300; and K1-wide's bearing (rsqrt and a Newton step) within
       ``chip_smoke.K1_TOL``'s Σ|term| rule of the plain version's atan2.
 """
 
@@ -34,6 +38,8 @@ from typing import NamedTuple
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke as cs
 
 from swarmacb_torch.config import DirectionalGateEnvCfg
 from swarmacb_torch.env import geometry
@@ -64,6 +70,8 @@ def _constant(source, name):
 # lanes each), neighbours a mask word, the constants' head
 K4_MAX_ROWS, GROUP, K4_BUFFERS, K4_MAX_STAGED = 64, 8, 5, 256
 K1_ROBOTS, K1_CHUNK, K1_CONST_HEAD = 32, 64, 2 * 8 + 2 * 4
+# csrc/pairwise_wide.cu: robots a block of the push-out, neighbours a mark word
+K2_ROBOTS, K2_WORD = 128, 32
 
 
 class K4Plan(NamedTuple):
@@ -80,6 +88,26 @@ class K1Plan(NamedTuple):
     threads: int        # a block: 32 robots of one arena, eight lanes a robot
     words: int          # mask words of a robot's neighbours
     smem_bytes: int     # static shared memory of a block
+
+
+class K2Plan(NamedTuple):
+    arenas: int         # whole arenas a block; 1 where an arena spans blocks
+    spans: int          # blocks an arena spans
+    threads: int        # the block's robots rounded up to whole warps
+    blocks: int         # a one-dimensional grid
+    words: int          # mask words of a robot's neighbours
+
+
+def k2_plan(E, N) -> K2Plan:
+    """How ``robot_collisions_wide_launch`` launches K2-wide at (E, N):
+    where an arena fits a block, the most whole arenas it holds; else
+    ceil(N / K2_ROBOTS) blocks an arena, side by side."""
+    whole = N <= K2_ROBOTS
+    A = K2_ROBOTS // N if whole else 1
+    spans = 1 if whole else -(-N // K2_ROBOTS)
+    return K2Plan(arenas=A, spans=spans,
+                  threads=-(-(A * N) // 32) * 32 if whole else K2_ROBOTS,
+                  blocks=-(-E // A) if whole else E * spans, words=-(-N // K2_WORD))
 
 
 def k4_plan(E, N) -> K4Plan:
@@ -127,6 +155,16 @@ def test_plans_mirror_the_kernel_sources():
     assert "const int blocks = (N + kSensorRobots - 1) / kSensorRobots;" in K1_SRC
     assert "__shared__ float s_c[kConstHead + 4 * kMaxSeg];" in K1_SRC
     assert "__shared__ float s_wall[kMaxSeg];" in K1_SRC
+    assert _constant(K1_SRC, "kCollisionRobots") == K2_ROBOTS
+    assert _constant(K1_SRC, "kWord") == K2_WORD
+    assert "const int A = whole ? kCollisionRobots / N : 1;" in K1_SRC
+    assert "const int threads = whole ? (A * N + 31) / 32 * 32 : kCollisionRobots;" in K1_SRC
+    assert ("const long long blocks = whole ? (static_cast<long long>(E) + A - 1) / A\n"
+            "                                 : static_cast<long long>(E) *\n"
+            "                                       ((N + kCollisionRobots - 1) / "
+            "kCollisionRobots);") in K1_SRC
+    assert "const int spans = whole ? 1 : (N + kCollisionRobots - 1) / kCollisionRobots;" in K1_SRC
+    assert "for (int j0 = 0; j0 < N; j0 += kWord) {" in K1_SRC
 
 
 @pytest.mark.parametrize("N,want", [
@@ -167,15 +205,47 @@ def test_k1_wide_plan_at_the_edges(N):
         assert p.words == -(-N // 64) and p.smem_bytes == 4 * (24 + 5 * 64) <= SMEM_DEFAULT
 
 
+@pytest.mark.parametrize("N,want", [
+    (33, (3, 1, 128)), (40, (3, 1, 128)), (64, (2, 1, 128)), (65, (1, 1, 96)),
+    (100, (1, 1, 128)), (128, (1, 1, 128)), (129, (1, 2, 128)), (300, (1, 3, 128)),
+    (4100, (1, 33, 128)),
+])
+def test_k2_wide_plan_at_the_edges(N, want):
+    arenas, spans, threads = want
+    for E in RAGGED_E:
+        p = k2_plan(E, N)
+        assert (p.arenas, p.spans, p.threads) == want
+        assert p.blocks == (-(-E // arenas) if N <= K2_ROBOTS else E * spans) < 2 ** 31
+        assert p.words == -(-N // 32)
+    # the timed shape fills the card: several blocks for each of its 132 SMs
+    assert k2_plan(1024, 64).blocks == 512 >= 3 * 132
+
+
+def test_k2_wide_plan_takes_every_robot_count():
+    """Every N: whole warps, every robot a lane of one block, no lane idle
+    but the last warp's and the arenas a block cannot hold whole."""
+    for N in [*range(1, 300), 511, 512, 513, 4099, 4100, 4101, 20000]:
+        p = k2_plan(37, N)
+        assert p.threads % 32 == 0 and p.threads <= K2_ROBOTS, N
+        robots = p.arenas * N if N <= K2_ROBOTS else K2_ROBOTS
+        assert robots <= p.threads < robots + 32, N
+        if N <= K2_ROBOTS:   # every arena in one block, the last block not empty
+            assert (p.blocks - 1) * p.arenas < 37 <= p.blocks * p.arenas, N
+        else:                # an arena's robots over its blocks
+            assert p.blocks == 37 * p.spans and (p.spans - 1) * K2_ROBOTS < N, N
+
+
 def test_the_wrappers_hand_each_entry_point_its_arguments():
     """The C entry points take the thresholds, as many arguments as
     ``_cuda.SIGNATURES`` declares."""
-    for src, name in ((K4_SRC, "fused_step_wide_launch"), (K1_SRC, "pairwise_sensors_wide_launch")):
+    for src, name in ((K4_SRC, "fused_step_wide_launch"), (K1_SRC, "pairwise_sensors_wide_launch"),
+                      (K1_SRC, "robot_collisions_wide_launch")):
         params = re.search(rf"\nint {name}\((.*?)\) \{{", src, re.S).group(1)
         lib = "fused_step_wide" if "fused" in name else "pairwise_wide"
         assert params.count(",") + 1 == len(_cuda.SIGNATURES[lib][name])
     assert "int max_episode_length, float pair_d2, float touch_d2,\n" in K4_SRC
     assert "float alpha, float prox_d2, float rab_d2, void* stream" in K1_SRC
+    assert "int N, float min_dist,\n                                 float skip_d2, void* stream)" in K1_SRC
 
 
 # ── (b) the thresholds ───────────────────────────────────────────────────
@@ -389,6 +459,69 @@ def test_k4_wide_skips_keep_every_bit(kind):
     if kind == "poison":   # NaN reaches the sums where the full form has it
         assert bool(torch.isnan(full["w_x"][3, 5])), "a non-finite heading"
         assert bool(torch.isnan(sparse["w_x"][0]).all()), "an infinite neighbour"
+
+
+def _k2_wide_push(px, py, skip):
+    """pairwise_wide.cu's robot_collisions_wide_kernel (``skip``) or the
+    form that evaluates every pair j != i in ascending j, on (E, N)
+    positions: the words of K2_WORD neighbours in turn, each word's marks
+    from one loop over its 32 neighbours (in the arena's last word, robot
+    N - 1 past N, masked off), then the marked pairs, lowest first, through
+    the full arithmetic. Returns the new positions."""
+    E, N = px.shape
+    T = pairwise.collision_skip_d2(CFG.robot_radius)
+    m = t32(2.0 * CFG.robot_radius)
+    idx = torch.arange(N)
+    own_x, own_y, oth_x, oth_y = (torch.zeros_like(px) for _ in range(4))
+    for j0 in range(0, N, K2_WORD):
+        marks = []
+        for k in range(K2_WORD):
+            j = min(j0 + k, N - 1)
+            dx, dy = px - px[:, j:j + 1], py - py[:, j:j + 1]
+            q = dx * dx + dy * dy + t32(1e-8)
+            marks.append(~torch.from_numpy(_finite_at_least(q.numpy(), T)) if skip
+                         else torch.ones_like(q, dtype=torch.bool))
+        for k in range(min(K2_WORD, N - j0)):   # the marked pairs in ascending j
+            j = j0 + k
+            take = marks[k] & (idx != j)
+            dx, dy = px - px[:, j:j + 1], py - py[:, j:j + 1]
+            dist = torch.sqrt(dx * dx + dy * dy + t32(1e-8))
+            overlap = torch.fmax(m - dist, torch.zeros_like(dist))
+            tx = overlap * (dx / (dist + t32(1e-8))) * t32(0.5)
+            ty = overlap * (dy / (dist + t32(1e-8))) * t32(0.5)
+            up, down = take & (j > idx), take & (j < idx)
+            own_x, own_y = torch.where(up, own_x + tx, own_x), torch.where(up, own_y + ty, own_y)
+            oth_x = torch.where(down, oth_x - tx, oth_x)
+            oth_y = torch.where(down, oth_y - ty, oth_y)
+    off_plane = ~(torch.isfinite(px) & torch.isfinite(py))
+    own_x = torch.where(off_plane, torch.nan, own_x)
+    own_y = torch.where(off_plane, torch.nan, own_y)
+    return torch.stack([(px + own_x) - oth_x, (py + own_y) - oth_y], -1)
+
+
+@pytest.mark.parametrize("poison", [None, "nan", "inf"])
+@pytest.mark.parametrize("kind", ["spread", "packed", "tie"])
+@pytest.mark.parametrize("E,N", [(5, 33), (4, 40), (3, 64), (3, 65), (3, 100), (3, 300)])
+def test_k2_wide_skip_keeps_every_bit(E, N, kind, poison):
+    """The marks give the full form's bits on ``chip_smoke``'s inputs: spread,
+    packed (a disc of radius 2r) and tie (pairs within ±8 float32 steps of
+    the skip threshold), also with a NaN or infinite coordinates, which
+    reach their arena as NaN where the full form has it; and they skip."""
+    p = cs._collision_inputs(CFG, E, N)[kind]
+    if poison == "nan":
+        p[0, N // 2, 0] = np.nan
+    elif poison == "inf":
+        p[-1, N - 1, 1] = np.inf
+        p[0, 0, 0] = -np.inf
+    px, py = torch.from_numpy(p[..., 0].copy()), torch.from_numpy(p[..., 1].copy())
+    full, sparse = _k2_wide_push(px, py, False), _k2_wide_push(px, py, True)
+    nan_f, nan_s = full.isnan(), sparse.isnan()
+    assert torch.equal(nan_f, nan_s)
+    assert torch.equal(full[~nan_f].view(torch.int32), sparse[~nan_s].view(torch.int32))
+    ok = ~nan_f
+    assert float((full[ok] - torch.from_numpy(p)[ok]).abs().max()) > 1e-4, "no overlaps"
+    if poison is not None:
+        assert int(nan_f.sum()) >= 2 * N, "the poison spread through its arena"
 
 
 def _k1_sums(px, py, yaw, skip, bearing="rsqrt"):

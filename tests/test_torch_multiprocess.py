@@ -13,7 +13,11 @@ variables set by hand) must save the plain run's ``poca_final`` bit for
 bit. Every run is a subprocess with a time limit, one thread a process,
 and ``--no-tensorboard`` (TensorBoard's import takes as long as a run).
 That rank 0 alone makes a summary writer is held in process: ``prepare``
-of each rank of a two-rank mesh, its collectives stubbed.
+of each rank of a two-rank mesh, its collectives stubbed. So is that each
+line the trainer and the checkpointer print goes out as one write: the
+ranks share their parent's standard output, and where it is unbuffered
+(PYTHONUNBUFFERED, ``python -u``) ``print`` writes a line's text and its
+newline apart, so that another rank's line could land between them.
 """
 
 import contextlib
@@ -116,6 +120,40 @@ def test_rank_zero_alone_writes(runs):
     assert sum(l.startswith("[POCA] step=") for l in out["dp"].splitlines()) == 2
     saved = [l.split("/")[-1] for l in out["dp"].splitlines() if l.startswith("[POCA] Saved")]
     assert saved == [f"poca_{ITER}", f"poca_{2 * ITER}", "poca_final"]
+
+
+class _Writes(io.StringIO):
+    """A standard output that keeps each write apart."""
+
+    def __init__(self):
+        super().__init__()
+        self.writes = []
+
+    def write(self, s):
+        self.writes.append(s)
+        return super().write(s)
+
+
+def test_each_printed_line_is_one_write(tmp_path, monkeypatch):
+    """One iteration of ``train_torch.py`` in process, its checkpoint saved,
+    then a second resumed from it: every line of the trainer and the
+    checkpointer is one write of the line and its newline."""
+    cfg = yaml.safe_load((ROOT / "configs" / "DirGate_dandelion.yaml").read_text())
+    cfg["behaviors"]["DirGate_dandelion"].update(time_horizon=10, summary_freq=ITER,
+                                                 checkpoint_interval=ITER)
+    (tmp_path / "dandelion.yaml").write_text(yaml.safe_dump(cfg))
+    argv = ["--config", str(tmp_path / "dandelion.yaml"), "--device", "cpu", "--num_envs", "4",
+            "--hidden_dim", "16", "--no-tensorboard", "--total_timesteps", str(ITER),
+            "--checkpoint_dir", str(tmp_path / "ckpt"), "--log_dir", str(tmp_path / "logs")]
+    train_torch = load_script("train_torch")
+    out = _Writes()
+    monkeypatch.setattr("sys.stdout", out)
+    train_torch.main(argv)
+    train_torch.main([*argv[:-4], "--total_timesteps", str(2 * ITER), "--checkpoint", "latest",
+                      *argv[-4:]])
+    lines = [w for w in out.writes if w.startswith(("[POCA]", "[train] rank"))]
+    assert {w.split(" ")[1] for w in lines} >= {"step=800", "Saved", "Loaded", "step=1,600"}
+    assert all(w.endswith("\n") and w.count("\n") == 1 for w in lines), lines
 
 
 class _TwoRanks(Mesh):
