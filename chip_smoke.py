@@ -142,7 +142,10 @@ Phases, each of which must pass for the run to pass:
      the float32 launch counts, its time beside phases 3c and 3d; then the
      small reference above on both critic paths in bf16, each projection
      bit-equal between the devices in at least 99.9 % of its elements and
-     the critic's outputs, losses and gradients within one bf16 step.
+     the critic's outputs, losses and gradients within one bf16 step, and
+     each of its six Adam steps' losses against the CPU's at the card's own
+     parameters and against the CPU run's own step (``MP_SAME_TOL``,
+     ``MP_RUN_TOL``).
      Phase 3i runs ``train_torch.py --seeds 0-3 --num_envs 16`` (T = 1000:
      four lanes of one iteration each, each lane's launches counted), checks
      the four ``_seed<s>`` checkpoint and log directories, holds lane 0
@@ -2796,7 +2799,8 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
     is held bit for bit in at least 99.9 % of its elements, and what the
     critic's outputs reach (values, baselines, losses, gradients) within one
     bf16 step, 2^-8, where a summation order that differs between the
-    devices flips a rounding. ``hidden`` overrides the variant's width
+    devices flips a rounding; each Adam step of the update is held as
+    ``_hold_bf16_steps`` says. ``hidden`` overrides the variant's width
     (``--hidden_dim``): at 1024 the card's critic takes the wide route."""
     from swarmacb_torch.agents import POCAConfig, POCATrainer, buffer
     from swarmacb_torch.config import DirectionalGateEnvCfg
@@ -2893,7 +2897,7 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
         check(ok, f"card vs CPU final LSTM carry h: max|Δ| {err:.3e}")
 
     # the update, from the CPU's rollout on both sides
-    first, after = {}, {}
+    first, after, steps_of = {}, {}, {}
     for device, trainer in trainers.items():
         rollout = type(cpu)(**{k: v.to(device) for k, v in cpu.items()})
         bootstrap = boot_c.to(device)
@@ -2915,6 +2919,8 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
                          {n: p.grad.cpu() for n, p in
                           [*trainer.actor.named_parameters(prefix="actor"),
                            *trainer.critic.named_parameters(prefix="critic")]})
+        if mixed_precision:
+            steps_of[device] = _record_steps(trainer)
         metrics = trainer._update(rollout, bootstrap, c.lr, c.clip_eps, c.beta,
                                   injected_perms=perms)
         after[device] = (metrics, {n: p.detach().cpu() for n, p in
@@ -2971,6 +2977,88 @@ def phase_small_reference(torch, fused_attention=False, variant="dandelion",
         check(abs(a - b) <= 1e-3 + 1e-2 * abs(b),
               f"card vs CPU update metric {k}: {a:.6g} vs {b:.6g} "
               "(tolerance 1e-03 + 1e-02·|CPU|)")
+    if mixed_precision:
+        # last: it loads the card's parameters into the CPU trainer
+        _hold_bf16_steps(torch, trainers, steps_of)
+
+
+# Each bf16 Adam step, card against CPU (phase 3h), in the way
+# tests/test_torch_mixed_precision_steps.py holds the port's steps to the JAX
+# trainer's. The losses of each step (policy, value, baseline, entropy) at the
+# card's own parameters before it, evaluated on the CPU on the same
+# minibatch: both sides then differ only by summation orders, within
+# MP_SAME_TOL (absolute + relative), where float32 in place of bf16 in the
+# card's q/k/v/o projections parts by more. And each step's losses against
+# the CPU's own run of the same steps, within MP_RUN_TOL, where the two runs'
+# parameters part only where a gradient near 0 takes another sign on the
+# card (one Adam step moves such a coordinate by about lr), and a flipped
+# gradient sign parts by more. Both stated before the first call on the card.
+MP_SAME_TOL = 5e-5
+MP_RUN_TOL = 1e-3
+MP_LOSSES = ("policy", "value", "baseline", "entropy")
+
+
+def _record_steps(trainer) -> dict:
+    """Wraps ``trainer._sgd_step`` to keep, for each Adam step, the
+    parameters before it (on the CPU), its minibatch, its loss function's
+    name and arguments, and the losses it returns (``"steps"``), and the
+    seconds the keeping took (``"seconds"``)."""
+    record, inner = {"steps": [], "seconds": 0.0}, trainer._sgd_step
+
+    def step(batch, eps, beta, loss_fn, groups_per_row=1):
+        t0 = time.perf_counter()
+        before = {n: p.detach().cpu().clone() for n, p in
+                  [*trainer.actor.named_parameters(prefix="actor"),
+                   *trainer.critic.named_parameters(prefix="critic")]}
+        t1 = time.perf_counter()
+        aux = inner(batch, eps, beta, loss_fn, groups_per_row)
+        t2 = time.perf_counter()
+        record["steps"].append((before, {k: v.cpu() for k, v in batch.items()},
+                                loss_fn.__name__, (eps, beta, groups_per_row),
+                                aux.detach().cpu().tolist()))
+        record["seconds"] += (t1 - t0) + (time.perf_counter() - t2)
+        return aux
+    trainer._sgd_step = step
+    return record
+
+
+def _hold_bf16_steps(torch, trainers, steps_of) -> None:
+    """Each recorded step of the card against the CPU: its losses against
+    the CPU's at the card's parameters before it (``MP_SAME_TOL``), and
+    against the CPU run's own step (``MP_RUN_TOL``); prints the largest
+    |Δ| / tolerance of each. Loads the card's parameters into the CPU
+    trainer."""
+    t0 = time.perf_counter()
+    cpu = trainers["cpu"]
+    card_steps, cpu_steps = steps_of[DEVICE]["steps"], steps_of["cpu"]["steps"]
+    check(len(card_steps) == len(cpu_steps) > 1,
+          f"the bf16 update took {len(card_steps)} Adam steps on the card and "
+          f"{len(cpu_steps)} on the CPU")
+    params = dict([*cpu.actor.named_parameters(prefix="actor"),
+                   *cpu.critic.named_parameters(prefix="critic")])
+    worst = {"same": (0.0, ""), "run": (0.0, "")}
+    for k, ((before, batch, fn, args, got), (*_, ran)) in enumerate(zip(card_steps,
+                                                                         cpu_steps)):
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(before[n])
+        cpu.optimizer.zero_grad(set_to_none=True)
+        _, here = cpu._accumulate_grads(batch, *args[:2], getattr(cpu, fn), args[2])
+        for what, want, tol in (("same", here.tolist(), MP_SAME_TOL), ("run", ran, MP_RUN_TOL)):
+            for name, a, b in zip(MP_LOSSES, got, want):
+                ratio = abs(a - b) / (tol + tol * abs(b))
+                if ratio >= worst[what][0]:
+                    worst[what] = (ratio, f"step {k} {name} loss {a:.7g} vs {b:.7g}")
+    cpu.optimizer.zero_grad(set_to_none=True)
+    for what, tol, against in (("same", MP_SAME_TOL, "the CPU's at the card's parameters"),
+                               ("run", MP_RUN_TOL, "the CPU run's own step")):
+        ratio, where = worst[what]
+        check(ratio <= 1.0, f"card vs CPU, each of {len(card_steps)} bf16 Adam steps' losses "
+                            f"against {against}: largest |Δ| / ({tol:g} + {tol:g}·|CPU|) "
+                            f"{ratio:.3e}, at {where}")
+    print(f"  the per-step hold took {steps_of[DEVICE]['seconds']:.2f} s to keep the card's "
+          f"{len(card_steps)} steps and {time.perf_counter() - t0:.2f} s to evaluate them on "
+          "the CPU", flush=True)
 
 
 def _bf16_projections(torch, trainers, critic_states):
@@ -3251,6 +3339,7 @@ def phase_mixed_precision(torch, ops, card, f32_walls):
     ``mixed_precision=True`` at the stages ``--mp_stages auto`` gives
     dandelion, on both critic paths, beside phases 3c and 3d of this run;
     then the small reference on both paths."""
+    t_phase = time.perf_counter()
     stages = _script("train_torch").VALIDATED_MP_STAGES["dandelion"]
     check(stages == "qkvo", f"--mp_stages auto gives dandelion {stages!r}")
     for fused in (False, True):
@@ -3272,6 +3361,7 @@ def phase_mixed_precision(torch, ops, card, f32_walls):
         del trainer
     for fused in (False, True):
         phase_small_reference(torch, fused_attention=fused, mixed_precision=True)
+    print(f"  phase 3h {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 # ── phase 3i: seed-parallel training ─────────────────────────────────────

@@ -76,6 +76,7 @@ from ..env.directional_gate import DirectionalGateEnv
 from ..env import lanes as laneslib
 from ..models.networks import (Actor, DiscreteActor, POCACritic,
                                RecurrentDiscreteActor)
+from ..numerics import sqrt_rn
 from ..utils.logging import print_line
 from . import buffer as buf
 from . import losses
@@ -584,7 +585,7 @@ class POCATrainer:
         mean = self._pmean(advantages.mean())
         sq = self._pmean(((advantages - mean) ** 2).sum())
         var = sq * self.world / (n_global - 1)
-        return (advantages - mean) / (torch.sqrt(var) + 1e-10)
+        return (advantages - mean) / (sqrt_rn(var) + 1e-10)
 
     @staticmethod
     def _flatten_buffer(rollout: Rollout, returns, advantages) -> dict:

@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from ..numerics import sqrt_rn
 from .state import BehaviorState
 
 EXPLORATION, STOP, PHOTOTAXIS, ANTI_PHOTOTAXIS, ATTRACTION, REPULSION = range(6)
@@ -79,7 +80,7 @@ def _turn_direction(prox_angle):
 def _steer_from_vector(rx, ry, max_speed: float):
     """Forward fallback (|v|<0.1 → (1,0)) then wheel conversion
     (behavior_modules.py:423-429 et al.)."""
-    mag = torch.sqrt(rx * rx + ry * ry)
+    mag = sqrt_rn(rx * rx + ry * ry)
     small = mag < 0.1
     rx = torch.where(small, torch.ones_like(rx), rx)
     ry = torch.where(small, torch.zeros_like(ry), ry)

@@ -40,6 +40,7 @@ import torch
 from ..config.env_cfg import DirectionalGateEnvCfg
 from ..device import resolve_device
 from .. import ops
+from ..numerics import sqrt_rn
 from ..parallel.mesh import draw_local
 from . import behaviors, geometry, physics, sensors
 from .state import BehaviorState, EnvState, TimeStep
@@ -133,7 +134,7 @@ class DirectionalGateEnv:
         safe_r = cfg.inradius - cfg.robot_radius * 2
         u = self.draw(lambda s: torch.rand(s, generator=generator, device=self.device),
                       (3,) + tuple(shape), dim=2 if lanes else 1, lanes=lanes)
-        r = torch.sqrt(u[0]) * safe_r
+        r = sqrt_rn(u[0]) * safe_r
         theta = u[1] * 2 * math.pi
         yaw = u[2] * 2 * math.pi - math.pi
         pos = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)

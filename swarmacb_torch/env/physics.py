@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from ..numerics import sqrt_rn
+
 
 def differential_drive(left_vel, right_vel, yaw, wheelbase: float, dt: float):
     """Differential-drive displacement: v=(l+r)/2, ω=(r−l)/wheelbase, Euler.
@@ -116,7 +118,7 @@ def resolve_robot_collisions(pos, robot_radius: float):
 
     dx = pos[:, :, None, 0] - pos[:, None, :, 0]      # (E, N, N): x_i − x_j
     dy = pos[:, :, None, 1] - pos[:, None, :, 1]
-    dist = torch.sqrt(dx**2 + dy**2 + 1e-8)
+    dist = sqrt_rn(dx**2 + dy**2 + 1e-8)
 
     triu = torch.triu(torch.ones((N, N), dtype=torch.bool, device=pos.device),
                       diagonal=1)[None]               # i<j

@@ -23,6 +23,7 @@ import functools
 
 import torch
 
+from ..numerics import sqrt_rn
 from .geometry import EPUCK_SENSOR_ANGLES, RAB_PROJ_ANGLES
 
 
@@ -91,7 +92,7 @@ def detect_robots_proximity(pos, world_dx, world_dy, prox_range: float, robot_ra
     """
     diff_x = pos[:, None, :, 0] - pos[:, :, None, 0]  # (E,N,N): x_j − x_i
     diff_y = pos[:, None, :, 1] - pos[:, :, None, 1]
-    dist = torch.sqrt(diff_x**2 + diff_y**2 + 1e-12)
+    dist = sqrt_rn(diff_x**2 + diff_y**2 + 1e-12)
 
     is_self = dist < 1e-4
     in_range = dist < (prox_range + robot_radius)
@@ -119,7 +120,7 @@ def aggregate_prox(prox_values):
     cos_a, sin_a, _, _ = angle_tables(prox_values.device)
     sum_x = (prox_values * cos_a[None, None, :]).sum(-1)
     sum_y = (prox_values * sin_a[None, None, :]).sum(-1)
-    value = torch.clamp(torch.sqrt(sum_x**2 + sum_y**2), max=1.0)
+    value = torch.clamp(sqrt_rn(sum_x**2 + sum_y**2), max=1.0)
     angle = torch.atan2(sum_y, sum_x)
     return value, angle
 
@@ -147,7 +148,7 @@ def compute_light(pos, yaw, light_pos, light_threshold: float):
     cos_a, sin_a, _, _ = angle_tables(pos.device)
     lx = float(light_pos[0]) - pos[..., 0]
     ly = float(light_pos[1]) - pos[..., 1]
-    dist = torch.sqrt(lx**2 + ly**2 + 1e-6)
+    dist = sqrt_rn(lx**2 + ly**2 + 1e-6)
     intensity = 1.0 / dist
 
     world_dx, world_dy = sensor_world_dirs(yaw)
@@ -181,7 +182,7 @@ def compute_rab(pos, yaw, rab_range: float, alpha_rab: float):
 
     dx = pos[:, None, :, 0] - pos[:, :, None, 0]      # (E,N,N): x_j − x_i
     dy = pos[:, None, :, 1] - pos[:, :, None, 1]
-    dist = torch.sqrt(dx**2 + dy**2 + 1e-8)
+    dist = sqrt_rn(dx**2 + dy**2 + 1e-8)
 
     not_self = ~torch.eye(N, dtype=torch.bool, device=pos.device)[None]
     in_range = (dist < rab_range) & not_self

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from ..env import geometry
+from ..numerics import sqrt_rn
 from . import _cuda
 from .pairwise import collision_skip_d2, least_d2, route
 
@@ -185,7 +186,7 @@ def sensor_block(px, py, cos_y, sin_y, k: Constants, N: int):
     d2 = dx * dx + dy * dy
 
     # robot proximity + fused wall raycast (epuck_sensors.py:178-284)
-    dist_p = torch.sqrt(d2 + 1e-12)
+    dist_p = sqrt_rn(d2 + 1e-12)
     is_self = dist_p < 1e-4
     in_range_p = dist_p < k.prox_plus_r
     reading_val = torch.clamp(1.0 - _div_by(dist_p, k.prox_plus_r), 0.0, 1.0)
@@ -195,7 +196,7 @@ def sensor_block(px, py, cos_y, sin_y, k: Constants, N: int):
     prox_vals, light_vals = [], []
     lxr = k.light_x - px
     lyr = k.light_y - py
-    ldist = torch.sqrt(lxr * lxr + lyr * lyr + 1e-6)
+    ldist = sqrt_rn(lxr * lxr + lyr * lyr + 1e-6)
     lint = 1.0 / ldist
     lnx = lxr / (ldist + 1e-8)
     lny = lyr / (ldist + 1e-8)
@@ -244,7 +245,7 @@ def sensor_block(px, py, cos_y, sin_y, k: Constants, N: int):
     lvy = torch.where(above, lmax * lsum_y * linv, zeros)
 
     # RAB (epuck_sensors.py:374-442), bearing by rsqrt
-    dist_r = torch.sqrt(d2 + 1e-8)
+    dist_r = sqrt_rn(d2 + 1e-8)
     idx = torch.arange(N, device=px.device)
     not_self = (idx[:, None] != idx[None, :])[..., None]
     in_f = ((dist_r < k.rab_range) & not_self).to(px.dtype)
@@ -429,7 +430,7 @@ def fused_env_step_plain(lanes, actions, draws, spawn, cfg, *, want_obs=True):
     # robot push-out: one Jacobi pass over the pairs j > i
     cdx = npx[:, None, :] - npx[None, :, :]
     cdy = npy[:, None, :] - npy[None, :, :]
-    cdist = torch.sqrt(cdx * cdx + cdy * cdy + 1e-8)
+    cdist = sqrt_rn(cdx * cdx + cdy * cdy + 1e-8)
     idx = torch.arange(N, device=px.device)
     triu = (idx[None, :] > idx[:, None]).to(npx.dtype)[..., None]
     overlap = torch.clamp(k.two_r - cdist, min=0.0) * triu

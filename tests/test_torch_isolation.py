@@ -33,7 +33,8 @@ PORT_FILES = (sorted((ROOT / "swarmacb_torch").rglob("*.py"))
                                                 "comm_account_torch.py",
                                                 "measure_drift_torch.py",
                                                 "manual_control_torch.py",
-                                                "sps_sweep_torch.py")])
+                                                "sps_sweep_torch.py",
+                                                "validation_figures_torch.py")])
 
 
 def _imported_modules(path):
