@@ -6,7 +6,8 @@ writes it (``step,value``, or ``step,minutes,value`` with ``--wall-time``)
 and gives:
 
 - ``reach_step``: the first decision count at which the trailing 5-point
-  rolling mean reaches 25 (None if it never does), with ``reach_minutes``,
+  rolling mean reaches the level, 25 unless ``--level`` says otherwise
+  (None if it never does), with ``reach_minutes``,
   the curve's own minutes column there where it has one;
 - ``mean_54_60M``: the mean of the points at 54–60 M decisions, both ends
   included (None if there is none);
@@ -14,10 +15,12 @@ and gives:
   (``scripts/summarize_matrix.py``'s ``tail_mean``).
 
 For JAX lily seed 1 (``docs/validation/DirGate_lily_seed1__extra_group_
-reward_mean.csv``) they are 30.72 M, 29.81 and 35.45.
+reward_mean.csv``) they are 30.72 M, 29.81 and 35.45; for JAX dandelion
+seed 1 at ``--level 2.5`` 21.76 M, 2.75 and 3.02; for JAX cyclamen seed 1
+48.64 M, 25.02 and 28.75.
 
 Usage:
-    python scripts/validation_figures_torch.py CURVE.csv [CURVE.csv ...]
+    python scripts/validation_figures_torch.py [--level 25] CURVE.csv [CURVE.csv ...]
 """
 
 from __future__ import annotations
@@ -63,8 +66,8 @@ def tail_mean(rows, frac=TAIL):
     return sum(values) / len(values)
 
 
-def figures(rows) -> dict:
-    step, minutes = reach(rows)
+def figures(rows, level=LEVEL) -> dict:
+    step, minutes = reach(rows, level)
     return {"points": len(rows), "last_step": rows[-1][0], "reach_step": step,
             "reach_minutes": minutes, "mean_54_60M": span_mean(rows),
             "tail_mean": tail_mean(rows)}
@@ -77,11 +80,13 @@ def _fmt(x, scale=1.0, unit=""):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("curves", nargs="+")
+    p.add_argument("--level", type=float, default=LEVEL,
+                   help="the reward the rolling mean is to reach (default %(default)g)")
     args = p.parse_args(argv)
     for path in args.curves:
-        f = figures(read_curve(path))
+        f = figures(read_curve(path), args.level)
         print(f"{Path(path).name}: {f['points']} points to {f['last_step'] / 1e6:.2f} M; "
-              f"rolling mean reaches {LEVEL:g} at {_fmt(f['reach_step'], 1e6, ' M')}"
+              f"rolling mean reaches {args.level:g} at {_fmt(f['reach_step'], 1e6, ' M')}"
               + (f" ({f['reach_minutes']:.2f} min)" if f["reach_minutes"] is not None else "")
               + f"; 54–60 M mean {_fmt(f['mean_54_60M'])}; tail-10 % mean "
               f"{f['tail_mean']:.2f}")

@@ -1,21 +1,32 @@
 """The validation pipeline on the port's output, on the CPU.
 
-``scripts/train_torch.py --device cpu`` trains lily at a tiny size (two
-arenas, ``--hidden_dim 16``, from a copy of its YAML with the horizon cut to
-20 decisions, one summary and one checkpoint an iteration, and episodes of
-1 s, so that every iteration completes some), two iterations from scratch,
-then one more resumed with ``--checkpoint latest``. TensorBoard's writer is
-the one the card's run uses. Held:
+``scripts/train_torch.py --device cpu`` trains each of the three variants
+the port has trained on the card (lily, the categorical MLP; dandelion, the
+Gaussian actor; cyclamen, the LSTM actor with its BPTT windows cut to 10
+decisions) at a tiny size (two arenas, ``--hidden_dim 16``, from a copy of
+its YAML with the horizon cut to 20 decisions, one summary and one
+checkpoint an iteration, and episodes of 1 s, so that every iteration
+completes some), two iterations from scratch, then one more resumed with
+``--checkpoint latest``. TensorBoard's writer is the one the card's run
+uses. Held, for each variant:
 
 - ``scripts/extract_curves.py``'s ``extract`` reads ``Extra/Group Reward
   Mean`` back from the run's event files, one point at each step the
   trainer wrote it, with the value it wrote; the resumed run's point comes
   after the first run's, under the same tag;
+- dandelion's run writes its actor's ``Policy/Std dim<d>`` and
+  ``Policy/Log Std Mean`` at each summary, read back the same way, the last
+  ones those of the trained ``log_std``; the categorical actors write none;
 - ``scripts/extract_curves.py --wall-time`` writes the curve's CSV, and
   ``scripts/validation_figures_torch.py`` computes its three figures;
-- the same code gives JAX lily seed 1's figures from its CSV in
-  ``docs/validation/``, 30.72 M, 29.81 and 35.45, and seeds 1–9's ranges,
-  26.56–72.64 M (median 30.72 M), 15.30–34.90 and 31.91–36.47.
+- the same code gives the JAX figures from the CSVs in ``docs/validation/``:
+  lily seed 1 30.72 M, 29.81 and 35.45 at the default level of 25, seeds
+  1–9 26.56–72.64 M (median 30.72 M), 15.30–34.90 and 31.91–36.47;
+  dandelion seed 1 at ``--level 2.5`` 21.76 M, 2.75 and 3.02, seeds 1–7
+  12.16–39.36 M (median 24.32 M), 2.58–2.98 and 2.82–3.16, with the 10-lane
+  unit 11.20–39.36 M (median 24.00 M), 2.58–3.02 and 2.56–3.26; cyclamen
+  seed 1 48.64 M, 25.02 and 28.75, seeds 1–9 21.12–48.64 M (median
+  29.44 M), 20.06–28.35 and 21.54–33.62.
 """
 
 import contextlib
@@ -31,9 +42,11 @@ from torch_scripts import load_script
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-LILY = ROOT / "configs" / "DirGate_lily.yaml"
-JAX_CURVE = ROOT / "docs" / "validation" / "DirGate_lily_seed{}__extra_group_reward_mean.csv"
+CONFIGS = ROOT / "configs"
+JAX_CURVES = ROOT / "docs" / "validation"
+JAX_CURVE = JAX_CURVES / "DirGate_lily_seed{}__extra_group_reward_mean.csv"
 TAG = "Extra/Group Reward Mean"
+STD_TAGS = ("Policy/Std dim0", "Policy/Std dim1", "Policy/Log Std Mean")
 T, E, N = 20, 2, 20
 ITER = T * E * N
 
@@ -43,29 +56,34 @@ def figures_script():
     return load_script("validation_figures_torch")
 
 
-@pytest.fixture(scope="module")
-def run(tmp_path_factory):
-    """Two iterations, then a third resumed; returns (log dir, the points
-    the trainer wrote under TAG, each run's last step)."""
+@pytest.fixture(scope="module", params=["lily", "dandelion", "cyclamen"])
+def run(request, tmp_path_factory):
+    """Two iterations, then a third resumed; returns (the variant, its log
+    dir, the points the trainer wrote under each tag, each run's last
+    step, the last trainer)."""
     from torch.utils.tensorboard import SummaryWriter
 
+    variant = request.param
     train_torch = load_script("train_torch")
-    root = tmp_path_factory.mktemp("curve")
-    cfg = yaml.safe_load(LILY.read_text())
-    block = cfg["behaviors"]["DirGate_lily"]
+    root = tmp_path_factory.mktemp(f"curve_{variant}")
+    cfg = yaml.safe_load((CONFIGS / f"DirGate_{variant}.yaml").read_text())
+    block = cfg["behaviors"][f"DirGate_{variant}"]
     block.update(time_horizon=T, summary_freq=ITER, checkpoint_interval=ITER)
     block["environment"]["episode_length_s"] = 1.0
-    (root / "lily.yaml").write_text(yaml.safe_dump(cfg))
-    logs = root / "DirGate_lily_torch_seed1"
-    argv = ["--config", str(root / "lily.yaml"), "--device", "cpu", "--num_envs", str(E),
-            "--hidden_dim", "16", "--seed", "1", "--checkpoint", "latest",
-            "--checkpoint_dir", str(root / "ckpt"), "--log_dir", str(logs)]
-    written = []
+    memory = block["network_settings"].get("memory")
+    if memory is not None:
+        memory.update(memory_size=16, sequence_length=10)
+    (root / f"{variant}.yaml").write_text(yaml.safe_dump(cfg))
+    logs = root / f"DirGate_{variant}_torch_seed1"
+    argv = ["--config", str(root / f"{variant}.yaml"), "--device", "cpu",
+            "--num_envs", str(E), "--hidden_dim", "16", "--seed", "1",
+            "--checkpoint", "latest", "--checkpoint_dir", str(root / "ckpt"),
+            "--log_dir", str(logs)]
+    written = {}
 
     class Recording(SummaryWriter):
         def add_scalar(self, tag, value, step=None, *args, **kwargs):
-            if tag == TAG:
-                written.append((step, float(value)))
+            written.setdefault(tag, []).append((step, float(value)))
             return super().add_scalar(tag, value, step, *args, **kwargs)
 
     mp = pytest.MonkeyPatch()
@@ -76,32 +94,53 @@ def run(tmp_path_factory):
             with contextlib.redirect_stdout(io.StringIO()):
                 trainer = train_torch.main([*argv, "--total_timesteps", str(total)])
             assert trainer.env.cfg.max_episode_length < T
+            assert trainer.recurrent == (variant == "cyclamen")
+            assert trainer.discrete == (variant != "dandelion")
             ends.append(trainer.global_step)
     finally:
         mp.undo()
-    return logs, written, ends
+    return variant, logs, written, ends, trainer
 
 
 def test_extract_reads_each_logged_point_back(run):
     extract_curves = load_script("extract_curves")
-    logs, written, ends = run
+    variant, logs, written, ends, trainer = run
     assert ends == [2 * ITER, 3 * ITER]
-    rows = extract_curves.extract(logs, TAG)
-    assert rows, "no points under the tag"
-    assert [s for s, _ in rows] == [s for s, _ in written] == [ITER, 2 * ITER, 3 * ITER]
-    for (_, got), (_, want) in zip(rows, written):
-        assert np.float32(got) == np.float32(want)
+    tags = (TAG, *STD_TAGS) if variant == "dandelion" else (TAG,)
+    for tag in tags:
+        rows = extract_curves.extract(logs, tag)
+        assert rows, f"no points under {tag}"
+        assert [s for s, _ in rows] == [s for s, _ in written[tag]] == [
+            ITER, 2 * ITER, 3 * ITER], tag
+        for (_, got), (_, want) in zip(rows, written[tag]):
+            assert np.float32(got) == np.float32(want), tag
     # the resumed run wrote its point after the first run's, in its own
     # event file beside the first
     assert len(list(logs.glob("events.out.tfevents.*"))) == 2
+    if variant != "dandelion":
+        assert not any(tag.startswith("Policy/Std") or tag == STD_TAGS[-1]
+                       for tag in written)
+        return
+    # the Gaussian actor's std, written as exp(log_std) per wheel and the
+    # mean log_std; the last point is the trained parameter's
+    for i in range(3):
+        stds = [written[tag][i][1] for tag in STD_TAGS[:2]]
+        assert written[STD_TAGS[2]][i][1] == pytest.approx(
+            float(np.mean(np.log(stds))), rel=1e-5, abs=1e-6)
+    log_std = trainer.actor.log_std.detach().numpy()[0]
+    assert [written[tag][-1][1] for tag in STD_TAGS[:2]] == pytest.approx(
+        np.exp(log_std).tolist(), rel=1e-6)
+    # three updates moved it from its zero start
+    assert np.all(np.isfinite(log_std)) and np.any(log_std != 0.0)
 
 
 def test_the_curve_s_figures(run, figures_script, tmp_path):
     extract_curves = load_script("extract_curves")
-    logs, written, _ = run
+    variant, logs, written, _, _ = run
+    written = written[TAG]
     with contextlib.redirect_stdout(io.StringIO()):
         assert extract_curves.main([str(logs), "--out", str(tmp_path), "--wall-time"]) == 0
-    csv = tmp_path / "DirGate_lily_torch_seed1__extra_group_reward_mean.csv"
+    csv = tmp_path / f"DirGate_{variant}_torch_seed1__extra_group_reward_mean.csv"
     rows = figures_script.read_curve(csv)
     assert [s for s, _, _ in rows] == [s for s, _ in written]
     assert all(m is not None and m >= 0 for _, _, m in rows)
@@ -114,6 +153,9 @@ def test_the_curve_s_figures(run, figures_script, tmp_path):
     with contextlib.redirect_stdout(io.StringIO()) as out:
         assert figures_script.main([str(csv)]) == 0
     assert "rolling mean reaches 25 at never; 54–60 M mean never" in out.getvalue()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        assert figures_script.main([str(csv), "--level", "2.5"]) == 0
+    assert "rolling mean reaches 2.5 at never; 54–60 M mean never" in out.getvalue()
 
 
 def test_jax_lily_seed1_figures(figures_script):
@@ -148,3 +190,45 @@ def test_reach_and_spans_on_a_made_curve(figures_script):
     assert figures_script.span_mean(rows) == pytest.approx(25.0)
     assert figures_script.tail_mean(rows) == 40.0
     assert figures_script.reach(rows[:4]) == (None, None)
+
+
+def _jax_figures(figures_script, names, level):
+    return [figures_script.figures(figures_script.read_curve(
+        JAX_CURVES / f"DirGate_{name}__extra_group_reward_mean.csv"), level)
+        for name in names]
+
+
+@pytest.mark.parametrize("variant, level, reach, span, tail", [
+    ("dandelion", 2.5, 21_760_000, 2.75, 3.02),
+    ("cyclamen", 25.0, 48_640_000, 25.02, 28.75),
+])
+def test_jax_seed1_figures_at_the_variant_s_level(figures_script, variant, level,
+                                                   reach, span, tail):
+    f, = _jax_figures(figures_script, [f"{variant}_seed1"], level)
+    assert f["reach_step"] == reach
+    assert round(f["mean_54_60M"], 2) == span
+    assert round(f["tail_mean"], 2) == tail
+    assert f["points"] == 312 and f["last_step"] == 120_000_000
+
+
+@pytest.mark.parametrize("names, level, reach, spans, tails", [
+    ([f"dandelion_seed{s}" for s in range(1, 8)], 2.5,
+     (12_160_000, 39_360_000, 24_320_000), (2.58, 2.98), (2.82, 3.16)),
+    ([f"dandelion_seed{s}" for s in range(1, 8)]
+     + [f"dandelion_sp_seed{s}" for s in range(10)], 2.5,
+     (11_200_000, 39_360_000, 24_000_000), (2.58, 3.02), (2.56, 3.26)),
+    ([f"cyclamen_seed{s}" for s in range(1, 10)], 25.0,
+     (21_120_000, 48_640_000, 29_440_000), (20.06, 28.35), (21.54, 33.62)),
+], ids=["dandelion_seeds_1-7", "dandelion_all_17_curves", "cyclamen_seeds_1-9"])
+def test_jax_seeds_ranges_at_the_variant_s_level(figures_script, names, level,
+                                                  reach, spans, tails):
+    fs = _jax_figures(figures_script, names, level)
+    got = [f["reach_step"] for f in fs]
+    assert None not in got
+    assert (min(got), max(got), statistics.median(got)) == reach
+    span = [round(f["mean_54_60M"], 2) for f in fs]
+    tail = [round(f["tail_mean"], 2) for f in fs]
+    assert (min(span), max(span)) == spans
+    assert (min(tail), max(tail)) == tails
+    # every curve reaches its level by 60 M, the partial rule's point
+    assert max(got) <= 60_000_000
