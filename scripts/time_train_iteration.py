@@ -7,13 +7,16 @@ one NVIDIA GPU, with the rollout and the update timed apart.
                                             [--num_envs 1024] [--horizon 200]
                                             [--hidden_dim H]
                                             [--fused_attention {config,on,off}]
+                                            [--mixed_precision] [--mp_stages auto]
 
 Loads ``--config`` through the port's loader, cuts it to ``--num_envs``
 arenas and a ``--horizon``-decision rollout as ``chip_smoke.py`` does
 (``--hidden_dim`` sets the networks' width, as ``train_torch.py``'s flag:
 1024 sends the critic tail to the wide route; ``--fused_attention`` as
 ``train_torch.py``'s flag: "on" puts the fused attention, K5f and K5b, in
-place of the tail, "config" defers to the YAML),
+place of the tail, "config" defers to the YAML; ``--mixed_precision``
+and ``--mp_stages`` as ``train_torch.py``'s flags: bf16 operands for the
+critic's projections named, or with "auto" the variant's validated ones),
 takes a 2-decision warm-up rollout, then times one
 ``POCATrainer.train_iteration`` (host clock, ending in
 ``torch.cuda.synchronize()``) and prints the kernels it launched. ``--root`` times the package of another
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import subprocess
 import sys
 import time
@@ -43,6 +47,9 @@ def main() -> int:
     ap.add_argument("--horizon", type=int, default=200)
     ap.add_argument("--hidden_dim", type=int, default=None)
     ap.add_argument("--fused_attention", default="config", choices=["config", "on", "off"])
+    ap.add_argument("--mixed_precision", action="store_true")
+    ap.add_argument("--mp_stages", default=None,
+                    help="a subset of 'qkvo', or 'auto' (default: the config's)")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -72,6 +79,19 @@ def main() -> int:
                                hidden_dim=args.hidden_dim or pcfg.hidden_dim)
     if args.fused_attention != "config":
         pcfg = dataclasses.replace(pcfg, fused_attention=args.fused_attention == "on")
+    if args.mixed_precision:
+        pcfg = dataclasses.replace(pcfg, mixed_precision=True)
+        # bf16 products sum in float32 and round once, as train_torch.py sets it
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if args.mp_stages is not None:
+        stages = args.mp_stages
+        if stages == "auto":
+            spec = importlib.util.spec_from_file_location(
+                "train_torch", root / "scripts" / "train_torch.py")
+            train_torch = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(train_torch)
+            stages = train_torch.VALIDATED_MP_STAGES[variant]
+        pcfg = dataclasses.replace(pcfg, mp_stages=stages)
     env_kw = {k: v for k, v in env_ov.items() if k != "num_envs"}
     env = DirectionalGateEnv(DirectionalGateEnvCfg(variant=variant,
                                                    num_envs=args.num_envs, **env_kw))
@@ -103,7 +123,8 @@ def main() -> int:
     wall = time.perf_counter() - t0
     counts = ", ".join(f"{k} {v}" for k, v in ops.launches.items() if v)
     print(f"{root} {args.config} E={args.num_envs} T={args.horizon} "
-          f"hidden={pcfg.hidden_dim} fused_attention={pcfg.fused_attention}: "
+          f"hidden={pcfg.hidden_dim} fused_attention={pcfg.fused_attention} "
+          f"precision={f'bf16 {pcfg.mp_stages}' if pcfg.mixed_precision else 'float32'}: "
           f"launches {counts}; iteration {wall:.3f} s, "
           f"rollout {rollout_s[0]:.3f} s, update {wall - rollout_s[0]:.3f} s; on {card}",
           flush=True)

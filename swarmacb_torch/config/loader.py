@@ -125,6 +125,9 @@ def _banner_rows(run_name, variant, cfg: POCAConfig, env_ov: dict):
     if cfg.recurrent:
         yield "memory_size", cfg.memory_size
         yield "sequence_length", cfg.sequence_length
+    # a checkpoint does not record it, so a resumed run shows it here
+    yield "precision", (f"bf16 projections '{cfg.mp_stages}'" if cfg.mixed_precision
+                        else "float32")
     yield "Training", None
     yield "max_steps", f"{cfg.total_timesteps:,}"
     yield "time_horizon", cfg.horizon

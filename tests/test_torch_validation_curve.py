@@ -26,7 +26,9 @@ uses. Held, for each variant:
   12.16–39.36 M (median 24.32 M), 2.58–2.98 and 2.82–3.16, with the 10-lane
   unit 11.20–39.36 M (median 24.00 M), 2.58–3.02 and 2.56–3.26; cyclamen
   seed 1 48.64 M, 25.02 and 28.75, seeds 1–9 21.12–48.64 M (median
-  29.44 M), 20.06–28.35 and 21.54–33.62.
+  29.44 M), 20.06–28.35 and 21.54–33.62; the bf16 overlays of ``--mp_stages
+  auto``, dandelion "qkvo" seed 1 at 2.5 24.32 M, 2.65 and 2.94, lily "qk"
+  seeds 1 and 2 39.36 M and 44.80 M, 32.89 and 27.39, 36.89 and 35.51.
 """
 
 import contextlib
@@ -201,10 +203,16 @@ def _jax_figures(figures_script, names, level):
 @pytest.mark.parametrize("variant, level, reach, span, tail", [
     ("dandelion", 2.5, 21_760_000, 2.75, 3.02),
     ("cyclamen", 25.0, 48_640_000, 25.02, 28.75),
+    # the bf16 overlays, --mp_stages auto: dandelion "qkvo", lily "qk"
+    ("dandelion_mp", 2.5, 24_320_000, 2.65, 2.94),
+    ("lily_mpqk", 25.0, 39_360_000, 32.89, 36.89),
+    ("lily_mpqk_seed2", 25.0, 44_800_000, 27.39, 35.51),
 ])
 def test_jax_seed1_figures_at_the_variant_s_level(figures_script, variant, level,
                                                    reach, span, tail):
-    f, = _jax_figures(figures_script, [f"{variant}_seed1"], level)
+    """Seed 1 of each curve, or the seed a case names."""
+    name = variant if "_seed" in variant else f"{variant}_seed1"
+    f, = _jax_figures(figures_script, [name], level)
     assert f["reach_step"] == reach
     assert round(f["mean_54_60M"], 2) == span
     assert round(f["tail_mean"], 2) == tail
@@ -232,3 +240,29 @@ def test_jax_seeds_ranges_at_the_variant_s_level(figures_script, names, level,
     assert (min(tail), max(tail)) == tails
     # every curve reaches its level by 60 M, the partial rule's point
     assert max(got) <= 60_000_000
+
+
+@pytest.mark.parametrize("name, level, points, last, reach, span, tail", [
+    ("lily_torch", 25.0, 311, 120_000_000, 26_240_000, 27.02, 32.02),
+    ("dandelion_torch", 2.5, 312, 120_000_000, 24_320_000, 2.81, 2.78),
+    ("cyclamen_torch", 25.0, 311, 120_000_000, 17_920_000, 23.40, 32.10),
+    # the bf16 runs (P5, P6): the curves that came back from the card end
+    # before 120 M, so they have no tail figure; P6's none at 54–60 M
+    ("dandelion_torch_mp", 2.5, 170, 65_280_000, 39_040_000, 2.93, None),
+    ("lily_torch_mpqk", 25.0, 120, 46_080_000, 24_960_000, None, None),
+])
+def test_the_port_s_curves_give_the_recorded_figures(figures_script, name, level, points,
+                                                      last, reach, span, tail):
+    """Each curve the port trained on the card, committed under
+    ``docs/validation_torch/``, read back through ``read_curve``: its
+    points, its last decision count and the figures ``PERF.md`` §6
+    records."""
+    rows = figures_script.read_curve(
+        ROOT / "docs" / "validation_torch" / f"DirGate_{name}_seed1__extra_group_reward_mean.csv")
+    f = figures_script.figures(rows, level)
+    assert f["points"] == points and f["last_step"] == last
+    assert [s for s, _, _ in rows] == sorted({s for s, _, _ in rows})
+    assert f["reach_step"] == reach
+    assert (None if f["mean_54_60M"] is None else round(f["mean_54_60M"], 2)) == span
+    if tail is not None:
+        assert round(f["tail_mean"], 2) == tail

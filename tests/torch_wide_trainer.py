@@ -11,6 +11,12 @@ minibatch's loss and gradients, on a rollout buffer made from a seed,
 against the JAX trainer's ``_feedforward_loss`` and one Adam step (the
 tolerances of ``tests/test_torch_update.py``). On the card the critic at this width
 takes the wide route of its kernels; on the CPU, their plain versions.
+
+With ``mixed_precision`` (``test_torch_wide_mixed_precision_{tail,fused}.py``)
+both trainers take bf16 in the critic's q/k/v/o projections, and the update
+is held as ``tests/test_torch_mixed_precision_update.py`` holds it at the
+YAML's width: the JAX loss op by op in the JAX trainer's two chunks, and
+that file's bounds on the gradients.
 """
 
 import jax
@@ -88,13 +94,31 @@ def _jax_trainer_with_weights_of(trainer, cfg):
         JaxTrainer.init_params_for_seed = own
 
 
-def pair(fused):
+# the critic's bf16 projections' biases (tests/test_torch_mixed_precision_update.py)
+BF16_BIASES = tuple(f"critic.self_attn.fc_{s}.bias" for s in ("q", "k", "v", "out"))
+
+
+def pair(fused, mixed_precision=False):
     """The port's trainer and the JAX trainer at hidden 1024 on one critic
     path (with ``fused_attention`` the JAX critic is the Pallas
-    ``fused_cf_attention`` in interpret mode), with the same weights."""
+    ``fused_cf_attention`` in interpret mode), with the same weights. With
+    ``mixed_precision`` both take bf16 at ``mp_stages="qkvo"``, and the
+    critic's weights are drawn N(0, 1/fan_in), its biases and vectors
+    N(0, 0.1²), as the bf16 update test draws them: the init's tiny gains
+    would leave the critic's outputs near a constant."""
+    mp = dict(mixed_precision=True, mp_stages="qkvo") if mixed_precision else {}
     trainer = POCATrainer(DirectionalGateEnv(DirectionalGateEnvCfg(num_envs=E), device="cpu"),
-                          POCAConfig(**CFG, fused_attention=fused))
-    jtrainer = _jax_trainer_with_weights_of(trainer, JaxPOCAConfig(**CFG, fused_attention=fused))
+                          POCAConfig(**CFG, **mp, fused_attention=fused))
+    if mixed_precision:
+        rng = np.random.default_rng(7)
+        with torch.no_grad():
+            for p in trainer.critic.parameters():
+                std = p.shape[1] ** -0.5 if p.dim() == 2 else 0.1
+                p.copy_(torch.from_numpy((std * rng.normal(size=tuple(p.shape))
+                                          ).astype(np.float32)))
+    jtrainer = _jax_trainer_with_weights_of(
+        trainer, JaxPOCAConfig(**CFG, **mp, fused_attention=fused))
+    assert trainer.cfg.mixed_precision == jtrainer.cfg.mixed_precision == mixed_precision
     assert trainer.critic.fused_attention == jtrainer.critic.fused_attention == fused
     params = jtrainer.train_state.params
     for net in ("actor", "critic"):             # the same weights, converted both ways
@@ -192,13 +216,75 @@ def _synth_rollout(seed=5):
     return data, (rng.normal(size=(E,)) * 0.5).astype(f)
 
 
+def _jax_grads(jtrainer, params, batch, c):
+    """The JAX loss, its parts and gradients on ``batch``: jitted and
+    unchunked in float32; under mixed precision op by op (under jit XLA on
+    the CPU may keep float32 where an op rounds to bf16) in two chunks of
+    2 groups, averaged as the JAX ``_sgd_step`` averages them."""
+    grad_fn = jax.value_and_grad(jtrainer._feedforward_loss, has_aux=True)
+    if not jtrainer.cfg.mixed_precision:
+        (loss, aux), grads = jax.jit(grad_fn)(params, batch, c.clip_eps, c.beta)
+        return float(loss), np.array([float(a) for a in aux]), grads
+    parts = [grad_fn(params, {k: v[lo:lo + 2] for k, v in batch.items()}, c.clip_eps, c.beta)
+             for lo in (0, 2)]
+    grads = jax.tree_util.tree_map(lambda a, b: (0 + a + b) * 0.5, parts[0][1], parts[1][1])
+    loss = (float(parts[0][0][0]) + float(parts[1][0][0])) * 0.5
+    aux = (np.stack(parts[0][0][1]) + np.stack(parts[1][0][1])) * 0.5
+    return loss, aux, grads
+
+
+def _grad_atol(name, w, mixed_precision):
+    """3e-5 of the gradient's largest element (floored at 1e-3); under
+    mixed precision, every gradient of the critic gets the bf16 class of
+    ``tests/test_torch_mixed_precision_update.py``: one bf16 step (2⁻⁸) of
+    max(its largest element, 1e-2), four for the bf16 projections' biases.
+    At h = 32 that file holds the layers after the attention to 3e-5, but
+    here the flipped roundings of the 1024-term products (see
+    ``check_bf16_projections``) reach their forward values too: their
+    gradients part by more than 3e-5 of their largest element."""
+    if not mixed_precision or name.startswith("actor."):
+        return 3e-5 * max(float(np.abs(w).max()), 1e-3)
+    return (4 if name in BF16_BIASES else 1) * 2.0 ** -8 * max(float(np.abs(w).max()), 1e-2)
+
+
+def check_bf16_projections(trainer, jtrainer):
+    """Each bf16 projection of the port's critic (q, k, v from
+    ``project_qkv``; fc_out) against the JAX critic's ``Dense(dtype=bf16)``
+    on the same float32 input, the normalized embeddings of a rollout
+    buffer's critic states: bf16 on both sides, and bit-equal in at least
+    99.9 % of the elements. At this width each product sums 1024 terms, and
+    a float32 sum in another order rounds to the neighbouring bf16 value
+    where it lies near a rounding boundary (a few elements in 10⁴); float32
+    in place of bf16, or the bias add fused into the product's one
+    rounding, parts in far more."""
+    from swarmacb_torch.models.networks import _project
+
+    data, _ = _synth_rollout()
+    rsa = trainer.critic.self_attn
+    with torch.no_grad():
+        x = rsa.normalize(trainer.critic.obs_entity_enc(torch.from_numpy(data["critic_states"])))
+        ours = (*rsa.project_qkv(x), _project(rsa.fc_out, x, rsa.dtypes["o"]))
+    critic = jtrainer.critic
+    theirs = critic.apply(
+        {"params": jtrainer.train_state.params["critic"]}, jnp.asarray(x.numpy()),
+        method=lambda m, v: tuple(getattr(m.self_attn, f"fc_{s}")(v)
+                                  for s in ("q", "k", "v", "out")))
+    for name, a, b in zip("qkvo", ours, theirs):
+        assert a.dtype == torch.bfloat16 and b.dtype == jnp.bfloat16, name
+        share = float(np.mean(a.float().numpy() == np.asarray(b.astype(jnp.float32))))
+        assert share >= 0.999, f"bf16 projection {name}: {share:.4%} bit-equal"
+
+
 def check_minibatch_update(trainer, jtrainer):
     """One minibatch (4 of the T·E = 8 groups; the port takes it in chunks
     of 2) of a rollout buffer made from a seed: loss to 2e-6 relative and
-    each gradient to 3e-5 of its largest element before the step; after one
-    Adam step (the JAX trainer's optimizer on the JAX gradients) each
-    parameter within 2.2·lr."""
+    each gradient to 3e-5 of its largest element before the step (under
+    mixed precision the value and baseline losses to one bf16 step of their
+    size, and ``_grad_atol``'s bounds); after one Adam step (the JAX
+    trainer's optimizer on the JAX gradients) each parameter within
+    2.2·lr."""
     fused = trainer.critic.fused_attention
+    mixed_precision = trainer.cfg.mixed_precision
     params = jtrainer.train_state.params
     c = trainer.cfg
     data, bootstrap = _synth_rollout()
@@ -207,8 +293,7 @@ def check_minibatch_update(trainer, jtrainer):
     flat = jtrainer._flatten_buffer(rollout, returns, jbuf.normalize_advantages(adv))
     idx = np.array([5, 0, 7, 2])
     batch = {k: v[idx] for k, v in flat.items()}
-    (loss, aux), grads = jax.jit(jax.value_and_grad(jtrainer._feedforward_loss, has_aux=True))(
-        params, batch, c.clip_eps, c.beta)
+    loss, aux, grads = _jax_grads(jtrainer, params, batch, c)
     # the JAX _sgd_step's Adam step on these (unchunked) gradients
     updates, _ = jtrainer.tx.update(grads, jtrainer.train_state.opt_state, params)
     new_params = optax.apply_updates(params, updates)
@@ -222,16 +307,26 @@ def check_minibatch_update(trainer, jtrainer):
     trainer.optimizer.zero_grad(set_to_none=True)
     total, aux_t = trainer._accumulate_grads(batch_t, c.clip_eps, c.beta,
                                              trainer._feedforward_loss)
-    np.testing.assert_allclose(float(total), float(loss), rtol=2e-6, atol=1e-7)
-    np.testing.assert_allclose(aux_t.numpy(), np.array([float(a) for a in aux]),
-                               rtol=2e-6, atol=1e-7)
+    if mixed_precision:
+        check_bf16_projections(trainer, jtrainer)
+    # the loss parts the bf16 projections reach (value, baseline) take
+    # _grad_atol's bf16 class: one bf16 step of their size
+    rtol = np.array([2e-6, *[2.0 ** -8 if mixed_precision else 2e-6] * 2, 2e-6])
+    gap = np.abs(aux_t.numpy() - aux)
+    assert np.all(gap <= 1e-7 + rtol * np.abs(aux)), (
+        f"loss parts (policy, value, baseline, entropy) {aux_t.numpy()} against {aux}")
+    # total = policy + 0.5·value + 0.25·baseline − β·entropy
+    slack = float(np.dot([0, 0.5, 0.25, 0], (rtol - 2e-6) * np.abs(aux)))
+    np.testing.assert_allclose(float(total), loss, rtol=2e-6, atol=1e-7 + slack)
     got, want = _flat_grads(trainer), _flax_flat(grads)
     assert got.keys() == want.keys()
     for name, w in want.items():
         w = np.asarray(w)
-        scale = max(float(np.abs(w).max()), 1e-3)
-        np.testing.assert_allclose(got[name].numpy(), w, rtol=0, atol=3e-5 * scale,
-                                   err_msg=f"gradient of {name} (fused_attention={fused})")
+        assert got[name].dtype == torch.float32, name
+        np.testing.assert_allclose(got[name].numpy(), w, rtol=0,
+                                   atol=_grad_atol(name, w, mixed_precision),
+                                   err_msg=f"gradient of {name} (fused_attention={fused}, "
+                                           f"mixed_precision={mixed_precision})")
     ops.reset_launches()
     trainer._sgd_step(batch_t, c.clip_eps, c.beta, trainer._feedforward_loss)
     assert not any(ops.launches.values())
